@@ -1,0 +1,1167 @@
+"""Alg. 2 — constraint-aware architecture search, plus the engine layer.
+
+The port of `repro.core.search`'s min-EDP half. The paper-level entry points:
+
+  * `dxpta_search`      — the paper's Alg. 2: significance-guided candidate
+                          sets, feasible min-EDP selection (`prune=True`
+                          skips the workload evaluation once area/power
+                          already violate).
+  * `exhaustive_search` — the paper's baseline: the full 1..N_z grid.
+
+The engine layer (`search` / `search_workloads`) has three interchangeable
+backends over the same cost model, all returning identical `SearchResult`s:
+
+  * `python` — the paper-faithful Alg. 2 sequential loop (the oracle);
+  * `numpy`  — the whole grid as one broadcasted float64 computation;
+  * `cuda`   — the fused CUDA search kernels (`kernels/dse_eval.py`):
+               feasibility, EDP and a per-block argmin inside the kernel,
+               so only a (3W, n_blocks) reduction leaves the device.
+
+`hierarchical=True` adds the area/power-only prefilter (`hw_prefilter`, plain
+torch float32 on the search's device) before the workload evaluation;
+`search_workloads` batches every workload into one cuda launch. `chunk_size=`
+streams the grid (or the factorized index space) with a running argmin
+carried across chunks — into the kernels on cuda. `factorized=True`
+evaluates a product space from per-axis tables (numpy) or decodes the
+candidates on device (cuda), and `prune="bound"` runs the significance-
+ordered branch-and-bound over slabs of that space. Whichever backend picks
+the winner, its reported metrics are recomputed through the float64
+reference model (`eval_full`).
+
+Every entry point takes `device=`: "cuda" (the default) launches the
+kernels and runs the prefilter on the card, and raises when no card is
+present; "cpu" runs the kernels' plain PyTorch versions. What the JAX
+package has beyond this slice — `objective="pareto"`, `shard>1`,
+`runtime=`, `keep_ledger=`, `workers=`, `calibration=`, `robust=` and the
+`torch` engine (the `jax` engine's counterpart) — raises
+NotImplementedError naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+from typing import Dict, Mapping, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from .arch_params import Constraints, PTAConfig, config_grid
+from .factorized import FactorizedSpace, factorized_evaluate_grid
+from .performance_model import calc_edp, eval_full, eval_wload_arrays
+from .photonic_model import (CONSTANTS, DeviceConstants, area_breakdown,
+                             eval_hw, power_breakdown, sram_mb_for_workload)
+from .significance import SignificanceScore, observe_significance, significant_params
+from .workload import Workload
+
+# Metric arrays reported per evaluated point (every evaluate_grid key).
+REPORT_METRICS = ("area", "power", "energy", "latency", "util", "edp")
+
+# What the JAX package supports beyond this slice, with the ROADMAP.md
+# Queue 1 item that ports it.
+_LATER = {
+    "engine": (6, "the torch engine"),
+    "objective": (7, "Pareto search"),
+    "shard": (8, "sharding across CUDA devices"),
+    "calibration": (9, "calibration and robust search"),
+    "robust": (9, "calibration and robust search"),
+    "runtime": (10, "the resilient runtime"),
+    "keep_ledger": (11, "serve (slab ledgers)"),
+    "workers": (13, "the slab scheduler"),
+}
+
+
+def _not_ported(arg: str, value) -> NotImplementedError:
+    item, title = _LATER[arg]
+    return NotImplementedError(
+        f"{arg}={value!r} is not ported to repro_torch yet: ROADMAP.md "
+        f"Queue 1 item {item} ({title})")
+
+
+@dataclasses.dataclass
+class SearchResult:
+    """Feasible min-EDP selection.
+
+    `best_cfg` is the winning config (None when nothing satisfied the
+    constraints) and the metric fields its float64 reference-model
+    evaluation. The counters record how much work the search did and,
+    under `prune="bound"`, how much it skipped.
+    """
+
+    best_cfg: Optional[PTAConfig]
+    area_mm2: float = float("nan")
+    power_w: float = float("nan")
+    energy_j: float = float("nan")
+    latency_s: float = float("nan")
+    edp: float = float("inf")
+    n_evaluated: int = 0
+    n_feasible: int = 0
+    n_workload_evals: int = 0
+    wall_time_s: float = 0.0
+    # Bound-guided search (prune="bound") counters: configs skipped by the
+    # admissible slab bounds and slab bound evaluations performed.
+    n_pruned: int = 0
+    n_bounds: int = 0
+    # Optional (collect=True): per-candidate metric arrays for Fig. 9 scatter.
+    history: Optional[Dict[str, np.ndarray]] = None
+
+    @property
+    def feasible(self) -> bool:
+        """True when the search found any constraint-satisfying config."""
+        return self.best_cfg is not None
+
+    @property
+    def pruned_fraction(self) -> float:
+        """Fraction of the candidate space the bound pruning skipped."""
+        return self.n_pruned / max(self.n_evaluated, 1)
+
+
+def progressive_candidates(n_z: int, step: int,
+                           align_dims: Optional[Sequence[int]] = None):
+    """Candidate set for the non-significant parameters (Alg. 2 lines 3-8):
+    {step, 2*step, ...} <= n_z, optionally joined with the divisors of the
+    workload's evenly-sized data dimensions."""
+    base = list(range(step, n_z + 1, step))
+    if not align_dims:
+        return base
+    divisors = sorted({d for dim in align_dims for d in range(2, n_z + 1)
+                       if dim % d == 0})
+    return sorted(set(base) | set(divisors)) if divisors else base
+
+
+def build_search_space(n_z: int = 12, step: int = 2,
+                       significance: Optional[Dict[str, SignificanceScore]] = None,
+                       align_dims: Optional[Sequence[int]] = None):
+    """Candidate sets per parameter, driven by Alg. 1 significance output:
+    the top-2 significant parameters get 1..N_z, the rest progressive
+    sets."""
+    significance = significance or observe_significance()
+    fine = set(significant_params(significance, top_k=2))
+    inc = list(range(1, n_z + 1))
+    prog = progressive_candidates(n_z, step, align_dims)
+    return {name: (inc if name in fine else prog)
+            for name in ("n_t", "n_c", "n_h", "n_v", "n_lambda")}
+
+
+def _space_to_grid(space) -> np.ndarray:
+    return config_grid(space["n_t"], space["n_c"], space["n_v"],
+                       space["n_h"], space["n_lambda"])
+
+
+def _sequential_search(grid: np.ndarray, wl: Workload, constraints: Constraints,
+                       prune: bool, collect: bool, c: DeviceConstants,
+                       edp_init: float = 1000.0) -> SearchResult:
+    """Shared Alg. 2-style sequential loop (also the exhaustive baseline,
+    with pruning disabled). `edp_init` defaults to the paper's EDP_svd cap;
+    the engine layer passes inf to match the uncapped vectorized engines."""
+    sram_mb = sram_mb_for_workload(wl.max_act_bytes, c)
+    gemms = wl.gemm_array
+    best = SearchResult(best_cfg=None, edp=edp_init)  # EDP_svd init (Alg. 2)
+    hist = {k: [] for k in ("area", "power", "energy", "latency",
+                            "feasible")} if collect else None
+    n_wl = 0
+    n_feasible = 0
+    t0 = time.perf_counter()
+    for row in grid:
+        n_t, n_c, n_h, n_v, n_l = (int(x) for x in row)
+        area, power = eval_hw(n_t, n_c, n_h, n_v, n_l, sram_mb, c)
+        hw_ok = (area < constraints.area_mm2) and (power < constraints.power_w)
+        if prune and not hw_ok:
+            if collect:
+                for k, v in (("area", area), ("power", power),
+                             ("energy", np.nan), ("latency", np.nan),
+                             ("feasible", False)):
+                    hist[k].append(v)
+            continue
+        energy, latency, _ = eval_wload_arrays(
+            n_t, n_c, n_h, n_v, n_l, gemms, wl.elec_ops, wl.weight_bytes,
+            wl.act_io_bytes, sram_mb, c)
+        energy, latency = float(energy), float(latency)
+        n_wl += 1
+        ok = hw_ok and (energy < constraints.energy_j) \
+            and (latency < constraints.latency_s)
+        if collect:
+            for k, v in (("area", area), ("power", power), ("energy", energy),
+                         ("latency", latency), ("feasible", ok)):
+                hist[k].append(v)
+        if not ok:
+            continue
+        n_feasible += 1
+        edp = calc_edp(energy, latency)
+        if edp < best.edp:
+            best = SearchResult(
+                best_cfg=PTAConfig(n_t, n_c, n_h, n_v, n_l),
+                area_mm2=float(area), power_w=float(power), energy_j=energy,
+                latency_s=latency, edp=edp)
+    best.n_evaluated = len(grid)
+    best.n_feasible = n_feasible
+    best.n_workload_evals = n_wl
+    best.wall_time_s = time.perf_counter() - t0
+    if collect:
+        best.history = {k: np.asarray(v) for k, v in hist.items()}
+    return best
+
+
+def dxpta_search(wl: Workload, constraints: Constraints = Constraints(),
+                 n_z: int = 12, step: int = 2,
+                 significance: Optional[Dict[str, SignificanceScore]] = None,
+                 align_dims: Optional[Sequence[int]] = None,
+                 prune: Union[bool, str] = True, collect: bool = False,
+                 c: DeviceConstants = CONSTANTS, engine: str = "python",
+                 device=None, factorized: bool = False) -> SearchResult:
+    """The paper's constraint-aware search (Alg. 2).
+
+    `engine` dispatches the significance-reduced grid to any backend of the
+    engine layer; `prune` maps to the hierarchical two-phase pass there
+    (`prune="bound"` to the branch-and-bound driver over the candidate
+    sets' product space). The default `python` engine is the paper-faithful
+    sequential loop, including the EDP_svd=1000 initial cap; `collect=True`
+    requires it. `factorized=True` hands the candidate sets to the
+    factorized product-space evaluation (numpy/cuda engines).
+    """
+    dev = resolve_device(device)
+    if collect and engine != "python":
+        raise ValueError("collect=True (per-candidate history) is only "
+                         "implemented by the python engine")
+    space = build_search_space(n_z, step, significance, align_dims)
+    if prune == "bound":
+        return search(wl, constraints, engine=engine, factorized=True,
+                      space=space, c=c, device=dev, prune="bound")
+    if factorized:
+        return search(wl, constraints, engine=engine, factorized=True,
+                      space=space, c=c, device=dev)
+    grid = _space_to_grid(space)
+    if engine == "python":
+        return _sequential_search(grid, wl, constraints, prune, collect, c)
+    return search(wl, constraints, engine=engine, grid=grid,
+                  hierarchical=prune, c=c, device=dev)
+
+
+def exhaustive_search(wl: Workload, constraints: Constraints = Constraints(),
+                      n_z: int = 12, collect: bool = False,
+                      c: DeviceConstants = CONSTANTS) -> SearchResult:
+    """The paper's exhaustive baseline: full 1..N_z grid on all parameters."""
+    inc = list(range(1, n_z + 1))
+    grid = config_grid(inc, inc, inc, inc, inc)
+    return _sequential_search(grid, wl, constraints, prune=False,
+                              collect=collect, c=c)
+
+
+def evaluate_grid(grid: np.ndarray, wl: Workload,
+                  c: DeviceConstants = CONSTANTS):
+    """Float64 metrics for a (G, 5) config grid: dict of (G,) arrays area,
+    power, energy, latency, util, edp."""
+    sram_mb = sram_mb_for_workload(wl.max_act_bytes, c)
+    g = np.asarray(grid)
+    cols = [g[:, i] for i in range(5)]
+    area, power = eval_hw(*cols, sram_mb, c)
+    energy, latency, util = eval_wload_arrays(
+        *cols, wl.gemm_array, wl.elec_ops, wl.weight_bytes, wl.act_io_bytes,
+        sram_mb, c)
+    return {"area": area, "power": power, "energy": energy,
+            "latency": latency, "util": util, "edp": energy * latency}
+
+
+def grid_search_vectorized(wl: Workload,
+                           constraints: Constraints = Constraints(),
+                           grid: Optional[np.ndarray] = None, n_z: int = 12,
+                           c: DeviceConstants = CONSTANTS) -> SearchResult:
+    """Beyond-paper: whole-grid broadcasted float64 evaluation."""
+    if grid is None:
+        inc = list(range(1, n_z + 1))
+        grid = config_grid(inc, inc, inc, inc, inc)
+    t0 = time.perf_counter()
+    m = evaluate_grid(grid, wl, c)
+    ok = constraints.satisfied(m["area"], m["power"], m["energy"],
+                               m["latency"])
+    edp = np.where(ok, m["edp"], np.inf)
+    n_feasible = int(np.sum(ok))
+    wall = time.perf_counter() - t0
+    if n_feasible == 0:
+        return SearchResult(best_cfg=None, n_evaluated=len(grid),
+                            n_feasible=0, n_workload_evals=len(grid),
+                            wall_time_s=wall)
+    i = int(np.argmin(edp))
+    return SearchResult(
+        best_cfg=PTAConfig.from_array(grid[i]),
+        area_mm2=float(m["area"][i]), power_w=float(m["power"][i]),
+        energy_j=float(m["energy"][i]), latency_s=float(m["latency"][i]),
+        edp=float(edp[i]), n_evaluated=len(grid), n_feasible=n_feasible,
+        n_workload_evals=len(grid), wall_time_s=wall)
+
+
+# ---------------------------------------------------------------------------
+# Unified engine layer: python | numpy | cuda
+# ---------------------------------------------------------------------------
+
+def _full_grid(n_z: int) -> np.ndarray:
+    inc = list(range(1, n_z + 1))
+    return config_grid(inc, inc, inc, inc, inc)
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def _hw_prefix(cols: torch.Tensor, c: DeviceConstants):
+    """Workload-independent float32 area/power prefix columns.
+
+    The derived SRAM size is the only workload dependence of the hardware
+    model, and its term sits second-to-last in `eval_hw`'s component sum —
+    so summing every component before it once per grid (in the breakdowns'
+    dict order), then `(prefix + sram * coef) + chip_fixed` per workload,
+    reproduces the reference prefilter's float32 value: same additions,
+    same order."""
+    five = tuple(cols[i] for i in range(5))
+
+    def prefix(breakdown):
+        total = None
+        for key, term in breakdown(*five, 0.0, c).items():
+            if key == "memory":  # chip_misc follows it — stop before
+                return total
+            total = term if total is None else total + term
+
+    return prefix(area_breakdown), prefix(power_breakdown)
+
+
+def hw_prefilter_masks(grid: np.ndarray, wls: Sequence[Workload],
+                       constraints_seq: Sequence[Constraints],
+                       c: DeviceConstants = CONSTANTS, device=None):
+    """Per-workload area/power feasibility masks over one grid, in plain
+    torch float32 on `device`.
+
+    The base columns are computed once per grid; each distinct
+    (sram_mb, area bound, power bound) bucket then costs one affine compare
+    (the paper's five workloads share bounds and several share the derived
+    SRAM size). Returns a list of (G,) boolean numpy masks aligned with
+    `wls`."""
+    dev = resolve_device(device)
+    cols = torch.from_numpy(
+        np.ascontiguousarray(np.asarray(grid).T, np.float32)).to(dev)
+    area0, power0 = _hw_prefix(cols, c)
+    keys = [(float(sram_mb_for_workload(wl.max_act_bytes, c)),
+             float(cc.area_mm2), float(cc.power_w))
+            for wl, cc in zip(wls, constraints_seq)]
+    by_key = {}
+    for key in sorted(set(keys)):
+        sram = torch.tensor(key[0], dtype=torch.float32, device=dev)
+        area = (area0 + sram * c.a_sram_per_mb) + c.a_chip_fixed
+        power = (power0 + sram * c.p_sram_per_mb) + c.p_chip_fixed
+        by_key[key] = ((area < _f32(key[1])) & (power < _f32(key[2]))) \
+            .cpu().numpy()
+    return [by_key[key] for key in keys]
+
+
+def hw_prefilter(grid: np.ndarray, wl: Workload, constraints: Constraints,
+                 c: DeviceConstants = CONSTANTS, device=None) -> np.ndarray:
+    """Phase-1 mask of the hierarchical search: area/power feasibility only
+    (no workload term), one float32 sweep of the grid on `device`."""
+    return hw_prefilter_masks(grid, [wl], [constraints], c, device)[0]
+
+
+def _make_result(cfg_row, n_feasible: int, wl: Workload, c: DeviceConstants,
+                 n_evaluated: int, n_workload_evals: int,
+                 wall: float) -> SearchResult:
+    """Finalize an engine's selection through the float64 reference model so
+    reported metrics are bit-identical across backends."""
+    if cfg_row is None:
+        return SearchResult(best_cfg=None, n_evaluated=n_evaluated,
+                            n_feasible=0, n_workload_evals=n_workload_evals,
+                            wall_time_s=wall)
+    cfg = PTAConfig.from_array(cfg_row)
+    area, power, energy, latency = eval_full(cfg, wl, c)[:4]
+    return SearchResult(
+        best_cfg=cfg, area_mm2=area, power_w=power, energy_j=energy,
+        latency_s=latency, edp=calc_edp(energy, latency),
+        n_evaluated=n_evaluated, n_feasible=n_feasible,
+        n_workload_evals=n_workload_evals, wall_time_s=wall)
+
+
+def _prefiltered(grid, wl, constraints, c, hierarchical, device):
+    """(survivor subset, n_workload_evals) for one workload."""
+    if not hierarchical:
+        return grid, len(grid)
+    sub = grid[hw_prefilter(grid, wl, constraints, c, device)]
+    return sub, len(sub)
+
+
+def _python_engine(grid, wl, constraints, c, hierarchical, device):
+    r = _sequential_search(grid, wl, constraints, prune=hierarchical,
+                           collect=False, c=c, edp_init=float("inf"))
+    row = None if r.best_cfg is None else r.best_cfg.as_array()
+    return _make_result(row, r.n_feasible, wl, c, len(grid),
+                        r.n_workload_evals, r.wall_time_s)
+
+
+def _numpy_engine(grid, wl, constraints, c, hierarchical, device):
+    t0 = time.perf_counter()
+    sub, n_wl = _prefiltered(grid, wl, constraints, c, hierarchical, device)
+    if len(sub) == 0:
+        return _make_result(None, 0, wl, c, len(grid), 0,
+                            time.perf_counter() - t0)
+    m = evaluate_grid(sub, wl, c)
+    ok = np.asarray(constraints.satisfied(m["area"], m["power"],
+                                          m["energy"], m["latency"]))
+    n_feasible = int(ok.sum())
+    if n_feasible == 0:
+        return _make_result(None, 0, wl, c, len(grid), n_wl,
+                            time.perf_counter() - t0)
+    edp = np.where(ok, m["edp"], np.inf)
+    return _make_result(sub[int(np.argmin(edp))], n_feasible, wl, c,
+                        len(grid), n_wl, time.perf_counter() - t0)
+
+
+def _cuda_engine(grid, wl, constraints, c, hierarchical, device):
+    from ..kernels.ops import dse_search_grid  # deferred: kernels import core
+    t0 = time.perf_counter()
+    sub, n_wl = _prefiltered(grid, wl, constraints, c, hierarchical, device)
+    if len(sub) == 0:
+        return _make_result(None, 0, wl, c, len(grid), 0,
+                            time.perf_counter() - t0)
+    i, _, nf = dse_search_grid(sub, wl, constraints, c, device)
+    row = sub[i] if i >= 0 else None
+    return _make_result(row, nf, wl, c, len(grid), n_wl,
+                        time.perf_counter() - t0)
+
+
+ENGINES = {"python": _python_engine, "numpy": _numpy_engine,
+           "cuda": _cuda_engine}
+
+
+# ---------------------------------------------------------------------------
+# Streamed evaluation (chunk_size=): a running argmin carried across chunks
+# of the grid — on cuda into the kernels' carry operand. Exact: any
+# chunk_size returns the one-shot sweep's bytes.
+# ---------------------------------------------------------------------------
+
+def _iter_chunks(grid, chunk_size: int):
+    for s in range(0, len(grid), chunk_size):
+        yield grid[s:s + chunk_size]
+
+
+def merge_running_best(carry, candidate):
+    """Cross-chunk running-argmin reduction over (row, edp) pairs.
+
+    Strict-< replacement: exact EDP ties keep the incumbent, which arrived
+    from an earlier chunk and therefore has the lower grid index."""
+    row, edp = candidate
+    if row is not None and edp < carry[1]:
+        return (row, edp)
+    return carry
+
+
+def _edp_chunk_python(chunk, wl, constraints, c, hierarchical, device):
+    r = _sequential_search(chunk, wl, constraints, prune=hierarchical,
+                           collect=False, c=c, edp_init=float("inf"))
+    row = None if r.best_cfg is None else r.best_cfg.as_array()
+    return row, r.edp, r.n_feasible, r.n_workload_evals
+
+
+def _edp_chunk_numpy(chunk, wl, constraints, c, hierarchical, device):
+    sub, n_wl = _prefiltered(chunk, wl, constraints, c, hierarchical, device)
+    if len(sub) == 0:
+        return None, float("inf"), 0, n_wl
+    m = evaluate_grid(sub, wl, c)
+    ok = np.asarray(constraints.satisfied(m["area"], m["power"],
+                                          m["energy"], m["latency"]))
+    if not ok.any():
+        return None, float("inf"), 0, n_wl
+    edp = np.where(ok, m["edp"], np.inf)
+    i = int(np.argmin(edp))
+    return sub[i], float(edp[i]), int(ok.sum()), n_wl
+
+
+def _edp_chunk_cuda(chunk, wl, constraints, c, hierarchical, device,
+                    carry_edp):
+    from ..kernels.ops import dse_search_grid
+    sub, n_wl = _prefiltered(chunk, wl, constraints, c, hierarchical, device)
+    if len(sub) == 0:
+        return None, float("inf"), 0, n_wl
+    i, e, nf = dse_search_grid(sub, wl, constraints, c, device,
+                               carry_edp=carry_edp)
+    return (sub[i] if i >= 0 else None), e, nf, n_wl
+
+
+EDP_CHUNK_ENGINES = {"python": _edp_chunk_python, "numpy": _edp_chunk_numpy}
+
+
+def _search_streamed(grid, wl, constraints, engine, hierarchical, c, device,
+                     chunk_size) -> SearchResult:
+    """Chunked min-EDP driver, any engine."""
+    t0 = time.perf_counter()
+    n = len(grid)
+    cs = int(chunk_size) if chunk_size else max(n, 1)
+    best = (None, float("inf"))
+    nf = n_wl = 0
+    for chunk in _iter_chunks(grid, cs):
+        if engine == "cuda":
+            # The kernel folds the carried best into its own reduction
+            # (carry wins ties), so per-chunk launches compose on device.
+            carry = best[1] if best[0] is not None else None
+            row, e, cf, cw = _edp_chunk_cuda(chunk, wl, constraints, c,
+                                             hierarchical, device, carry)
+        else:
+            row, e, cf, cw = EDP_CHUNK_ENGINES[engine](
+                chunk, wl, constraints, c, hierarchical, device)
+        nf += cf
+        n_wl += cw
+        best = merge_running_best(best, (row, e))
+    return _make_result(best[0], nf, wl, c, n, n_wl, time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# Factorized product-space evaluation (factorized=True)
+# ---------------------------------------------------------------------------
+
+FACTORIZED_ENGINES = ("numpy", "cuda")
+
+
+def _factorized_space(space, grid, n_z, engine, hierarchical
+                      ) -> FactorizedSpace:
+    if engine not in FACTORIZED_ENGINES:
+        raise ValueError(f"factorized=True supports engines "
+                         f"{FACTORIZED_ENGINES}, not {engine!r}")
+    if grid is not None:
+        raise ValueError("factorized=True evaluates a product space; pass "
+                         "the candidate sets via space= (or n_z=), not a "
+                         "materialized grid")
+    if hierarchical:
+        raise ValueError("hierarchical=True is incompatible with "
+                         "factorized=True: survivor compaction would break "
+                         "the product structure (the factorized combine "
+                         "already evaluates area/power at axis-table cost)")
+    fspace = (FactorizedSpace.full(n_z) if space is None
+              else FactorizedSpace.from_space(space))
+    if engine == "cuda" and fspace.size > 1 << 24:
+        raise ValueError(
+            f"the factorized cuda engine addresses configs by float32 "
+            f"global index, exact only below 2**24 points; this space has "
+            f"{fspace.size}. Use the numpy factorized engine (exact integer "
+            f"indices) for spaces this large.")
+    return fspace
+
+
+def _np_factorized_metrics(fspace, wl, c, start, stop):
+    """Float64 factorized metrics for an index span (the whole space goes
+    through the index-free broadcast combine)."""
+    if (start, stop) == (0, fspace.size):
+        return factorized_evaluate_grid(fspace, wl, c)
+    return factorized_evaluate_grid(
+        fspace, wl, c, idx=np.arange(start, stop, dtype=np.int64))
+
+
+def _merge_best_indexed(best, cand):
+    """Running argmin over (global index, edp) pairs: strictly lower EDP
+    wins, exact EDP ties go to the lower flat-space index. Index -1 (or
+    CARRY_IDX) means 'no candidate'."""
+    gi, ge = cand
+    if gi < 0:
+        return best
+    bi, be = best
+    if bi < 0 or ge < be or (ge == be and gi < bi):
+        return cand
+    return best
+
+
+def _edp_from_metrics(m, constraints, index_of):
+    """(best gidx or -1, its EDP, n_feasible) of float64 metric arrays."""
+    ok = np.asarray(constraints.satisfied(m["area"], m["power"],
+                                          m["energy"], m["latency"]))
+    if not ok.any():
+        return -1, float("inf"), 0
+    edp = np.where(ok, m["edp"], np.inf)
+    i = int(np.argmin(edp))
+    return index_of(i), float(edp[i]), int(ok.sum())
+
+
+def _edp_span_numpy_factorized(fspace, wl, constraints, c, start, n):
+    """(best gidx or -1, EDP, n_feasible) over an index span."""
+    m = _np_factorized_metrics(fspace, wl, c, start, start + n)
+    return _edp_from_metrics(m, constraints, lambda i: start + i)
+
+
+def _edp_idx_numpy(fspace, wl, constraints, c, idx_arr):
+    """(best gidx or -1, EDP, n_feasible) over an explicit ascending
+    flat-index vector, float64 metrics — the numpy bound-guided leaf."""
+    part = np.asarray(idx_arr, np.int64)
+    if len(part) == 0:
+        return -1, float("inf"), 0
+    m = factorized_evaluate_grid(fspace, wl, c, idx=part)
+    return _edp_from_metrics(m, constraints, lambda i: int(part[i]))
+
+
+def _iter_spans(size: int, chunk_size):
+    cs = int(chunk_size) if chunk_size else max(size, 1)
+    for s in range(0, size, cs):
+        yield s, min(cs, size - s)
+
+
+def _search_factorized(fspace, wl, constraints, engine, c, device,
+                       chunk_size) -> SearchResult:
+    """Factorized min-EDP driver (one-shot is the single-span case)."""
+    from ..kernels.ops import dse_search_multi_factorized
+    t0 = time.perf_counter()
+    best = (-1, float("inf"))
+    nf = n_wl = 0
+    for s, n in _iter_spans(fspace.size, chunk_size):
+        if engine == "cuda":
+            carry = best[1] if best[0] >= 0 else None
+            (gi,), (e,), (cf,) = dse_search_multi_factorized(
+                fspace, s, n, [wl], [constraints], c, device,
+                carry_edp=None if carry is None else [carry])
+        else:
+            gi, e, cf = _edp_span_numpy_factorized(fspace, wl, constraints,
+                                                   c, s, n)
+        nf += cf
+        n_wl += n
+        best = _merge_best_indexed(best, (gi, e))
+    row = fspace.decode([best[0]])[0] if best[0] >= 0 else None
+    return _make_result(row, nf, wl, c, fspace.size, n_wl,
+                        time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# Bound-guided branch-and-bound (prune="bound")
+#
+# The product space is split into mixed-radix slabs, most Alg. 1-significant
+# axis first; each slab is priced by admissible interval lower bounds
+# (core.factorized.SlabBoundEvaluator) and discarded when they already
+# violate a constraint or cannot beat the incumbent EDP. Winners are
+# byte-identical to the unpruned sweep; the slab tree, traversal order and
+# leaf size are fixed and engine-independent, so every engine and chunk_size
+# visits identical survivors and returns identical counters.
+# ---------------------------------------------------------------------------
+
+BNB_LEAF = 4096  # slab size at or below which a surviving slab is evaluated
+BNB_BATCH = 16384  # points per leaf-evaluation batch (incumbent refreshes)
+BNB_FINE = 16  # slab size floor of the post-incumbent refinement
+
+
+@functools.lru_cache(maxsize=8)
+def _bnb_axis_order(c: DeviceConstants = CONSTANTS):
+    """Meshgrid-axis indices ranked by Alg. 1 significance (descending),
+    ties broken toward the slower-varying (outer) meshgrid axis."""
+    from .factorized import AXIS_NAMES
+    scores = observe_significance(c=c)
+    return tuple(sorted(
+        range(5),
+        key=lambda ax: (-(scores[AXIS_NAMES[ax]].s_area
+                          + scores[AXIS_NAMES[ax]].s_power), ax)))
+
+
+def _bnb_infeasible_mask(lbs, constraints):
+    """(B,) mask of slabs whose constraint lower bounds already violate a
+    limit — every point inside is infeasible."""
+    return ((np.asarray(lbs["area"]) >= constraints.area_mm2)
+            | (np.asarray(lbs["power"]) >= constraints.power_w)
+            | (np.asarray(lbs["energy"]) >= constraints.energy_j)
+            | (np.asarray(lbs["latency"]) >= constraints.latency_s))
+
+
+def _slab_sizes(ranges_list) -> np.ndarray:
+    if len(ranges_list) == 0:
+        return np.zeros(0, np.int64)
+    arr = np.asarray(ranges_list, np.int64)
+    return np.prod(arr[:, :, 1] - arr[:, :, 0], axis=1)
+
+
+def _slab_first_indices(radices, ranges_list) -> np.ndarray:
+    """(B,) first (lowest) flat index of each slab — the deterministic
+    tie-break key of the best-first leaf ordering."""
+    strides = np.ones(5, np.int64)
+    for i in range(3, -1, -1):
+        strides[i] = strides[i + 1] * int(radices[i + 1])
+    if len(ranges_list) == 0:
+        return np.zeros(0, np.int64)
+    arr = np.asarray(ranges_list, np.int64)
+    return arr[:, :, 0] @ strides
+
+
+def _bnb_descend(ev, prune_mask_fn, start, start_lbs, leaf_size, stats, c):
+    """Slab-tree descent: process the active (B, 5, 2) digit-range array
+    level by level — one vectorized `lower_bounds_batch` call plus one
+    vectorized halving of the survivors along the significance order per
+    level. Returns the surviving ((L, 5, 2) leaves, {metric: (L,) bounds})."""
+    order = np.asarray(_bnb_axis_order(c))
+    active, lbs = np.asarray(start, np.int64).reshape(-1, 5, 2), start_lbs
+    leaf_parts = []
+    leaf_lbs = []
+    while len(active):
+        die = prune_mask_fn(lbs)
+        widths = active[:, :, 1] - active[:, :, 0]
+        sizes = np.prod(widths, axis=1)
+        stats["n_pruned"] += int(sizes[die].sum())
+        keep = ~die
+        is_leaf = keep & (sizes <= leaf_size)
+        leaf_parts.append(active[is_leaf])
+        leaf_lbs.append({k: v[is_leaf] for k, v in lbs.items()})
+        sub = active[keep & ~is_leaf]
+        if not len(sub):
+            break
+        # Each slab splits its most significant axis with width > 1 at
+        # mid = (lo + hi) // 2.
+        wid = (sub[:, :, 1] - sub[:, :, 0])[:, order] > 1
+        ax = order[np.argmax(wid, axis=1)]
+        rows = np.arange(len(sub))
+        lo = sub[rows, ax, 0]
+        hi = sub[rows, ax, 1]
+        mid = (lo + hi) // 2
+        left = sub.copy()
+        left[rows, ax, 1] = mid
+        right = sub.copy()
+        right[rows, ax, 0] = mid
+        active = np.concatenate([left, right])
+        lbs = ev.lower_bounds_batch(active)
+        stats["n_bounds"] += len(active)
+    leaves = (np.concatenate(leaf_parts) if leaf_parts
+              else np.zeros((0, 5, 2), np.int64))
+    out_lbs = {k: (np.concatenate([d[k] for d in leaf_lbs])
+                   if leaf_lbs else np.zeros(0))
+               for k in REPORT_METRICS}
+    return leaves, out_lbs
+
+
+def _bnb_frontier(fspace, ev, constraints, c, stats):
+    """Constraint-driven descent from the whole space to BNB_LEAF leaves."""
+    from .factorized import full_ranges
+    root = np.asarray([full_ranges(fspace.radices)], np.int64)
+    lbs = ev.lower_bounds_batch(root)
+    stats["n_bounds"] += 1
+    return _bnb_descend(ev, lambda b: _bnb_infeasible_mask(b, constraints),
+                        root, lbs, BNB_LEAF, stats, c)
+
+
+def _bnb_order(fspace, ranges_list, lbs) -> np.ndarray:
+    """Deterministic best-first permutation: ascending EDP lower bound, ties
+    broken by each leaf's first flat index."""
+    first = _slab_first_indices(fspace.radices, ranges_list)
+    return np.lexsort((first, lbs["edp"]))
+
+
+def _bnb_batch_slices(sizes: np.ndarray, max_points: Optional[int] = None):
+    """Consecutive [s, e) leaf slices of at most `max_points` total points
+    (default BNB_BATCH; a lone bigger leaf still forms its own slice)."""
+    cap = BNB_BATCH if max_points is None else int(max_points)
+    out = []
+    s = 0
+    pts = 0
+    for j, n in enumerate(sizes):
+        if j > s and pts + int(n) > cap:
+            out.append((s, j))
+            s, pts = j, 0
+        pts += int(n)
+    if s < len(sizes):
+        out.append((s, len(sizes)))
+    return out
+
+
+def _bnb_leaf_items(fspace, ranges, chunk_size):
+    """A leaf slab as decoded-launch work items [(start, count, slab), ...]:
+    the slab's bounding index range, chunked to at most `chunk_size` lanes
+    per launch (the kernel masks non-member lanes)."""
+    from .factorized import slab_bounding_span
+    b0, b1 = slab_bounding_span(fspace.radices, ranges)
+    cs = int(chunk_size) if chunk_size else b1 - b0
+    return [(s, min(cs, b1 - s), ranges) for s in range(b0, b1, cs)]
+
+
+def _bnb_eval_edp(engine, fspace, wl, constraints, c, device, ranges_list,
+                  chunk_size):
+    """(best gidx or -1, its engine EDP, n_feasible) over one batch of leaf
+    slabs.
+
+    numpy evaluates the batch's ascending index vector (chunked by
+    `chunk_size`). cuda picks its launch form per batch: coarse slabs (the
+    probe phase) go through the decoded span-list driver — one decoded
+    launch per leaf over its bounding span, the slab meta masking
+    non-members — while batches of fine refined slabs materialize just the
+    survivor rows for the grid-operand kernel, one launch per chunk."""
+    from .factorized import slab_indices_batch
+    best = (-1, float("inf"))
+    nf = 0
+    if engine == "cuda" and (_slab_sizes(ranges_list) > BNB_FINE).any():
+        from ..kernels.ops import dse_search_spans_factorized
+        for ranges in ranges_list:
+            items = _bnb_leaf_items(fspace, ranges, chunk_size)
+            bi, be, bn = dse_search_spans_factorized(
+                fspace, items, [wl], [constraints], c, device)
+            nf += int(bn[0])
+            best = _merge_best_indexed(best, (int(bi[0]), float(be[0])))
+        return best[0], best[1], nf
+    idx = slab_indices_batch(fspace.radices, ranges_list)
+    cs = int(chunk_size) if chunk_size else len(idx)
+    for s in range(0, len(idx), cs):
+        part = idx[s:s + cs]
+        if engine == "cuda":
+            from ..kernels.ops import dse_search_multi
+            rows = fspace.decode(part)
+            (bi,), (be,), (bn,) = dse_search_multi(
+                rows, [wl], [constraints], c, device)
+            gi, e, f = (int(part[bi]) if bi >= 0 else -1), float(be), \
+                int(bn)
+        else:
+            gi, e, f = _edp_idx_numpy(fspace, wl, constraints, c, part)
+        nf += f
+        best = _merge_best_indexed(best, (gi, e))
+    return best[0], best[1], nf
+
+
+def _search_factorized_bnb(fspace, wl, constraints, engine, c, device,
+                           chunk_size) -> SearchResult:
+    """Bound-guided min-EDP driver.
+
+    Phase 1 (`_bnb_frontier`): constraint-prune the slab tree down to
+    BNB_LEAF-sized leaves. Phase 2: *probe* — evaluate the most promising
+    leaves (ascending EDP lower bound) until an incumbent exists; *refine*
+    — re-split everything else down to BNB_FINE against the incumbent;
+    *sweep* — evaluate the refined survivors best-first in BNB_BATCH
+    batches, stopping once the smallest remaining bound clears the
+    incumbent.
+    """
+    from .factorized import cached_bound_evaluator
+    t0 = time.perf_counter()
+    ev = cached_bound_evaluator(fspace, wl, c)
+    stats = {"n_pruned": 0, "n_bounds": 0}
+    state = {"inc": float("inf"), "best": (-1, float("inf")),
+             "nf": 0, "n_eval": 0}
+    leaves, lbs = _bnb_frontier(fspace, ev, constraints, c, stats)
+
+    def evaluate(ranges_list, n_points):
+        gi, e, f = _bnb_eval_edp(engine, fspace, wl, constraints, c, device,
+                                 ranges_list, chunk_size)
+        state["nf"] += f
+        state["n_eval"] += n_points
+        merged = _merge_best_indexed(state["best"], (gi, e))
+        if merged is not state["best"]:
+            state["best"] = merged
+            # The pruning incumbent is the winner's float64 reference EDP,
+            # so the slab schedule is identical whichever engine proposed
+            # the winner.
+            cfg = PTAConfig.from_array(fspace.decode([merged[0]])[0])
+            _, _, energy, latency = eval_full(cfg, wl, c)[:4]
+            state["inc"] = calc_edp(energy, latency)
+
+    # Probe: evaluate best-first batches until an incumbent exists.
+    order = _bnb_order(fspace, leaves, lbs)
+    leaves = leaves[order]
+    lbs = {k: v[order] for k, v in lbs.items()}
+    sizes = _slab_sizes(leaves)
+    slices = _bnb_batch_slices(sizes)
+    bi = 0
+    while bi < len(slices) and state["inc"] == float("inf"):
+        s, e = slices[bi]
+        evaluate(leaves[s:e], int(sizes[s:e].sum()))
+        bi += 1
+    rs = slices[bi][0] if bi < len(slices) else len(leaves)
+
+    # Refine the remainder against the incumbent, then sweep the survivors
+    # best-first; the sorted early exit stops once the smallest remaining
+    # bound clears the incumbent.
+    inc_refine = state["inc"]
+    ready, rlbs = _bnb_descend(
+        ev,
+        lambda b: (_bnb_infeasible_mask(b, constraints)
+                   | (np.asarray(b["edp"]) > inc_refine)),
+        leaves[rs:], {k: v[rs:] for k, v in lbs.items()}, BNB_FINE,
+        stats, c)
+    order = _bnb_order(fspace, ready, rlbs)
+    ready = ready[order]
+    rlbs = {k: v[order] for k, v in rlbs.items()}
+    edp_lo = rlbs["edp"] if len(ready) else np.zeros(0)
+    sizes = _slab_sizes(ready)
+    for s, e in _bnb_batch_slices(sizes):
+        if edp_lo[s] > state["inc"]:
+            stats["n_pruned"] += int(sizes[s:].sum())
+            break
+        live = edp_lo[s:e] <= state["inc"]
+        stats["n_pruned"] += int(sizes[s:e][~live].sum())
+        evaluate(ready[s:e][live], int(sizes[s:e][live].sum()))
+    best = state["best"]
+    row = fspace.decode([best[0]])[0] if best[0] >= 0 else None
+    r = _make_result(row, state["nf"], wl, c, fspace.size, state["n_eval"],
+                     time.perf_counter() - t0)
+    r.n_pruned = stats["n_pruned"]
+    r.n_bounds = stats["n_bounds"]
+    return r
+
+
+def _workloads_cuda_factorized(wls, names, cons_for, fspace, c, device,
+                               chunk_size):
+    """Batched factorized driver: every span is one all-workloads decoded
+    launch, with per-workload carries between spans."""
+    from ..kernels.ops import dse_search_multi_factorized
+    t0 = time.perf_counter()
+    wl_list = [wls[nm] for nm in names]
+    cons_list = [cons_for(nm) for nm in names]
+    n_wl = 0
+    best = {nm: (None, float("inf")) for nm in names}
+    nf = {nm: 0 for nm in names}
+    for s, n in _iter_spans(fspace.size, chunk_size):
+        n_wl += n
+        carry = [best[nm][1] for nm in names]
+        bi, be, bn = dse_search_multi_factorized(
+            fspace, s, n, wl_list, cons_list, c, device, carry_edp=carry)
+        for nm, i, e, f in zip(names, bi, be, bn):
+            nf[nm] += f
+            if i >= 0:
+                best[nm] = (fspace.decode([i])[0], e)
+    wall = time.perf_counter() - t0
+    return {nm: _make_result(best[nm][0], nf[nm], wls[nm], c, fspace.size,
+                             n_wl, wall)
+            for nm in names}
+
+
+def _check_later_args(engine, objective, shard, runtime, keep_ledger,
+                      workers, calibration, robust):
+    """Refuse what the JAX package supports beyond this slice."""
+    if engine in ("torch", "jax"):
+        raise _not_ported("engine", engine)
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; pick from "
+                         f"{sorted(ENGINES)}")
+    if objective == "pareto":
+        raise _not_ported("objective", objective)
+    if objective != "edp":
+        raise ValueError(f"unknown objective {objective!r}; pick 'edp' "
+                         f"(or 'pareto', not ported yet)")
+    if shard is not None and int(shard) < 1:
+        raise ValueError(f"shard must be >= 1, got {shard!r}")
+    for arg, value, off in (("shard", shard, (None, 1)),
+                            ("runtime", runtime, (None,)),
+                            ("keep_ledger", keep_ledger, (False,)),
+                            ("workers", workers, (None,)),
+                            ("calibration", calibration, (None,)),
+                            ("robust", robust, (None,))):
+        if value not in off:
+            raise _not_ported(arg, value)
+
+
+def _check_stream_args(chunk_size):
+    if chunk_size is not None and int(chunk_size) < 1:
+        raise ValueError(f"chunk_size must be >= 1, got {chunk_size!r}")
+
+
+def _check_prune_arg(prune, factorized):
+    if prune is None:
+        return
+    if prune != "bound":
+        raise ValueError(f"unknown prune mode {prune!r}; the engine layer "
+                         f"supports prune='bound' (branch-and-bound slab "
+                         f"pruning) or None")
+    if not factorized:
+        raise ValueError("prune='bound' prices slabs of a product space "
+                         "via the factorized axis tables; it requires "
+                         "factorized=True (numpy/cuda engines)")
+
+
+def _check_grid(grid) -> np.ndarray:
+    """Reject malformed candidate grids up front (a wrong-shaped or
+    non-positive grid would surface as a silent zero-feasible result)."""
+    g = np.asarray(grid)
+    if g.ndim != 2 or (len(g) and g.shape[1] != 5):
+        raise ValueError(f"grid must be a (G, 5) array of config rows "
+                         f"(n_t, n_c, n_h, n_v, n_lambda); got shape "
+                         f"{g.shape}")
+    if len(g) == 0:
+        raise ValueError("grid is empty: no candidate configs to search")
+    if g.dtype.kind not in "iuf":
+        raise ValueError(f"grid must be numeric, got dtype {g.dtype}")
+    if g.dtype.kind == "f" and not np.isfinite(g).all():
+        raise ValueError("grid contains non-finite (NaN/Inf) entries")
+    if (g < 1).any():
+        raise ValueError("grid entries are parallelism degrees and must "
+                         "all be >= 1")
+    return g
+
+
+def search(wl: Workload, constraints: Constraints = Constraints(), *,
+           engine: str = "numpy", grid: Optional[np.ndarray] = None,
+           n_z: int = 12, hierarchical: bool = False,
+           c: DeviceConstants = CONSTANTS, device=None,
+           objective: str = "edp", shard: Optional[int] = None,
+           chunk_size: Optional[int] = None, factorized: bool = False,
+           space=None, prune: Optional[str] = None, runtime=None,
+           keep_ledger: bool = False, workers: Optional[int] = None,
+           calibration=None, robust: Optional[str] = None) -> SearchResult:
+    """Unified min-EDP search over a config grid.
+
+    Args:
+      engine: one of ENGINES (python, numpy, cuda). All return identical
+        results. Caveat: the cuda engine (and the hierarchical prefilter)
+        test feasibility in float32, so a config within one float32 ulp of
+        a constraint bound can classify differently than under the float64
+        python/numpy engines — real design points never ride that edge.
+      grid: (G, 5) candidate configs; defaults to the full 1..n_z grid.
+      hierarchical: area/power-only prefilter over the grid (float32, on
+        `device`), then workload evaluation on the survivors only.
+      device: "cuda" (default; raises without a card) or "cpu" (the plain
+        PyTorch versions of the kernels).
+      chunk_size: stream the grid (or index space) in chunks of this many
+        candidates with a running argmin carried across chunks.
+      factorized: evaluate a *product space* (`space=`, default the full
+        1..n_z space) from axis factor tables (numpy) or decoded on device
+        (cuda); hierarchical and an explicit `grid` are rejected.
+      prune: "bound" runs the branch-and-bound driver over the factorized
+        space; winners stay byte-identical to the unpruned sweep, with the
+        skipped volume in `n_pruned`. Requires factorized=True.
+      objective, shard, runtime, keep_ledger, workers, calibration,
+      robust: accepted for signature parity with `repro`; anything beyond
+        objective="edp", shard <= 1 and the defaults raises
+        NotImplementedError naming the ROADMAP item that ports it.
+    """
+    dev = resolve_device(device)
+    _check_later_args(engine, objective, shard, runtime, keep_ledger,
+                      workers, calibration, robust)
+    _check_stream_args(chunk_size)
+    _check_prune_arg(prune, factorized)
+    if factorized:
+        fspace = _factorized_space(space, grid, n_z, engine, hierarchical)
+        if prune == "bound":
+            return _search_factorized_bnb(fspace, wl, constraints, engine, c,
+                                          dev, chunk_size)
+        return _search_factorized(fspace, wl, constraints, engine, c, dev,
+                                  chunk_size)
+    if space is not None:
+        raise ValueError("space= requires factorized=True (pass grid= for "
+                         "materialized candidate sets)")
+    grid = _full_grid(n_z) if grid is None else _check_grid(grid)
+    if shard is not None or chunk_size is not None:
+        return _search_streamed(grid, wl, constraints, engine, hierarchical,
+                                c, dev, chunk_size)
+    return ENGINES[engine](grid, wl, constraints, c, hierarchical, dev)
+
+
+def _union_prefiltered(chunk, wls, names, cons_for, c, hierarchical, device):
+    """Union of the per-workload area/power survivor sets (the kernel still
+    applies each workload's exact constraints)."""
+    if not hierarchical:
+        return chunk
+    masks = hw_prefilter_masks(chunk, [wls[name] for name in names],
+                               [cons_for(name) for name in names], c, device)
+    union = np.zeros(len(chunk), dtype=bool)
+    for mask in masks:
+        union |= mask
+    return chunk[union]
+
+
+def _workloads_cuda_streamed(wls, names, cons_for, grid, hierarchical, c,
+                             device, chunk_size):
+    """Chunked batched driver: each chunk is one all-workloads launch, with
+    per-workload carried best EDPs between launches."""
+    from ..kernels.ops import dse_search_multi
+    t0 = time.perf_counter()
+    n = len(grid)
+    cs = int(chunk_size) if chunk_size else max(n, 1)
+    wl_list = [wls[nm] for nm in names]
+    cons_list = [cons_for(nm) for nm in names]
+    n_wl = 0
+    best = {nm: (None, float("inf")) for nm in names}
+    nf = {nm: 0 for nm in names}
+    for chunk in _iter_chunks(grid, cs):
+        sub = _union_prefiltered(chunk, wls, names, cons_for, c,
+                                 hierarchical, device)
+        n_wl += len(sub)
+        if len(sub) == 0:
+            continue
+        carry = [best[nm][1] for nm in names]
+        bi, be, bn = dse_search_multi(sub, wl_list, cons_list, c, device,
+                                      carry_edp=carry)
+        for nm, i, e, f in zip(names, bi, be, bn):
+            nf[nm] += f
+            if i >= 0:
+                best[nm] = (sub[i], e)
+    wall = time.perf_counter() - t0
+    return {nm: _make_result(best[nm][0], nf[nm], wls[nm], c, n, n_wl, wall)
+            for nm in names}
+
+
+def search_workloads(wls: Union[Mapping[str, Workload], Sequence[Workload]],
+                     constraints: Union[Constraints,
+                                        Mapping[str, Constraints]]
+                     = Constraints(), *,
+                     engine: str = "cuda",
+                     grid: Optional[np.ndarray] = None, n_z: int = 12,
+                     hierarchical: bool = False,
+                     c: DeviceConstants = CONSTANTS, device=None,
+                     objective: str = "edp", shard: Optional[int] = None,
+                     chunk_size: Optional[int] = None,
+                     factorized: bool = False, space=None,
+                     prune: Optional[str] = None, runtime=None,
+                     keep_ledger: bool = False,
+                     workers: Optional[int] = None,
+                     calibration=None, robust: Optional[str] = None
+                     ) -> Dict[str, SearchResult]:
+    """Batched search: many workloads against one grid.
+
+    On the `cuda` engine all workloads are evaluated in a single fused
+    kernel launch (their GEMM lists back to back in the parameter block,
+    constraints as a dynamic (W, 4) operand); other engines loop per
+    workload. With `hierarchical=True` the compacted grid is the union of
+    the per-workload area/power survivor sets. `chunk_size=` streams, each
+    chunk one all-workloads launch; `factorized=True` decodes the product
+    `space` on device; `prune="bound"` runs the branch-and-bound driver per
+    workload. Each result reports the whole batch's wall time.
+    """
+    dev = resolve_device(device)
+    if not isinstance(wls, Mapping):
+        wls = {wl.name: wl for wl in wls}
+    _check_later_args(engine, objective, shard, runtime, keep_ledger,
+                      workers, calibration, robust)
+    _check_stream_args(chunk_size)
+    _check_prune_arg(prune, factorized)
+    if grid is not None:
+        grid = _check_grid(grid)
+
+    def cons_for(name):
+        return constraints[name] if isinstance(constraints, Mapping) \
+            else constraints
+
+    def per_workload(**kw):
+        out = {name: search(wl, cons_for(name), engine=engine, n_z=n_z,
+                            c=c, device=dev, shard=shard,
+                            chunk_size=chunk_size, factorized=factorized,
+                            space=space, **kw)
+               for name, wl in wls.items()}
+        total = sum(r.wall_time_s for r in out.values())
+        for r in out.values():
+            r.wall_time_s = total
+        return out
+
+    if prune == "bound":
+        # Same argument contract as search(): validate here rather than
+        # silently searching the default product space.
+        _factorized_space(space, grid, n_z, engine, hierarchical)
+        return per_workload(prune="bound")
+    if factorized and engine == "cuda":
+        fspace = _factorized_space(space, grid, n_z, engine, hierarchical)
+        return _workloads_cuda_factorized(wls, list(wls), cons_for, fspace,
+                                          c, dev, chunk_size)
+    if engine != "cuda":
+        if grid is None and not factorized:
+            grid = _full_grid(n_z)  # materialize once, share across workloads
+        return per_workload(grid=grid, hierarchical=hierarchical)
+    if space is not None:
+        raise ValueError("space= requires factorized=True (pass grid= for "
+                         "materialized candidate sets)")
+    grid = np.asarray(_full_grid(n_z) if grid is None else grid)
+    names = list(wls)
+    if shard is not None or chunk_size is not None:
+        return _workloads_cuda_streamed(wls, names, cons_for, grid,
+                                        hierarchical, c, dev, chunk_size)
+
+    from ..kernels.ops import dse_search_multi
+    t0 = time.perf_counter()
+    sub = _union_prefiltered(grid, wls, names, cons_for, c, hierarchical,
+                             dev)
+    n_wl = len(sub)
+    if n_wl == 0:
+        wall = time.perf_counter() - t0
+        return {name: _make_result(None, 0, wls[name], c, len(grid), 0, wall)
+                for name in names}
+    best, _, nf = dse_search_multi(sub, [wls[n] for n in names],
+                                   [cons_for(n) for n in names], c, dev)
+    wall = time.perf_counter() - t0
+    return {name: _make_result(sub[i] if i >= 0 else None, f, wls[name], c,
+                               len(grid), n_wl, wall)
+            for name, i, f in zip(names, best, nf)}

@@ -1,0 +1,258 @@
+"""Host wrappers around the DSE kernels (the port of `repro/kernels/ops.py`'s
+DSE half, with "pallas" read as "cuda").
+
+  * `dse_eval_grid` / `cuda_grid_search` — the (G, 4) metrics field and the
+    legacy two-pass search built on it;
+  * `dse_search_grid` / `dse_search_multi` — the fused single-pass search of
+    W workloads over one materialized grid;
+  * `dse_search_multi_factorized` / `dse_search_spans_factorized` — the same
+    over index spans (optionally slab-masked) of a product space, configs
+    decoded on device;
+  * `decode_rows_device` — the on-device decode, as rows.
+
+Each takes `device=`: a CUDA device launches the kernels, "cpu" runs their
+plain PyTorch versions (see `kernels/dse_eval.py`). The reference's
+power-of-two bucketing of launch widths existed only to bound JAX's jit
+cache; the port launches exactly ceil(G / block) blocks, which returns the
+same wrapper-level results (extra blocks are all-invalid and reduce to the
+carry).
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..core.arch_params import PTAConfig
+from ..core.factorized import full_ranges
+from ..core.performance_model import workload_statics
+from ..core.photonic_model import CONSTANTS, DeviceConstants
+from ..core.workload import Workload
+from . import dse_eval as _dse
+
+
+def _cols(grid: np.ndarray, device) -> torch.Tensor:
+    """(G, 5) rows -> (5, G) float32 config columns on `device`."""
+    cols = np.ascontiguousarray(np.asarray(grid).T, np.float32)
+    return torch.from_numpy(cols).to(device)
+
+
+def dse_eval_grid(grid: np.ndarray, wl: Workload,
+                  c: DeviceConstants = CONSTANTS, device=None) -> np.ndarray:
+    """(G, 5) config grid -> (G, 4) float32 [area, power, energy, latency]
+    through the dse_eval kernel."""
+    dev = resolve_device(device)
+    gemms, wl_scalars = workload_statics(wl, c)
+    out = _dse.dse_eval_padded(_cols(grid, dev), gemms=gemms,
+                               wl_scalars=wl_scalars, constants=c)
+    return out.cpu().numpy().T
+
+
+def _constraint_rows(constraints_seq, device) -> torch.Tensor:
+    return torch.tensor([[cc.area_mm2, cc.power_w, cc.energy_j, cc.latency_s]
+                         for cc in constraints_seq], dtype=torch.float32,
+                        device=device)
+
+
+def _search_carry_rows(carry_edp, w: int, device) -> torch.Tensor:
+    """(W, 1) float32 carried-best-EDP operand (+inf = no carry)."""
+    arr = np.full((w, 1), np.inf, np.float32)
+    if carry_edp is not None:
+        arr[:, 0] = np.asarray(carry_edp, np.float64).astype(np.float32)
+    return torch.from_numpy(arr).to(device)
+
+
+def _reduce_blocks(out: np.ndarray, w: int, carry_edp):
+    """Per-workload (best_idx, best_edp, n_feasible) from the (3W, n_blocks)
+    reduction: min EDP across blocks, ties to the lowest index (CARRY_IDX
+    sorts before every real index, so a carried tie wins)."""
+    best_idx, best_edp, n_feasible = [], [], []
+    for wi in range(w):
+        edp_b, idx_b, nf_b = out[_dse.SEARCH_ROWS * wi:
+                                 _dse.SEARCH_ROWS * (wi + 1)]
+        nf = int(round(float(nf_b.sum())))
+        n_feasible.append(nf)
+        jb = np.lexsort((idx_b, edp_b))[0]
+        i = int(idx_b[jb])
+        best_edp.append(float(edp_b[jb]))
+        if nf == 0 and carry_edp is None:
+            best_idx.append(-1)
+            continue
+        best_idx.append(i if i >= 0 else int(_dse.CARRY_IDX))
+    return best_idx, best_edp, n_feasible
+
+
+def dse_search_grid(grid: np.ndarray, wl: Workload, constraints,
+                    c: DeviceConstants = CONSTANTS, device=None, *,
+                    carry_edp=None):
+    """Fused single-pass search: (best_idx, best_edp, n_feasible). best_idx
+    is -1 when nothing is feasible, CARRY_IDX (-2) when the carried-in
+    `carry_edp` beat (or tied) every feasible config."""
+    best, edp, nf = dse_search_multi(
+        grid, [wl], [constraints], c, device,
+        carry_edp=None if carry_edp is None else [carry_edp])
+    return best[0], edp[0], nf[0]
+
+
+def dse_search_multi(grid: np.ndarray, wls, constraints_seq,
+                     c: DeviceConstants = CONSTANTS, device=None, *,
+                     carry_edp=None):
+    """Batched fused search: W workloads x one grid in a single launch.
+
+    Returns (best_idx_per_wl, best_edp_per_wl, n_feasible_per_wl) lists;
+    best_idx is -1 when no config satisfies that workload's constraints
+    (and no carry was given), CARRY_IDX (-2) when the carried-in best
+    stands. n_feasible counts this grid only.
+    """
+    dev = resolve_device(device)
+    workloads = tuple(workload_statics(wl, c) for wl in wls)
+    cols = _cols(grid, dev)
+    mask = torch.ones((1, cols.shape[1]), dtype=torch.float32, device=dev)
+    out = _dse.dse_search_padded(
+        cols, mask, _constraint_rows(constraints_seq, dev),
+        _search_carry_rows(carry_edp, len(workloads), dev),
+        workloads=workloads, constants=c)
+    return _reduce_blocks(out.cpu().numpy(), len(workloads), carry_edp)
+
+
+# ---------------------------------------------------------------------------
+# Factorized-space launches: on-device candidate generation
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def _axes_operand(space, device):
+    """((5, max_radix) float32 candidate-value matrix, radices), resident on
+    `device` once per space (a search's repeated launches share it). Short
+    axes are padded with 1.0 — never selected by a valid lane, harmless if
+    an invalid lane's clamped gather reads them."""
+    radices = space.radices
+    arr = np.ones((5, max(radices)), np.float32)
+    for i, a in enumerate(space.axes):
+        arr[i, :len(a)] = a
+    return torch.from_numpy(arr).to(device), radices
+
+
+def _meta_rows(radices, bases, limit: int, slab=None) -> np.ndarray:
+    """(len(bases), META_COLS) int32 decode-kernel meta rows: [base, limit)
+    plus the five [lo, hi) slab digit ranges (the whole-space ranges when
+    `slab` is None — reducing the slab test to the plain span test)."""
+    ranges = full_ranges(radices) if slab is None else tuple(slab)
+    meta = np.zeros((len(bases), _dse.META_COLS), np.int32)
+    meta[:, 0] = bases
+    meta[:, 1] = limit
+    for ax, (lo, hi) in enumerate(ranges):
+        meta[:, 2 + 2 * ax] = lo
+        meta[:, 3 + 2 * ax] = hi
+    return meta
+
+
+def _check_decode_span(limit: int):
+    """The decode kernels emit *global* indices as float32, so any index at
+    or past 2**24 would silently round to a neighboring config. Refuse
+    instead of corrupting; spaces that big go through the numpy factorized
+    engine (exact int64 indices)."""
+    if limit > 1 << 24:
+        raise ValueError(
+            f"factorized cuda launches address configs by float32 global "
+            f"index, exact only below 2**24; this span reaches {limit}. "
+            f"Use the numpy factorized engine for larger spaces.")
+
+
+def _decoded_launch(space, start: int, count: int, workloads: tuple,
+                    c: DeviceConstants, cons, carry, dev, slab=None):
+    """One decoded search launch over [start, start + count), optionally
+    masked to a slab's digit ranges: the (3W, n_blocks) reduction."""
+    axes_cols, radices = _axes_operand(space, dev)
+    limit = min(start + count, space.size)
+    _check_decode_span(limit)
+    n_blocks = max(1, math.ceil(count / _dse.DECODE_BLOCK))
+    meta = torch.from_numpy(_meta_rows(radices, [start], limit, slab)[0]) \
+        .to(dev)
+    out = _dse.dse_search_decoded(axes_cols, meta, cons, carry,
+                                  radices=radices, n_blocks=n_blocks,
+                                  workloads=workloads, constants=c)
+    return out.cpu().numpy()
+
+
+def dse_search_multi_factorized(space, start: int, count: int, wls,
+                                constraints_seq,
+                                c: DeviceConstants = CONSTANTS, device=None,
+                                *, carry_edp=None, slab=None):
+    """Batched fused search over an index span of a product space.
+
+    Same contract as `dse_search_multi` — (best_idx, best_edp, n_feasible)
+    lists with the -1 / CARRY_IDX sentinels — except candidates live only
+    on device (decoded from `space`) and `best_idx` is a global flat-space
+    index. `slab` (five [lo, hi) digit ranges) masks the span's lanes to
+    the slab's members in-kernel.
+    """
+    dev = resolve_device(device)
+    workloads = tuple(workload_statics(wl, c) for wl in wls)
+    out = _decoded_launch(space, start, count, workloads, c,
+                          _constraint_rows(constraints_seq, dev),
+                          _search_carry_rows(carry_edp, len(workloads), dev),
+                          dev, slab)
+    return _reduce_blocks(out, len(workloads), carry_edp)
+
+
+def dse_search_spans_factorized(space, items, wls, constraints_seq,
+                                c: DeviceConstants = CONSTANTS, device=None,
+                                *, carry_edp=None):
+    """Compose `dse_search_multi_factorized` launches over a work list of
+    (start, count, slab) triples in ascending index order. Each workload's
+    running best EDP rides between launches through the kernels' carry
+    operand, so exact ties keep the earlier item's winner. Returns
+    (best_idx, best_edp, n_feasible) lists; best_idx is -1 when nothing was
+    feasible anywhere (or CARRY_IDX when only the caller's carry stands)."""
+    w = len(wls)
+    carry = list(carry_edp) if carry_edp is not None \
+        else [float("inf")] * w
+    best_idx = [-1 if carry_edp is None else int(_dse.CARRY_IDX)] * w
+    best_edp = list(carry)
+    n_feasible = [0] * w
+    for start, count, slab in items:
+        bi, be, bn = dse_search_multi_factorized(
+            space, start, count, wls, constraints_seq, c, device,
+            carry_edp=carry, slab=slab)
+        for wi in range(w):
+            n_feasible[wi] += bn[wi]
+            if bi[wi] >= 0:  # beat the carry (ties stay with the carry)
+                best_idx[wi], best_edp[wi] = bi[wi], be[wi]
+                carry[wi] = be[wi]
+    return best_idx, best_edp, n_feasible
+
+
+def decode_rows_device(space, start: int, count: int, device=None,
+                       slab=None) -> np.ndarray:
+    """(count, 5) int64 rows of space.to_grid()[start:start+count], decoded
+    on device by the decode kernel. With `slab`, only the span's
+    slab-member lanes survive the validity mask."""
+    dev = resolve_device(device)
+    axes_cols, radices = _axes_operand(space, dev)
+    n_blocks = max(1, -(-count // _dse.BLOCK))
+    limit = min(start + count, space.size)
+    _check_decode_span(limit)
+    meta = torch.from_numpy(_meta_rows(radices, [start], limit, slab)[0]) \
+        .to(dev)
+    out = _dse.dse_decode_rows(axes_cols, meta, radices=radices,
+                               n_blocks=n_blocks).cpu().numpy()
+    return out[:5, out[5] > 0.0].T.astype(np.int64)
+
+
+def cuda_grid_search(grid: np.ndarray, wl: Workload, constraints,
+                     c: DeviceConstants = CONSTANTS, device=None):
+    """Legacy two-pass kernel path: the full (G, 4) metrics on the host,
+    then a numpy select (mirrors grid_search_vectorized's rule). Kept as the
+    baseline the fused `dse_search_grid` is measured against; prefer
+    `core.search.search(..., engine="cuda")` for real searches."""
+    m = dse_eval_grid(grid, wl, c, device)
+    area, power, energy, latency = m.T
+    ok = constraints.satisfied(area, power, energy, latency)
+    edp = np.where(ok, energy * latency, np.inf)
+    if not np.isfinite(edp).any():
+        return None, m
+    i = int(np.argmin(edp))
+    return PTAConfig.from_array(grid[i]), m

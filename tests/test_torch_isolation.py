@@ -1,0 +1,81 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points run on the card unless the caller asks for the CPU.
+
+No numeric tolerance applies here; every check is exact (module names, raised
+errors, build flags).
+"""
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import repro_torch.core as P
+from repro_torch.core.paper_workloads import load
+from repro_torch.kernels import _build
+from repro_torch.kernels import ops
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+MODULES = ("repro_torch", "repro_torch.core", "repro_torch.core.search",
+           "repro_torch.core.factorized", "repro_torch.interop",
+           "repro_torch.kernels", "repro_torch.kernels.dse_eval",
+           "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+           "repro_torch.kernels._build")
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    code = ("import importlib, sys\n"
+            f"for m in {MODULES!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(repr(bad), 'torch' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+    assert out.stdout.split() == ["[]", "True"]
+
+
+def test_no_source_file_names_jax_or_the_reference_package():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                     re.M)
+    files = sorted((SRC / "repro_torch").rglob("*.py"))
+    assert len(files) >= 15
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device runs")
+
+
+@pytest.mark.parametrize("call", [
+    lambda wl: P.search(wl),
+    lambda wl: P.search(wl, engine="cuda", factorized=True, prune="bound"),
+    lambda wl: P.search_workloads([wl]),
+    lambda wl: P.dxpta_search(wl),
+    lambda wl: P.hw_prefilter(P.FactorizedSpace.full(3).to_grid(), wl,
+                              P.Constraints()),
+    lambda wl: ops.dse_search_grid(P.FactorizedSpace.full(3).to_grid(), wl,
+                                   P.Constraints()),
+    lambda wl: ops.decode_rows_device(P.FactorizedSpace.full(3), 0, 10),
+], ids=["search", "search_bound", "search_workloads", "dxpta_search",
+        "hw_prefilter", "dse_search_grid", "decode_rows_device"])
+def test_entry_points_raise_without_a_card(call):
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(load("deit-t"))
+
+
+def test_kernel_build_keeps_the_float32_contract():
+    # No FMA contraction and IEEE division are part of the kernels' parity
+    # with their plain versions; the library name follows source and flags.
+    assert "-fmad=false" in _build.NVCC_FLAGS
+    assert not any("fast_math" in f or "prec-div=false" in f
+                   for f in _build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    path = _build.library_path("dse_eval")
+    assert path.parent == _build.BUILD_DIR
+    assert path.name.startswith("libdse_eval-") and path.suffix == ".so"
