@@ -1,6 +1,7 @@
 """Alg. 2 — constraint-aware architecture search, plus the engine layer.
 
-The port of `repro.core.search`'s min-EDP half. The paper-level entry points:
+The port of `repro.core.search`: the min-EDP search and the Pareto-frontier
+mode. The paper-level entry points:
 
   * `dxpta_search`      — the paper's Alg. 2: significance-guided candidate
                           sets, feasible min-EDP selection (`prune=True`
@@ -21,7 +22,12 @@ backends over the same cost model, all returning identical `SearchResult`s:
 torch float32 on the search's device) before the workload evaluation;
 `search_workloads` batches every workload into one cuda launch. `chunk_size=`
 streams the grid (or the factorized index space) with a running argmin
-carried across chunks — into the kernels on cuda. `factorized=True`
+carried across chunks — into the kernels on cuda. `objective="pareto"`
+returns the whole non-dominated feasible set (`ParetoResult`) instead: the
+python oracle grows it incrementally, numpy masks it exactly in float64 and
+cuda reduces each block to its local front in the frontier kernels, after
+which every engine refines its candidates through the float64 reference
+model, so the frontiers come back byte-identical. `factorized=True`
 evaluates a product space from per-axis tables (numpy) or decodes the
 candidates on device (cuda), and `prune="bound"` runs the significance-
 ordered branch-and-bound over slabs of that space. Whichever backend picks
@@ -31,10 +37,10 @@ reference model (`eval_full`).
 Every entry point takes `device=`: "cuda" (the default) launches the
 kernels and runs the prefilter on the card, and raises when no card is
 present; "cpu" runs the kernels' plain PyTorch versions. What the JAX
-package has beyond this slice — `objective="pareto"`, `shard>1`,
-`runtime=`, `keep_ledger=`, `workers=`, `calibration=`, `robust=` and the
-`torch` engine (the `jax` engine's counterpart) — raises
-NotImplementedError naming the ROADMAP item that ports it.
+package has beyond these slices — `shard>1`, `runtime=`, `keep_ledger=`,
+`workers=`, `calibration=`, `robust=` and the `torch` engine (the `jax`
+engine's counterpart) — raises NotImplementedError naming the ROADMAP item
+that ports it.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ import torch
 from .._device import resolve_device
 from .arch_params import Constraints, PTAConfig, config_grid
 from .factorized import FactorizedSpace, factorized_evaluate_grid
+from .pareto import DEFAULT_OBJECTIVES, pareto_mask
 from .performance_model import calc_edp, eval_full, eval_wload_arrays
 from .photonic_model import (CONSTANTS, DeviceConstants, area_breakdown,
                              eval_hw, power_breakdown, sram_mb_for_workload)
@@ -62,7 +69,6 @@ REPORT_METRICS = ("area", "power", "energy", "latency", "util", "edp")
 # Queue 1 item that ports it.
 _LATER = {
     "engine": (6, "the torch engine"),
-    "objective": (7, "Pareto search"),
     "shard": (8, "sharding across CUDA devices"),
     "calibration": (9, "calibration and robust search"),
     "robust": (9, "calibration and robust search"),
@@ -115,6 +121,54 @@ class SearchResult:
     def pruned_fraction(self) -> float:
         """Fraction of the candidate space the bound pruning skipped."""
         return self.n_pruned / max(self.n_evaluated, 1)
+
+
+@dataclasses.dataclass
+class ParetoResult:
+    """A feasible Pareto frontier (objective="pareto").
+
+    `front` holds the non-dominated feasible config rows in canonical
+    (lexicographic) order; `metrics` the float64 reference-model metric
+    arrays aligned row for row with it. Whatever engine proposed the
+    frontier, both are finalized through the numpy reference model, so
+    results are byte-identical across engines whenever they agree on the
+    frontier membership.
+    """
+
+    front: np.ndarray                      # (F, 5) int64 config rows
+    metrics: Dict[str, np.ndarray]         # {REPORT_METRICS: (F,) float64}
+    objectives: tuple = DEFAULT_OBJECTIVES
+    n_evaluated: int = 0
+    n_feasible: int = 0
+    n_workload_evals: int = 0
+    wall_time_s: float = 0.0
+    # Bound-guided search counters, as on SearchResult.
+    n_pruned: int = 0
+    n_bounds: int = 0
+    # cuda frontier-kernel blocks whose local front overflowed MAX_FRONT and
+    # were refined on the host from the whole block (exact, just slower).
+    # Always 0 on the python/numpy engines.
+    n_overflow: int = 0
+
+    @property
+    def size(self) -> int:
+        """Number of points on the frontier."""
+        return len(self.front)
+
+    @property
+    def pruned_fraction(self) -> float:
+        """Fraction of the candidate space the bound pruning skipped."""
+        return self.n_pruned / max(self.n_evaluated, 1)
+
+    @property
+    def feasible(self) -> bool:
+        """True when any constraint-satisfying config exists."""
+        return self.size > 0
+
+    @property
+    def configs(self):
+        """The frontier rows as `PTAConfig` objects."""
+        return [PTAConfig.from_array(row) for row in self.front]
 
 
 def progressive_candidates(n_z: int, step: int,
@@ -430,6 +484,143 @@ ENGINES = {"python": _python_engine, "numpy": _numpy_engine,
 
 
 # ---------------------------------------------------------------------------
+# Pareto-frontier search mode (objective="pareto"), same three engines
+# ---------------------------------------------------------------------------
+
+def _pareto_from_rows(rows, wl: Workload, constraints: Constraints,
+                      c: DeviceConstants, objectives: tuple, m=None):
+    """Exact float64 frontier over candidate rows.
+
+    Every engine funnels its (possibly float32-proposed) candidate set
+    through here: feasibility and dominance are re-decided by the numpy
+    float64 reference model, and the frontier comes back in canonical
+    lexicographic row order with reference-model metrics — so engines that
+    agree on candidates return byte-identical `ParetoResult`s. Pass `m` to
+    reuse already-computed `evaluate_grid` metrics for `rows`.
+
+    Returns (front_rows, metrics, n_feasible_in_rows).
+    """
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1, 5)
+    empty = (np.zeros((0, 5), np.int64),
+             {k: np.zeros(0, np.float64) for k in REPORT_METRICS}, 0)
+    if len(rows) == 0:
+        return empty
+    if m is None:
+        m = evaluate_grid(rows, wl, c)
+    ok = np.asarray(constraints.satisfied(m["area"], m["power"], m["energy"],
+                                          m["latency"]))
+    if not ok.any():
+        return empty
+    pts = np.stack([np.asarray(m[k], np.float64)[ok] for k in objectives],
+                   axis=1)
+    mask = pareto_mask(pts)
+    front = rows[ok][mask]
+    order = np.lexsort(front.T[::-1])
+    sel = np.where(ok)[0][mask][order]
+    met = {k: np.asarray(m[k], np.float64)[sel] for k in REPORT_METRICS}
+    return front[order], met, int(ok.sum())
+
+
+def _sequential_pareto(grid, wl: Workload, constraints: Constraints,
+                       prune: bool, c: DeviceConstants, objectives: tuple):
+    """Alg. 2-style sequential oracle for the frontier: stream the grid,
+    maintain the running non-dominated set incrementally (dominated
+    newcomers are rejected, newly-dominated incumbents evicted, exact ties
+    kept). Returns (front_rows, n_feasible, n_workload_evals)."""
+    sram_mb = sram_mb_for_workload(wl.max_act_bytes, c)
+    gemms = wl.gemm_array
+    front_rows: list = []
+    front_pts: list = []
+    n_wl = 0
+    n_feasible = 0
+    for row in grid:
+        n_t, n_c, n_h, n_v, n_l = (int(x) for x in row)
+        area, power = eval_hw(n_t, n_c, n_h, n_v, n_l, sram_mb, c)
+        hw_ok = (area < constraints.area_mm2) and (power < constraints.power_w)
+        if prune and not hw_ok:
+            continue
+        energy, latency, util = eval_wload_arrays(
+            n_t, n_c, n_h, n_v, n_l, gemms, wl.elec_ops, wl.weight_bytes,
+            wl.act_io_bytes, sram_mb, c)
+        energy, latency = float(energy), float(latency)
+        n_wl += 1
+        if not (hw_ok and (energy < constraints.energy_j)
+                and (latency < constraints.latency_s)):
+            continue
+        n_feasible += 1
+        vals = {"area": float(area), "power": float(power), "energy": energy,
+                "latency": latency, "util": float(util),
+                "edp": calc_edp(energy, latency)}
+        p = np.array([vals[k] for k in objectives], np.float64)
+        if front_pts:
+            fr = np.asarray(front_pts)
+            if bool(np.any(np.all(fr <= p, axis=1) & np.any(fr < p, axis=1))):
+                continue
+            keep = ~(np.all(p <= fr, axis=1) & np.any(p < fr, axis=1))
+            front_rows = [r for r, k in zip(front_rows, keep) if k]
+            front_pts = [q for q, k in zip(front_pts, keep) if k]
+        front_rows.append(np.asarray(row))
+        front_pts.append(p)
+    return front_rows, n_feasible, n_wl
+
+
+def _pareto_result(cand_rows, n_feasible, wl, constraints, c, objectives,
+                   n_evaluated, n_wl, t0) -> ParetoResult:
+    front, met, _ = _pareto_from_rows(cand_rows, wl, constraints, c,
+                                      objectives)
+    return ParetoResult(front=front, metrics=met, objectives=objectives,
+                        n_evaluated=n_evaluated, n_feasible=n_feasible,
+                        n_workload_evals=n_wl,
+                        wall_time_s=time.perf_counter() - t0)
+
+
+def _pareto_python(grid, wl, constraints, c, hierarchical, device,
+                   objectives):
+    t0 = time.perf_counter()
+    rows, n_feasible, n_wl = _sequential_pareto(grid, wl, constraints,
+                                                hierarchical, c, objectives)
+    cand = np.asarray(rows, np.int64).reshape(-1, 5)
+    return _pareto_result(cand, n_feasible, wl, constraints, c, objectives,
+                          len(grid), n_wl, t0)
+
+
+def _pareto_numpy(grid, wl, constraints, c, hierarchical, device,
+                  objectives):
+    t0 = time.perf_counter()
+    sub, n_wl = _prefiltered(grid, wl, constraints, c, hierarchical, device)
+    if len(sub) == 0:
+        return _pareto_result(sub, 0, wl, constraints, c, objectives,
+                              len(grid), 0, t0)
+    m = evaluate_grid(sub, wl, c)
+    front, met, n_feasible = _pareto_from_rows(sub, wl, constraints, c,
+                                               objectives, m=m)
+    return ParetoResult(front=front, metrics=met, objectives=objectives,
+                        n_evaluated=len(grid), n_feasible=n_feasible,
+                        n_workload_evals=n_wl,
+                        wall_time_s=time.perf_counter() - t0)
+
+
+def _pareto_cuda(grid, wl, constraints, c, hierarchical, device,
+                 objectives):
+    from ..kernels.ops import dse_pareto_multi
+    t0 = time.perf_counter()
+    sub, n_wl = _prefiltered(grid, wl, constraints, c, hierarchical, device)
+    if len(sub) == 0:
+        return _pareto_result(sub, 0, wl, constraints, c, objectives,
+                              len(grid), 0, t0)
+    (cand_idx, nf, n_over), = dse_pareto_multi(sub, [wl], [constraints], c,
+                                               device, objectives=objectives)
+    r = _pareto_result(sub[cand_idx], nf, wl, constraints, c, objectives,
+                       len(grid), n_wl, t0)
+    r.n_overflow = n_over
+    return r
+
+
+PARETO_ENGINES = {"python": _pareto_python, "numpy": _pareto_numpy,
+                  "cuda": _pareto_cuda}
+
+
+# ---------------------------------------------------------------------------
 # Streamed evaluation (chunk_size=): a running argmin carried across chunks
 # of the grid — on cuda into the kernels' carry operand. Exact: any
 # chunk_size returns the one-shot sweep's bytes.
@@ -508,6 +699,123 @@ def _search_streamed(grid, wl, constraints, engine, hierarchical, c, device,
         n_wl += cw
         best = merge_running_best(best, (row, e))
     return _make_result(best[0], nf, wl, c, n, n_wl, time.perf_counter() - t0)
+
+
+def _pareto_chunk_python(chunk, wl, constraints, c, hierarchical, device,
+                         objectives):
+    rows, nf, n_wl = _sequential_pareto(chunk, wl, constraints, hierarchical,
+                                        c, objectives)
+    return np.asarray(rows, np.int64).reshape(-1, 5), nf, n_wl
+
+
+def _pareto_chunk_numpy(chunk, wl, constraints, c, hierarchical, device,
+                        objectives):
+    sub, n_wl = _prefiltered(chunk, wl, constraints, c, hierarchical, device)
+    if len(sub) == 0:
+        return np.zeros((0, 5), np.int64), 0, n_wl
+    m = evaluate_grid(sub, wl, c)
+    front, _, nf = _pareto_from_rows(sub, wl, constraints, c, objectives,
+                                     m=m)
+    return front, nf, n_wl
+
+
+def _cuda_front_points(rows, wl, c, device, objectives):
+    """Objective points of `rows` in the frontier kernels' own float32
+    metric space (the dse_eval kernel runs the identical cost model), so
+    the carried-front prune compares like with like."""
+    from ..kernels.ops import dse_eval_grid
+    m = dse_eval_grid(rows, wl, c, device).astype(np.float32)
+    vals = {"area": m[:, 0], "power": m[:, 1], "energy": m[:, 2],
+            "latency": m[:, 3], "edp": m[:, 2] * m[:, 3]}
+    return np.stack([vals[k] for k in objectives], axis=1)
+
+
+def _pareto_chunk_cuda(chunk, wl, constraints, c, hierarchical, device,
+                       objectives, carry_rows):
+    from ..kernels.ops import dse_pareto_multi
+    sub, n_wl = _prefiltered(chunk, wl, constraints, c, hierarchical, device)
+    if len(sub) == 0:
+        return np.zeros((0, 5), np.int64), 0, n_wl, 0
+    carry_points = None
+    if carry_rows is not None and len(carry_rows):
+        carry_points = [_cuda_front_points(carry_rows, wl, c, device,
+                                           objectives)]
+    (idx, nf, n_over), = dse_pareto_multi(sub, [wl], [constraints], c,
+                                          device, objectives=objectives,
+                                          carry_points=carry_points)
+    return sub[idx], nf, n_wl, n_over
+
+
+PARETO_CHUNK_ENGINES = {"python": _pareto_chunk_python,
+                        "numpy": _pareto_chunk_numpy}
+
+
+def _empty_run_state():
+    return (np.zeros((0, 5), np.int64),
+            {k: np.zeros(0, np.float64) for k in REPORT_METRICS})
+
+
+def _merge_running_front(run_rows, run_met, cand_rows, wl, constraints, c,
+                         objectives):
+    """Fold one chunk's candidate rows into the bounded running frontier:
+    refine the candidates through the float64 reference model, then keep
+    the non-dominated union (`pareto.merge_fronts` — exact ties kept, so
+    duplicate grid rows survive streaming like they survive the one-shot
+    sweep). A strictly dominated point can never re-enter, so dropping it
+    is exact."""
+    from .pareto import merge_fronts
+    front_c, met_c, _ = _pareto_from_rows(cand_rows, wl, constraints, c,
+                                          objectives)
+    if len(front_c) == 0:
+        return run_rows, run_met
+    d = len(objectives)
+    pts_a = (np.stack([run_met[k] for k in objectives], axis=1)
+             if len(run_rows) else np.zeros((0, d)))
+    pts_b = np.stack([met_c[k] for k in objectives], axis=1)
+    keep = merge_fronts(pts_a, pts_b)
+    rows = np.concatenate([run_rows, front_c], axis=0)[keep]
+    met = {k: np.concatenate([run_met[k], met_c[k]])[keep]
+           for k in REPORT_METRICS}
+    return rows, met
+
+
+def _front_result(run_rows, run_met, wl, constraints, c, objectives,
+                  n_evaluated, nf, n_wl, wall, **counters) -> ParetoResult:
+    """The ParetoResult of a running frontier (already float64-refined)."""
+    front, met, _ = _pareto_from_rows(run_rows, wl, constraints, c,
+                                      objectives, m=run_met)
+    return ParetoResult(front=front, metrics=met, objectives=objectives,
+                        n_evaluated=n_evaluated, n_feasible=nf,
+                        n_workload_evals=n_wl, wall_time_s=wall, **counters)
+
+
+def _pareto_streamed(grid, wl, constraints, engine, hierarchical, c, device,
+                     objectives, chunk_size) -> ParetoResult:
+    """Chunked frontier search, any engine: a running (float64-refined)
+    frontier carried across chunks — into the kernels on cuda."""
+    t0 = time.perf_counter()
+    n = len(grid)
+    cs = int(chunk_size) if chunk_size else max(n, 1)
+    run_rows, run_met = _empty_run_state()
+    nf = n_wl = n_over = 0
+    for chunk in _iter_chunks(grid, cs):
+        if engine == "cuda":
+            cand, cf, cw, co = _pareto_chunk_cuda(
+                chunk, wl, constraints, c, hierarchical, device, objectives,
+                run_rows)
+        else:
+            cand, cf, cw = PARETO_CHUNK_ENGINES[engine](
+                chunk, wl, constraints, c, hierarchical, device, objectives)
+            co = 0
+        nf += cf
+        n_wl += cw
+        n_over += co
+        if len(cand):
+            run_rows, run_met = _merge_running_front(
+                run_rows, run_met, cand, wl, constraints, c, objectives)
+    return _front_result(run_rows, run_met, wl, constraints, c, objectives,
+                         n, nf, n_wl, time.perf_counter() - t0,
+                         n_overflow=n_over)
 
 
 # ---------------------------------------------------------------------------
@@ -621,13 +929,84 @@ def _search_factorized(fspace, wl, constraints, engine, c, device,
                         time.perf_counter() - t0)
 
 
+def _front_candidates_of(m, constraints, objectives, index_of):
+    """(candidate gidx array, n_feasible) of float64 metric arrays: the
+    exact frontier members among the feasible points."""
+    ok = np.asarray(constraints.satisfied(m["area"], m["power"],
+                                          m["energy"], m["latency"]))
+    f = int(ok.sum())
+    if f == 0:
+        return np.zeros(0, np.int64), 0
+    pts = np.stack([np.asarray(m[k], np.float64)[ok] for k in objectives],
+                   axis=1)
+    return index_of(np.where(ok)[0][pareto_mask(pts)]), f
+
+
+def _pareto_idx_numpy(fspace, wl, constraints, c, idx_arr, objectives):
+    """Frontier candidates (gidx array) + feasible count over an explicit
+    ascending flat-index vector, float64 metrics — the numpy bound-guided
+    leaf."""
+    part = np.asarray(idx_arr, np.int64)
+    if len(part) == 0:
+        return np.zeros(0, np.int64), 0
+    m = factorized_evaluate_grid(fspace, wl, c, idx=part)
+    return _front_candidates_of(m, constraints, objectives,
+                                lambda i: part[i])
+
+
+def _pareto_span_numpy_factorized(fspace, wl, constraints, c, start, n,
+                                  objectives):
+    """(candidate gidx array, n_feasible) over a contiguous index span (the
+    whole-space span takes the index-free broadcast combine)."""
+    m = _np_factorized_metrics(fspace, wl, c, start, start + n)
+    return _front_candidates_of(m, constraints, objectives,
+                                lambda i: start + i)
+
+
+def _pareto_factorized(fspace, wl, constraints, engine, c, device,
+                       objectives, chunk_size) -> ParetoResult:
+    """Factorized frontier search (one-shot is the single-span case): a
+    running frontier across spans, carried into the kernel on cuda."""
+    from ..kernels.ops import dse_pareto_multi_factorized
+    t0 = time.perf_counter()
+    run_rows, run_met = _empty_run_state()
+    nf = n_wl = n_over = 0
+    for s, n in _iter_spans(fspace.size, chunk_size):
+        if engine == "cuda":
+            carry_points = None
+            if len(run_rows):
+                carry_points = [_cuda_front_points(run_rows, wl, c, device,
+                                                   objectives)]
+            (idx, cf, co), = dse_pareto_multi_factorized(
+                fspace, s, n, [wl], [constraints], c, device,
+                objectives=objectives, carry_points=carry_points)
+        else:
+            idx, cf = _pareto_span_numpy_factorized(
+                fspace, wl, constraints, c, s, n, objectives)
+            co = 0
+        nf += cf
+        n_wl += n
+        n_over += co
+        if len(idx):
+            run_rows, run_met = _merge_running_front(
+                run_rows, run_met, fspace.decode(idx), wl, constraints, c,
+                objectives)
+    return _front_result(run_rows, run_met, wl, constraints, c, objectives,
+                         fspace.size, nf, n_wl, time.perf_counter() - t0,
+                         n_overflow=n_over)
+
+
 # ---------------------------------------------------------------------------
 # Bound-guided branch-and-bound (prune="bound")
 #
 # The product space is split into mixed-radix slabs, most Alg. 1-significant
 # axis first; each slab is priced by admissible interval lower bounds
 # (core.factorized.SlabBoundEvaluator) and discarded when they already
-# violate a constraint or cannot beat the incumbent EDP. Winners are
+# violate a constraint or cannot beat the incumbent EDP — in pareto mode,
+# when their objective lower-bound corner is strictly dominated by a
+# running-frontier point (then every point of the slab is strictly
+# dominated too, transitively safe even if that point is later evicted).
+# Winners and frontiers are
 # byte-identical to the unpruned sweep; the slab tree, traversal order and
 # leaf size are fixed and engine-independent, so every engine and chunk_size
 # visits identical survivors and returns identical counters.
@@ -732,11 +1111,29 @@ def _bnb_frontier(fspace, ev, constraints, c, stats):
                         root, lbs, BNB_LEAF, stats, c)
 
 
-def _bnb_order(fspace, ranges_list, lbs) -> np.ndarray:
-    """Deterministic best-first permutation: ascending EDP lower bound, ties
-    broken by each leaf's first flat index."""
+def _bnb_dominated_vs(pts: np.ndarray, lbs_arrays, objectives) -> np.ndarray:
+    """(B,) mask of slabs whose objective lower-bound corner is strictly
+    dominated by some point of `pts` ((F, d) float64 objective rows). Every
+    point of such a slab is at or above the corner in every objective, so
+    it is strictly dominated too."""
+    corners = np.stack([np.asarray(lbs_arrays[k], np.float64)
+                        for k in objectives], axis=1)
+    if not len(pts):
+        return np.zeros(len(corners), bool)
+    le = np.all(pts[None, :, :] <= corners[:, None, :], axis=-1)
+    lt = np.any(pts[None, :, :] < corners[:, None, :], axis=-1)
+    return np.any(le & lt, axis=1)
+
+
+def _bnb_order(fspace, ranges_list, lbs, objectives=None) -> np.ndarray:
+    """Deterministic best-first permutation: ascending EDP lower bound (or
+    the objective lower-bound vectors in pareto mode), ties broken by each
+    leaf's first flat index — a pure function of the slab tree, never of
+    the engine."""
     first = _slab_first_indices(fspace.radices, ranges_list)
-    return np.lexsort((first, lbs["edp"]))
+    keys = ([first, lbs["edp"]] if objectives is None
+            else [first] + [lbs[k] for k in reversed(objectives)])
+    return np.lexsort(tuple(keys))
 
 
 def _bnb_batch_slices(sizes: np.ndarray, max_points: Optional[int] = None):
@@ -805,6 +1202,52 @@ def _bnb_eval_edp(engine, fspace, wl, constraints, c, device, ranges_list,
         nf += f
         best = _merge_best_indexed(best, (gi, e))
     return best[0], best[1], nf
+
+
+def _bnb_eval_pareto(engine, fspace, wl, constraints, c, device,
+                     ranges_list, chunk_size, objectives, run_rows):
+    """(candidate gidx array, n_feasible, n_overflow) over one batch of leaf
+    slabs; launch forms as in `_bnb_eval_edp`, with the running frontier
+    carried into every cuda launch."""
+    from .factorized import slab_indices_batch
+    cands = []
+    nf = n_over = 0
+    carry_points = None
+    if engine == "cuda" and len(run_rows):
+        carry_points = [_cuda_front_points(run_rows, wl, c, device,
+                                           objectives)]
+    if engine == "cuda" and (_slab_sizes(ranges_list) > BNB_FINE).any():
+        from ..kernels.ops import dse_pareto_spans_factorized
+        for ranges in ranges_list:
+            items = _bnb_leaf_items(fspace, ranges, chunk_size)
+            (idx, f, o), = dse_pareto_spans_factorized(
+                fspace, items, [wl], [constraints], c, device,
+                objectives=objectives, carry_points=carry_points)
+            nf += f
+            n_over += o
+            if len(idx):
+                cands.append(idx)
+        return (np.concatenate(cands) if cands
+                else np.zeros(0, np.int64)), nf, n_over
+    idx = slab_indices_batch(fspace.radices, ranges_list)
+    cs = int(chunk_size) if chunk_size else len(idx)
+    for s in range(0, len(idx), cs):
+        part = idx[s:s + cs]
+        if engine == "cuda":
+            from ..kernels.ops import dse_pareto_multi
+            (local, f, o), = dse_pareto_multi(
+                fspace.decode(part), [wl], [constraints], c, device,
+                objectives=objectives, carry_points=carry_points)
+            cand = part[local]
+            n_over += o
+        else:
+            cand, f = _pareto_idx_numpy(fspace, wl, constraints, c, part,
+                                        objectives)
+        nf += f
+        if len(cand):
+            cands.append(cand)
+    return (np.concatenate(cands) if cands
+            else np.zeros(0, np.int64)), nf, n_over
 
 
 def _search_factorized_bnb(fspace, wl, constraints, engine, c, device,
@@ -886,45 +1329,140 @@ def _search_factorized_bnb(fspace, wl, constraints, engine, c, device,
     return r
 
 
+def _pareto_factorized_bnb(fspace, wl, constraints, engine, c, device,
+                           objectives, chunk_size) -> ParetoResult:
+    """Bound-guided frontier search: probe the objective-sorted leaves to
+    seed the running (float64-refined) frontier, refine the remainder
+    against it, then evaluate the survivors in batches. A slab is pruned
+    when its objective lower-bound corner is strictly dominated by a
+    running-frontier point."""
+    from .factorized import cached_bound_evaluator
+    t0 = time.perf_counter()
+    d = len(objectives)
+    ev = cached_bound_evaluator(fspace, wl, c)
+    stats = {"n_pruned": 0, "n_bounds": 0}
+    state = {"rows": _empty_run_state()[0], "met": _empty_run_state()[1],
+             "pts": np.zeros((0, d)), "nf": 0, "n_eval": 0, "n_over": 0}
+    leaves, lbs = _bnb_frontier(fspace, ev, constraints, c, stats)
+
+    def evaluate(ranges_list, n_points):
+        idx, f, o = _bnb_eval_pareto(engine, fspace, wl, constraints, c,
+                                     device, ranges_list, chunk_size,
+                                     objectives, state["rows"])
+        state["nf"] += f
+        state["n_eval"] += n_points
+        state["n_over"] += o
+        if len(idx):
+            state["rows"], state["met"] = _merge_running_front(
+                state["rows"], state["met"], fspace.decode(idx), wl,
+                constraints, c, objectives)
+            state["pts"] = (np.stack([state["met"][k] for k in objectives],
+                                     axis=1) if len(state["rows"])
+                            else np.zeros((0, d)))
+
+    # Probe: evaluate best-first batches until a frontier point exists.
+    order = _bnb_order(fspace, leaves, lbs, objectives)
+    leaves = leaves[order]
+    lbs = {k: v[order] for k, v in lbs.items()}
+    sizes = _slab_sizes(leaves)
+    slices = _bnb_batch_slices(sizes)
+    bi = 0
+    while bi < len(slices) and not len(state["pts"]):
+        s, e = slices[bi]
+        evaluate(leaves[s:e], int(sizes[s:e].sum()))
+        bi += 1
+    rs = slices[bi][0] if bi < len(slices) else len(leaves)
+    # The frontier frozen at refine start drives the refinement prune (the
+    # descent never evaluates, so freezing it is exact).
+    pts_refine = state["pts"]
+    ready, rlbs = _bnb_descend(
+        ev,
+        lambda b: (_bnb_infeasible_mask(b, constraints)
+                   | _bnb_dominated_vs(pts_refine, b, objectives)),
+        leaves[rs:], {k: v[rs:] for k, v in lbs.items()}, BNB_FINE,
+        stats, c)
+    order = _bnb_order(fspace, ready, rlbs, objectives)
+    ready = ready[order]
+    rlbs = {k: v[order] for k, v in rlbs.items()}
+    sizes = _slab_sizes(ready)
+    for s, e in _bnb_batch_slices(sizes):
+        die = _bnb_dominated_vs(state["pts"],
+                                {k: v[s:e] for k, v in rlbs.items()},
+                                objectives)
+        stats["n_pruned"] += int(sizes[s:e][die].sum())
+        if not die.all():
+            evaluate(ready[s:e][~die], int(sizes[s:e][~die].sum()))
+    return _front_result(state["rows"], state["met"], wl, constraints, c,
+                         objectives, fspace.size, state["nf"],
+                         state["n_eval"], time.perf_counter() - t0,
+                         n_pruned=stats["n_pruned"],
+                         n_bounds=stats["n_bounds"],
+                         n_overflow=state["n_over"])
+
+
 def _workloads_cuda_factorized(wls, names, cons_for, fspace, c, device,
-                               chunk_size):
+                               objective, metrics, chunk_size):
     """Batched factorized driver: every span is one all-workloads decoded
-    launch, with per-workload carries between spans."""
-    from ..kernels.ops import dse_search_multi_factorized
+    launch, with per-workload carries (best EDP / running front) between
+    spans."""
+    from ..kernels.ops import (dse_pareto_multi_factorized,
+                               dse_search_multi_factorized)
     t0 = time.perf_counter()
     wl_list = [wls[nm] for nm in names]
     cons_list = [cons_for(nm) for nm in names]
     n_wl = 0
-    best = {nm: (None, float("inf")) for nm in names}
+    if objective == "edp":
+        best = {nm: (None, float("inf")) for nm in names}
+        nf = {nm: 0 for nm in names}
+        for s, n in _iter_spans(fspace.size, chunk_size):
+            n_wl += n
+            carry = [best[nm][1] for nm in names]
+            bi, be, bn = dse_search_multi_factorized(
+                fspace, s, n, wl_list, cons_list, c, device,
+                carry_edp=carry)
+            for nm, i, e, f in zip(names, bi, be, bn):
+                nf[nm] += f
+                if i >= 0:
+                    best[nm] = (fspace.decode([i])[0], e)
+        wall = time.perf_counter() - t0
+        return {nm: _make_result(best[nm][0], nf[nm], wls[nm], c,
+                                 fspace.size, n_wl, wall)
+                for nm in names}
+
+    run = {nm: _empty_run_state() for nm in names}
     nf = {nm: 0 for nm in names}
+    n_over = {nm: 0 for nm in names}
     for s, n in _iter_spans(fspace.size, chunk_size):
         n_wl += n
-        carry = [best[nm][1] for nm in names]
-        bi, be, bn = dse_search_multi_factorized(
-            fspace, s, n, wl_list, cons_list, c, device, carry_edp=carry)
-        for nm, i, e, f in zip(names, bi, be, bn):
+        carry_points = [
+            _cuda_front_points(run[nm][0], wls[nm], c, device, metrics)
+            if len(run[nm][0]) else None
+            for nm in names]
+        per_wl = dse_pareto_multi_factorized(
+            fspace, s, n, wl_list, cons_list, c, device, objectives=metrics,
+            carry_points=carry_points)
+        for nm, (idx, f, o) in zip(names, per_wl):
             nf[nm] += f
-            if i >= 0:
-                best[nm] = (fspace.decode([i])[0], e)
+            n_over[nm] += o
+            if len(idx):
+                run[nm] = _merge_running_front(
+                    run[nm][0], run[nm][1], fspace.decode(idx), wls[nm],
+                    cons_for(nm), c, metrics)
     wall = time.perf_counter() - t0
-    return {nm: _make_result(best[nm][0], nf[nm], wls[nm], c, fspace.size,
-                             n_wl, wall)
+    return {nm: _front_result(run[nm][0], run[nm][1], wls[nm], cons_for(nm),
+                              c, metrics, fspace.size, nf[nm], n_wl, wall,
+                              n_overflow=n_over[nm])
             for nm in names}
 
 
-def _check_later_args(engine, objective, shard, runtime, keep_ledger,
-                      workers, calibration, robust):
-    """Refuse what the JAX package supports beyond this slice."""
+def _check_later_args(engine, shard, runtime, keep_ledger, workers,
+                      calibration, robust):
+    """Refuse what the JAX package supports beyond these slices."""
     if engine in ("torch", "jax"):
         raise _not_ported("engine", engine)
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; pick from "
                          f"{sorted(ENGINES)}")
-    if objective == "pareto":
-        raise _not_ported("objective", objective)
-    if objective != "edp":
-        raise ValueError(f"unknown objective {objective!r}; pick 'edp' "
-                         f"(or 'pareto', not ported yet)")
     if shard is not None and int(shard) < 1:
         raise ValueError(f"shard must be >= 1, got {shard!r}")
     for arg, value, off in (("shard", shard, (None, 1)),
@@ -935,6 +1473,28 @@ def _check_later_args(engine, objective, shard, runtime, keep_ledger,
                             ("robust", robust, (None,))):
         if value not in off:
             raise _not_ported(arg, value)
+
+
+def _check_objective(objective, engine, pareto_metrics):
+    """The validated objective tuple of a pareto search, None for edp."""
+    if objective == "edp":
+        return None
+    if objective != "pareto":
+        raise ValueError(f"unknown objective {objective!r}; "
+                         f"pick 'edp' or 'pareto'")
+    return _check_pareto_metrics(engine, pareto_metrics)
+
+
+def _check_pareto_metrics(engine: str, pareto_metrics) -> tuple:
+    metrics = tuple(pareto_metrics)
+    unknown = [k for k in metrics if k not in REPORT_METRICS]
+    if unknown or not metrics:
+        raise ValueError(f"pareto_metrics must be a non-empty subset of "
+                         f"{REPORT_METRICS}, got {pareto_metrics!r}")
+    if engine == "cuda" and "util" in metrics:
+        raise ValueError("the cuda frontier kernels do not model 'util'; "
+                         "use the python/numpy engines for it")
+    return metrics
 
 
 def _check_stream_args(chunk_size):
@@ -979,12 +1539,15 @@ def search(wl: Workload, constraints: Constraints = Constraints(), *,
            engine: str = "numpy", grid: Optional[np.ndarray] = None,
            n_z: int = 12, hierarchical: bool = False,
            c: DeviceConstants = CONSTANTS, device=None,
-           objective: str = "edp", shard: Optional[int] = None,
+           objective: str = "edp",
+           pareto_metrics: tuple = DEFAULT_OBJECTIVES,
+           shard: Optional[int] = None,
            chunk_size: Optional[int] = None, factorized: bool = False,
            space=None, prune: Optional[str] = None, runtime=None,
            keep_ledger: bool = False, workers: Optional[int] = None,
-           calibration=None, robust: Optional[str] = None) -> SearchResult:
-    """Unified min-EDP search over a config grid.
+           calibration=None, robust: Optional[str] = None
+           ) -> Union[SearchResult, ParetoResult]:
+    """Unified search over a config grid.
 
     Args:
       engine: one of ENGINES (python, numpy, cuda). All return identical
@@ -997,39 +1560,62 @@ def search(wl: Workload, constraints: Constraints = Constraints(), *,
         `device`), then workload evaluation on the survivors only.
       device: "cuda" (default; raises without a card) or "cpu" (the plain
         PyTorch versions of the kernels).
+      objective: "edp" — the feasible min-EDP point (a SearchResult) — or
+        "pareto" — the whole non-dominated feasible set over
+        `pareto_metrics` (a ParetoResult). Each engine proposes candidates
+        its own way, then every proposal is refined through the float64
+        reference model, so identical frontiers come back byte-identical.
+      pareto_metrics: objectives minimized in "pareto" mode, a subset of
+        REPORT_METRICS (the cuda kernels model all but "util").
       chunk_size: stream the grid (or index space) in chunks of this many
-        candidates with a running argmin carried across chunks.
+        candidates with a running argmin / frontier carried across chunks.
       factorized: evaluate a *product space* (`space=`, default the full
         1..n_z space) from axis factor tables (numpy) or decoded on device
         (cuda); hierarchical and an explicit `grid` are rejected.
       prune: "bound" runs the branch-and-bound driver over the factorized
-        space; winners stay byte-identical to the unpruned sweep, with the
-        skipped volume in `n_pruned`. Requires factorized=True.
-      objective, shard, runtime, keep_ledger, workers, calibration,
-      robust: accepted for signature parity with `repro`; anything beyond
-        objective="edp", shard <= 1 and the defaults raises
-        NotImplementedError naming the ROADMAP item that ports it.
+        space; winners and frontiers stay byte-identical to the unpruned
+        sweep, with the skipped volume in `n_pruned`. Requires
+        factorized=True.
+      shard, runtime, keep_ledger, workers, calibration, robust: accepted
+        for signature parity with `repro`; anything beyond shard <= 1 and
+        the defaults raises NotImplementedError naming the ROADMAP item
+        that ports it.
     """
     dev = resolve_device(device)
-    _check_later_args(engine, objective, shard, runtime, keep_ledger,
-                      workers, calibration, robust)
+    _check_later_args(engine, shard, runtime, keep_ledger, workers,
+                      calibration, robust)
     _check_stream_args(chunk_size)
     _check_prune_arg(prune, factorized)
     if factorized:
         fspace = _factorized_space(space, grid, n_z, engine, hierarchical)
+        metrics = _check_objective(objective, engine, pareto_metrics)
+        if metrics is None:
+            if prune == "bound":
+                return _search_factorized_bnb(fspace, wl, constraints,
+                                              engine, c, dev, chunk_size)
+            return _search_factorized(fspace, wl, constraints, engine, c,
+                                      dev, chunk_size)
         if prune == "bound":
-            return _search_factorized_bnb(fspace, wl, constraints, engine, c,
-                                          dev, chunk_size)
-        return _search_factorized(fspace, wl, constraints, engine, c, dev,
-                                  chunk_size)
+            return _pareto_factorized_bnb(fspace, wl, constraints, engine,
+                                          c, dev, metrics, chunk_size)
+        return _pareto_factorized(fspace, wl, constraints, engine, c, dev,
+                                  metrics, chunk_size)
     if space is not None:
         raise ValueError("space= requires factorized=True (pass grid= for "
                          "materialized candidate sets)")
     grid = _full_grid(n_z) if grid is None else _check_grid(grid)
-    if shard is not None or chunk_size is not None:
-        return _search_streamed(grid, wl, constraints, engine, hierarchical,
-                                c, dev, chunk_size)
-    return ENGINES[engine](grid, wl, constraints, c, hierarchical, dev)
+    metrics = _check_objective(objective, engine, pareto_metrics)
+    streamed = shard is not None or chunk_size is not None
+    if metrics is None:
+        if streamed:
+            return _search_streamed(grid, wl, constraints, engine,
+                                    hierarchical, c, dev, chunk_size)
+        return ENGINES[engine](grid, wl, constraints, c, hierarchical, dev)
+    if streamed:
+        return _pareto_streamed(grid, wl, constraints, engine, hierarchical,
+                                c, dev, metrics, chunk_size)
+    return PARETO_ENGINES[engine](grid, wl, constraints, c, hierarchical,
+                                  dev, metrics)
 
 
 def _union_prefiltered(chunk, wls, names, cons_for, c, hierarchical, device):
@@ -1046,33 +1632,64 @@ def _union_prefiltered(chunk, wls, names, cons_for, c, hierarchical, device):
 
 
 def _workloads_cuda_streamed(wls, names, cons_for, grid, hierarchical, c,
-                             device, chunk_size):
+                             device, objective, metrics, chunk_size):
     """Chunked batched driver: each chunk is one all-workloads launch, with
-    per-workload carried best EDPs between launches."""
-    from ..kernels.ops import dse_search_multi
+    per-workload carries (best EDP / running front) between launches."""
+    from ..kernels.ops import dse_pareto_multi, dse_search_multi
     t0 = time.perf_counter()
     n = len(grid)
     cs = int(chunk_size) if chunk_size else max(n, 1)
     wl_list = [wls[nm] for nm in names]
     cons_list = [cons_for(nm) for nm in names]
     n_wl = 0
-    best = {nm: (None, float("inf")) for nm in names}
+    if objective == "edp":
+        best = {nm: (None, float("inf")) for nm in names}
+        nf = {nm: 0 for nm in names}
+        for chunk in _iter_chunks(grid, cs):
+            sub = _union_prefiltered(chunk, wls, names, cons_for, c,
+                                     hierarchical, device)
+            n_wl += len(sub)
+            if len(sub) == 0:
+                continue
+            carry = [best[nm][1] for nm in names]
+            bi, be, bn = dse_search_multi(sub, wl_list, cons_list, c, device,
+                                          carry_edp=carry)
+            for nm, i, e, f in zip(names, bi, be, bn):
+                nf[nm] += f
+                if i >= 0:
+                    best[nm] = (sub[i], e)
+        wall = time.perf_counter() - t0
+        return {nm: _make_result(best[nm][0], nf[nm], wls[nm], c, n, n_wl,
+                                 wall)
+                for nm in names}
+
+    run = {nm: _empty_run_state() for nm in names}
     nf = {nm: 0 for nm in names}
+    n_over = {nm: 0 for nm in names}
     for chunk in _iter_chunks(grid, cs):
         sub = _union_prefiltered(chunk, wls, names, cons_for, c,
                                  hierarchical, device)
         n_wl += len(sub)
         if len(sub) == 0:
             continue
-        carry = [best[nm][1] for nm in names]
-        bi, be, bn = dse_search_multi(sub, wl_list, cons_list, c, device,
-                                      carry_edp=carry)
-        for nm, i, e, f in zip(names, bi, be, bn):
+        carry_points = [
+            _cuda_front_points(run[nm][0], wls[nm], c, device, metrics)
+            if len(run[nm][0]) else None
+            for nm in names]
+        per_wl = dse_pareto_multi(sub, wl_list, cons_list, c, device,
+                                  objectives=metrics,
+                                  carry_points=carry_points)
+        for nm, (cand_idx, f, o) in zip(names, per_wl):
             nf[nm] += f
-            if i >= 0:
-                best[nm] = (sub[i], e)
+            n_over[nm] += o
+            if len(cand_idx):
+                run[nm] = _merge_running_front(
+                    run[nm][0], run[nm][1], sub[cand_idx], wls[nm],
+                    cons_for(nm), c, metrics)
     wall = time.perf_counter() - t0
-    return {nm: _make_result(best[nm][0], nf[nm], wls[nm], c, n, n_wl, wall)
+    return {nm: _front_result(run[nm][0], run[nm][1], wls[nm], cons_for(nm),
+                              c, metrics, n, nf[nm], n_wl, wall,
+                              n_overflow=n_over[nm])
             for nm in names}
 
 
@@ -1084,30 +1701,34 @@ def search_workloads(wls: Union[Mapping[str, Workload], Sequence[Workload]],
                      grid: Optional[np.ndarray] = None, n_z: int = 12,
                      hierarchical: bool = False,
                      c: DeviceConstants = CONSTANTS, device=None,
-                     objective: str = "edp", shard: Optional[int] = None,
+                     objective: str = "edp",
+                     pareto_metrics: tuple = DEFAULT_OBJECTIVES,
+                     shard: Optional[int] = None,
                      chunk_size: Optional[int] = None,
                      factorized: bool = False, space=None,
                      prune: Optional[str] = None, runtime=None,
                      keep_ledger: bool = False,
                      workers: Optional[int] = None,
                      calibration=None, robust: Optional[str] = None
-                     ) -> Dict[str, SearchResult]:
+                     ) -> Dict[str, Union[SearchResult, ParetoResult]]:
     """Batched search: many workloads against one grid.
 
     On the `cuda` engine all workloads are evaluated in a single fused
     kernel launch (their GEMM lists back to back in the parameter block,
-    constraints as a dynamic (W, 4) operand); other engines loop per
-    workload. With `hierarchical=True` the compacted grid is the union of
-    the per-workload area/power survivor sets. `chunk_size=` streams, each
-    chunk one all-workloads launch; `factorized=True` decodes the product
-    `space` on device; `prune="bound"` runs the branch-and-bound driver per
-    workload. Each result reports the whole batch's wall time.
+    constraints as a dynamic (W, 4) operand) — the search kernel for
+    objective="edp", the frontier kernel for objective="pareto"; other
+    engines loop per workload. With `hierarchical=True` the compacted grid
+    is the union of the per-workload area/power survivor sets.
+    `chunk_size=` streams, each chunk one all-workloads launch;
+    `factorized=True` decodes the product `space` on device;
+    `prune="bound"` runs the branch-and-bound search per workload. Each
+    result reports the whole batch's wall time.
     """
     dev = resolve_device(device)
     if not isinstance(wls, Mapping):
         wls = {wl.name: wl for wl in wls}
-    _check_later_args(engine, objective, shard, runtime, keep_ledger,
-                      workers, calibration, robust)
+    _check_later_args(engine, shard, runtime, keep_ledger, workers,
+                      calibration, robust)
     _check_stream_args(chunk_size)
     _check_prune_arg(prune, factorized)
     if grid is not None:
@@ -1119,7 +1740,8 @@ def search_workloads(wls: Union[Mapping[str, Workload], Sequence[Workload]],
 
     def per_workload(**kw):
         out = {name: search(wl, cons_for(name), engine=engine, n_z=n_z,
-                            c=c, device=dev, shard=shard,
+                            c=c, device=dev, objective=objective,
+                            pareto_metrics=pareto_metrics, shard=shard,
                             chunk_size=chunk_size, factorized=factorized,
                             space=space, **kw)
                for name, wl in wls.items()}
@@ -1135,8 +1757,9 @@ def search_workloads(wls: Union[Mapping[str, Workload], Sequence[Workload]],
         return per_workload(prune="bound")
     if factorized and engine == "cuda":
         fspace = _factorized_space(space, grid, n_z, engine, hierarchical)
-        return _workloads_cuda_factorized(wls, list(wls), cons_for, fspace,
-                                          c, dev, chunk_size)
+        return _workloads_cuda_factorized(
+            wls, list(wls), cons_for, fspace, c, dev, objective,
+            _check_objective(objective, engine, pareto_metrics), chunk_size)
     if engine != "cuda":
         if grid is None and not factorized:
             grid = _full_grid(n_z)  # materialize once, share across workloads
@@ -1146,15 +1769,36 @@ def search_workloads(wls: Union[Mapping[str, Workload], Sequence[Workload]],
                          "materialized candidate sets)")
     grid = np.asarray(_full_grid(n_z) if grid is None else grid)
     names = list(wls)
+    metrics = _check_objective(objective, engine, pareto_metrics)
     if shard is not None or chunk_size is not None:
         return _workloads_cuda_streamed(wls, names, cons_for, grid,
-                                        hierarchical, c, dev, chunk_size)
+                                        hierarchical, c, dev, objective,
+                                        metrics, chunk_size)
 
-    from ..kernels.ops import dse_search_multi
     t0 = time.perf_counter()
     sub = _union_prefiltered(grid, wls, names, cons_for, c, hierarchical,
                              dev)
     n_wl = len(sub)
+    if metrics is not None:
+        if n_wl == 0:
+            return {name: _pareto_result(sub, 0, wls[name], cons_for(name),
+                                         c, metrics, len(grid), 0, t0)
+                    for name in names}
+        from ..kernels.ops import dse_pareto_multi
+        per_wl = dse_pareto_multi(sub, [wls[n] for n in names],
+                                  [cons_for(n) for n in names], c, dev,
+                                  objectives=metrics)
+        wall = time.perf_counter() - t0
+        out = {}
+        for name, (cand_idx, nf, n_over) in zip(names, per_wl):
+            r = _pareto_result(sub[cand_idx], nf, wls[name], cons_for(name),
+                               c, metrics, len(grid), n_wl, t0)
+            r.wall_time_s = wall
+            r.n_overflow = n_over
+            out[name] = r
+        return out
+
+    from ..kernels.ops import dse_search_multi
     if n_wl == 0:
         wall = time.perf_counter() - t0
         return {name: _make_result(None, 0, wls[name], c, len(grid), 0, wall)

@@ -41,6 +41,10 @@ _SIGNATURES = {
                                       _P, _P, _I, _P, _I, _P],
         "dse_decode_rows_launch": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _I,
                                    _P],
+        "dse_pareto_padded_launch": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _I,
+                                     _P, _I, _P],
+        "dse_pareto_decoded_launch": [_P, _I, _P, _I, _I, _I, _I, _I, _P,
+                                      _P, _I, _I, _I, _P, _I, _P, _I, _P],
     },
 }
 

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) kernels of the DxPTA cost model and fused DSE search.
 //
-// Four kernels replace the four Pallas kernels of
-// src/repro/kernels/dse_eval.py that carry the min-EDP co-search:
+// Six kernels replace the six Pallas kernels of
+// src/repro/kernels/dse_eval.py that carry the min-EDP and the
+// Pareto-frontier co-searches:
 //
 //   dse_eval_kernel           <- dse_eval_padded    (_dse_kernel)
 //   dse_search_padded_kernel  <- dse_search_padded  (_dse_search_kernel ->
@@ -9,8 +10,13 @@
 //   dse_search_decoded_kernel <- dse_search_decoded (_dse_search_decode_kernel
 //                                                    -> _decode_block)
 //   dse_decode_rows_kernel    <- dse_decode_rows    (_decode_rows_kernel)
+//   dse_pareto_padded_kernel  <- dse_pareto_padded  (_dse_pareto_kernel ->
+//                                                    _pareto_reduce,
+//                                                    _block_front,
+//                                                    _carry_dominated)
+//   dse_pareto_decoded_kernel <- dse_pareto_decoded (_dse_pareto_decode_kernel)
 //
-// All four share one cost model (hw_metrics: area/power; wl_metrics: the
+// All six share one cost model (hw_metrics: area/power; wl_metrics: the
 // per-GEMM dataflow half) and one mixed-radix decoder (decode_lane), as the
 // Pallas file shares _config_metrics_hw/_wl and _decode_block.
 //
@@ -20,14 +26,16 @@
 // bytes of config (plus 4 of mask) and dse_eval writes 16, which at 3.35
 // TB/s outweighs the arithmetic at 67 T op/s: they are bound by bytes.
 // dse_decode_rows writes 24 bytes per lane and does little else: bytes.
-// dse_search_decoded reads and writes almost nothing: operations. No
-// matrix product anywhere, so the tensor cores (wgmma) and TMA have nothing
-// to do here. The design keeps it simple: one
-// thread per config lane; the GEMM list and the pre-folded constants sit in
-// shared memory (one small parameter block per launch); lanes that fail the
-// cheap area/power half skip the GEMM loop (exact: feasibility needs both);
-// each logical block (2048 lanes, 16384 decoded) is reduced inside one CUDA
-// block by warp shuffles into (best EDP, first lane, feasible count).
+// dse_search_decoded reads and writes almost nothing: operations. The two
+// frontier kernels add a pairwise dominance pass, f(f-1)/2 pairs of 2d
+// compares per block of f feasible lanes: operations. No matrix product
+// anywhere, so the tensor cores (wgmma) and TMA have nothing to do here.
+// The design keeps it simple: one thread per config lane (eight lanes per
+// thread in the frontier kernels); the GEMM list and the pre-folded
+// constants sit in shared memory (one small parameter block per launch);
+// lanes that fail the cheap area/power half skip the GEMM loop (exact:
+// feasibility needs both); each logical block (2048 lanes, 16384 decoded
+// for the search) is reduced inside one CUDA block.
 //
 // Float32 parity with the Pallas source: built with -fmad=false (no FMA
 // contraction) and IEEE division; every static scalar arrives pre-folded in
@@ -51,6 +59,12 @@ constexpr int kDecodeBlock = 16384;  // lanes per decoded search block
 constexpr int kSearchRows = 3;
 constexpr float kCarryIdx = -2.0f;
 constexpr int kHeader = 2;           // [W, n_gemms]
+constexpr int kMaxFront = 128;       // emitted front indices per block
+constexpr int kParetoRows = 2 + kMaxFront;
+constexpr int kCarryFront = 128;     // carried front points per workload
+constexpr int kDomChunk = 256;       // the reference's dominance column tile
+constexpr int kMaxObjectives = 5;
+constexpr int kLanesPerThread = kBlock / kThreads;
 constexpr int kConsts = 23;
 constexpr int kWlWords = 7;
 
@@ -355,6 +369,276 @@ __global__ void dse_decode_rows_kernel(const float* __restrict__ axes,
   out[5 * width + lane] = valid ? 1.0f : 0.0f;
 }
 
+
+// ---------------------------------------------------------------------------
+// Frontier kernels: per 2048-lane block, the feasible block-local
+// non-dominated set with the semantics of the Pallas _block_front (which is
+// not plain dominance — a block is ordered by a stable sort on objective 0,
+// and a sorted row can dominate only rows after it), then the strict
+// carried-front prune and a compaction to at most kMaxFront lane indices.
+//
+// One CUDA block per logical block, looping over the W workloads; each
+// thread prices eight lanes into shared memory. Per workload:
+//   1. objectives in lane order (+inf where infeasible), feasible flags;
+//   2. a bitonic sort of (monotone objective-0 key, lane) pairs — the lane
+//      in the low word makes it the stable order of jnp.argsort;
+//   3. the objectives gathered into sorted order, carried points staged;
+//   4. one thread per sorted column scans the earlier rows and stops at the
+//      first dominator (a column whose kDomChunk tile starts at a
+//      non-finite objective 0 is skipped, as the reference's lax.cond
+//      skips the tile), then the carried points;
+//   5. a block-wide prefix sum over the front flags in lane order and a
+//      write of the first kMaxFront indices, base + lane in float32.
+// Shared memory: 8 B key + 2 x 4d B objectives + 2 B flags per lane, the
+// carried points and the parameter block — up to ~110 KB at d = 5, over the
+// 48 KB static limit, so the launchers opt in to that much dynamic shared
+// memory first. Blocks with no feasible lane skip steps 2-5.
+// ---------------------------------------------------------------------------
+
+// Monotone uint32 key of a float: ascending keys follow ascending values,
+// -0.0 keys as +0.0 and every NaN sorts after +inf.
+__device__ __forceinline__ unsigned sort_key(float v) {
+  unsigned u = __float_as_uint(v);
+  if ((u & 0x7fffffffu) == 0u) u = 0u;
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0xffffffffu;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// One metric by its code in kernels/dse_eval.py:PARETO_METRICS.
+__device__ __forceinline__ float pick_metric(int code, float area,
+                                             float power, float energy,
+                                             float latency) {
+  switch (code) {
+    case 0: return area;
+    case 1: return power;
+    case 2: return energy;
+    case 3: return latency;
+    default: return energy * latency;
+  }
+}
+
+// True when row i of a point table (objective k of row i at
+// rows[k * stride_k + i * stride_i]) strictly dominates x: <= on every
+// objective and < on one.
+__device__ __forceinline__ bool row_dominates(const float* rows, int stride_k,
+                                              int stride_i, int i,
+                                              const float (&x)[kMaxObjectives],
+                                              int d) {
+  bool le = true;
+  bool lt = false;
+#pragma unroll
+  for (int k = 0; k < kMaxObjectives; ++k) {
+    if (k < d) {
+      float r = rows[k * stride_k + i * stride_i];
+      le = le && (r <= x[k]);
+      lt = lt || (r < x[k]);
+    }
+  }
+  return le && lt;
+}
+
+__host__ __device__ constexpr size_t pareto_smem_bytes(int d, int n_words) {
+  return sizeof(unsigned long long) * kBlock      // sort keys
+         + 2 * sizeof(float) * d * kBlock         // objectives, lane + sorted
+         + sizeof(float) * kCarryFront * d        // carried points
+         + 2 * kBlock                             // feasible + front flags
+         + sizeof(int) * n_words;                 // parameter block
+}
+
+template <bool kDecoded>
+__device__ __forceinline__ void pareto_block(
+    const float* __restrict__ cfg, const float* __restrict__ mask, int g,
+    const float* __restrict__ axes, int max_radix,
+    const int* __restrict__ meta, int r_t, int r_c, int r_v, int r_h,
+    int r_l, const float* __restrict__ cons, const float* __restrict__ carry,
+    int d, int codes, int has_carry, const int* __restrict__ params,
+    int n_words, float* __restrict__ out, int n_blocks) {
+  extern __shared__ unsigned long long smem[];
+  unsigned long long* keys = smem;
+  float* lobj = reinterpret_cast<float*>(keys + kBlock);
+  float* sobj = lobj + d * kBlock;
+  float* cpts = sobj + d * kBlock;
+  unsigned char* okf = reinterpret_cast<unsigned char*>(cpts + kCarryFront * d);
+  unsigned char* frontf = okf + kBlock;
+  int* sp = reinterpret_cast<int*>(frontf + kBlock);
+  __shared__ int s_warp[kThreads / 32];
+  load_params(params, n_words, sp);
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  // The block's first index: launch-local (grid operand) or global
+  // (decoded), as the Pallas kernels' float32 `base`.
+  const int lane0 = kDecoded ? meta[0] + b * kBlock : b * kBlock;
+  const float base = static_cast<float>(lane0);
+  for (int w = 0; w < sp[0]; ++w) {
+    float* o = out + static_cast<size_t>(kParetoRows) * w * n_blocks + b;
+    // 1. Price the lanes.
+    int n_ok = 0;
+    for (int r = 0; r < kLanesPerThread; ++r) {
+      const int lane = r * kThreads + tid;
+      bool valid;
+      Cfg x{1.0f, 1.0f, 1.0f, 1.0f, 1.0f};
+      if (kDecoded) {
+        x = decode_lane(axes, max_radix, meta, r_t, r_c, r_v, r_h, r_l,
+                        lane0 + lane, valid);
+      } else {
+        const int i = lane0 + lane;
+        valid = i < g && mask[i] > 0.0f;
+        if (valid) {
+          x = Cfg{cfg[i], cfg[g + i], cfg[2 * g + i], cfg[3 * g + i],
+                  cfg[4 * g + i]};
+        }
+      }
+      bool ok = false;
+      float area = 0.0f, power = 0.0f, energy = 0.0f, latency = 0.0f;
+      if (valid) {
+        hw_metrics(sp, w, x, area, power);
+        if (area < cons[4 * w + 0] && power < cons[4 * w + 1]) {
+          wl_metrics(sp, w, x, power, energy, latency);
+          ok = energy < cons[4 * w + 2] && latency < cons[4 * w + 3];
+        }
+      }
+      for (int k = 0; k < d; ++k) {
+        lobj[k * kBlock + lane] =
+            ok ? pick_metric((codes >> (3 * k)) & 7, area, power, energy,
+                             latency)
+               : INFINITY;
+      }
+      okf[lane] = ok ? 1 : 0;
+      n_ok += __syncthreads_count(ok);
+    }
+    if (n_ok == 0) {  // nothing feasible: counts 0, indices -1
+      if (tid < kParetoRows) o[tid * n_blocks] = tid < 2 ? 0.0f : -1.0f;
+      continue;
+    }
+    // 2. Stable sort of the lanes by objective 0.
+    for (int r = 0; r < kLanesPerThread; ++r) {
+      const int lane = r * kThreads + tid;
+      keys[lane] = (static_cast<unsigned long long>(sort_key(lobj[lane]))
+                    << 32) | static_cast<unsigned>(lane);
+    }
+    __syncthreads();
+    for (int k = 2; k <= kBlock; k <<= 1) {
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        for (int i = tid; i < kBlock; i += kThreads) {
+          const int ixj = i ^ j;
+          if (ixj > i) {
+            const unsigned long long a = keys[i];
+            const unsigned long long c = keys[ixj];
+            if ((a > c) == ((i & k) == 0)) {
+              keys[i] = c;
+              keys[ixj] = a;
+            }
+          }
+        }
+        __syncthreads();
+      }
+    }
+    // 3. Objectives in sorted order; the carried points of workload w.
+    for (int p = tid; p < kBlock; p += kThreads) {
+      const int lane = static_cast<int>(keys[p] & 0xffffffffu);
+      for (int k = 0; k < d; ++k) sobj[k * kBlock + p] = lobj[k * kBlock + lane];
+    }
+    if (has_carry) {
+      const float* cw = carry + static_cast<size_t>(w) * kCarryFront * d;
+      for (int i = tid; i < kCarryFront * d; i += kThreads) cpts[i] = cw[i];
+    }
+    __syncthreads();
+    // 4. Dominance: sorted column j against the rows before it, then the
+    // carried points.
+    for (int r = 0; r < kLanesPerThread; ++r) {
+      const int j = r * kThreads + tid;
+      const int lane = static_cast<int>(keys[j] & 0xffffffffu);
+      bool front = okf[lane] != 0;
+      if (front) {
+        float x[kMaxObjectives];
+#pragma unroll
+        for (int k = 0; k < kMaxObjectives; ++k) {
+          x[k] = k < d ? sobj[k * kBlock + j] : 0.0f;
+        }
+        if (isfinite(sobj[j & ~(kDomChunk - 1)])) {
+          for (int i = 0; i < j; ++i) {
+            if (row_dominates(sobj, kBlock, 1, i, x, d)) {
+              front = false;
+              break;
+            }
+          }
+        }
+        if (front && has_carry) {
+          for (int c = 0; c < kCarryFront; ++c) {
+            if (row_dominates(cpts, 1, d, c, x, d)) {
+              front = false;
+              break;
+            }
+          }
+        }
+      }
+      frontf[lane] = front ? 1 : 0;
+    }
+    __syncthreads();
+    // 5. Compaction: each thread owns eight consecutive lanes; an
+    // exclusive prefix sum of their front counts gives the output rows.
+    const int first = tid * kLanesPerThread;
+    int cnt = 0;
+    for (int q = 0; q < kLanesPerThread; ++q) cnt += frontf[first + q];
+    const unsigned full = 0xffffffffu;
+    const int wl = tid & 31;
+    const int wp = tid >> 5;
+    int incl = cnt;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(full, incl, off);
+      if (wl >= off) incl += v;
+    }
+    if (wl == 31) s_warp[wp] = incl;
+    __syncthreads();
+    if (wp == 0) {
+      int v = wl < kThreads / 32 ? s_warp[wl] : 0;
+      for (int off = 1; off < 32; off <<= 1) {
+        const int u = __shfl_up_sync(full, v, off);
+        if (wl >= off) v += u;
+      }
+      if (wl < kThreads / 32) s_warp[wl] = v;
+    }
+    __syncthreads();
+    const int total = s_warp[kThreads / 32 - 1];
+    int pos = incl - cnt + (wp > 0 ? s_warp[wp - 1] : 0);
+    for (int q = 0; q < kLanesPerThread; ++q) {
+      if (frontf[first + q]) {
+        if (pos < kMaxFront) {
+          o[(2 + pos) * n_blocks] = base + static_cast<float>(first + q);
+        }
+        ++pos;
+      }
+    }
+    if (tid >= total && tid < kMaxFront) o[(2 + tid) * n_blocks] = -1.0f;
+    if (tid == 0) {
+      o[0] = static_cast<float>(total);
+      o[n_blocks] = static_cast<float>(n_ok);
+    }
+    __syncthreads();  // shared memory is reused for the next workload
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) dse_pareto_padded_kernel(
+    const float* __restrict__ cfg, const float* __restrict__ mask, int g,
+    const float* __restrict__ cons, const float* __restrict__ carry, int d,
+    int codes, int has_carry, const int* __restrict__ params, int n_words,
+    float* __restrict__ out, int n_blocks) {
+  pareto_block<false>(cfg, mask, g, nullptr, 0, nullptr, 1, 1, 1, 1, 1,
+                      cons, carry, d, codes, has_carry, params, n_words, out,
+                      n_blocks);
+}
+
+__global__ void __launch_bounds__(kThreads) dse_pareto_decoded_kernel(
+    const float* __restrict__ axes, int max_radix,
+    const int* __restrict__ meta, int r_t, int r_c, int r_v, int r_h,
+    int r_l, const float* __restrict__ cons, const float* __restrict__ carry,
+    int d, int codes, int has_carry, const int* __restrict__ params,
+    int n_words, float* __restrict__ out, int n_blocks) {
+  pareto_block<true>(nullptr, nullptr, 0, axes, max_radix, meta, r_t, r_c,
+                     r_v, r_h, r_l, cons, carry, d, codes, has_carry, params,
+                     n_words, out, n_blocks);
+}
+
 }  // namespace
 
 extern "C" {
@@ -400,6 +684,41 @@ int dse_decode_rows_launch(const float* axes, int max_radix, const int* meta,
   dse_decode_rows_kernel<<<(width + kThreads - 1) / kThreads, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       axes, max_radix, meta, r_t, r_c, r_v, r_h, r_l, out, width);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dse_pareto_padded_launch(const float* cfg, const float* mask, int g,
+                             const float* cons, const float* carry, int d,
+                             int codes, int has_carry, const int* params,
+                             int n_words, float* out, int n_blocks,
+                             void* stream) {
+  const size_t smem = pareto_smem_bytes(d, n_words);
+  cudaError_t err = cudaFuncSetAttribute(
+      dse_pareto_padded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dse_pareto_padded_kernel<<<n_blocks, kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      cfg, mask, g, cons, carry, d, codes, has_carry, params, n_words, out,
+      n_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dse_pareto_decoded_launch(const float* axes, int max_radix,
+                              const int* meta, int r_t, int r_c, int r_v,
+                              int r_h, int r_l, const float* cons,
+                              const float* carry, int d, int codes,
+                              int has_carry, const int* params, int n_words,
+                              float* out, int n_blocks, void* stream) {
+  const size_t smem = pareto_smem_bytes(d, n_words);
+  cudaError_t err = cudaFuncSetAttribute(
+      dse_pareto_decoded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dse_pareto_decoded_kernel<<<n_blocks, kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      axes, max_radix, meta, r_t, r_c, r_v, r_h, r_l, cons, carry, d, codes,
+      has_carry, params, n_words, out, n_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 

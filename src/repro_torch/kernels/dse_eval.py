@@ -1,10 +1,11 @@
 """Hopper kernels for the DxPTA cost model and fused DSE search, each beside
 its plain PyTorch version.
 
-Four CUDA kernels (`csrc/dse_eval.cu`, built for sm_90a by `_build.py`)
-replace the four Pallas kernels of `repro/kernels/dse_eval.py` that carry
-the min-EDP search. They share one device cost model (hardware half, then
-the per-GEMM dataflow half) and one mixed-radix decoder:
+Six CUDA kernels (`csrc/dse_eval.cu`, built for sm_90a by `_build.py`)
+replace the six Pallas kernels of `repro/kernels/dse_eval.py` that carry
+the min-EDP and the Pareto-frontier searches. They share one device cost
+model (hardware half, then the per-GEMM dataflow half) and one mixed-radix
+decoder:
 
   * `dse_eval_padded`    — per-config (area, power, energy, latency);
   * `dse_search_padded`  — feasibility under dynamic (W, 4) bounds, EDP and
@@ -14,7 +15,12 @@ the per-GEMM dataflow half) and one mixed-radix decoder:
     decodes from its global index (factorized product spaces, optionally
     masked to a slab's digit ranges);
   * `dse_decode_rows`    — the decoded rows plus a validity row (the
-    decoder's testable surface).
+    decoder's testable surface);
+  * `dse_pareto_padded`  — per block of BLOCK lanes, the feasible
+    block-local non-dominated set (the Pallas kernel's sort-then-triangle
+    semantics, below), pruned against carried front points and compacted
+    to at most MAX_FRONT lane indices;
+  * `dse_pareto_decoded` — the same over decoded lanes, global indices.
 
 Every wrapper takes tensors. Given CUDA tensors it launches its kernel (and
 counts the launch in `LAUNCHES`) or raises; given CPU tensors it runs the
@@ -36,6 +42,14 @@ Float32 semantics (the Pallas kernels' source, read as IEEE float32):
       GEMMs accumulated in list order.
   (d) float32 indices (exact below 2**24); invalid decoded lanes gather
       clamped candidate values.
+
+Block-front semantics (`repro`'s `_block_front`, which is *not* plain
+dominance): infeasible lanes get +inf objectives; the block is ordered by a
+stable sort on objective 0 (ties by lane; -0.0 equals +0.0); a sorted row
+can dominate only the rows after it, so a pair tied on objective 0 whose
+dominator sits at the later lane is skipped and both stay; a column whose
+DOM_CHUNK-tile starts at a non-finite objective 0 is never dominated (the
+tile's `lax.cond` skip). Carried points then prune by strict dominance.
 """
 from __future__ import annotations
 
@@ -56,10 +70,22 @@ CARRY_IDX = -2.0      # index emitted when the carried-in best wins the block
 META_COLS = 12        # [start, end, lo_t, hi_t, lo_c, hi_c, lo_v, hi_v,
 #                        lo_h, hi_h, lo_l, hi_l] of a decoded launch
 
-#: Launch counts of the four kernels, one plain integer each; a wrapper adds
+MAX_FRONT = 128       # per-block emitted front indices (a larger front
+#                       reports its true count; the host refines the block)
+PARETO_HEADER = 2     # per-workload header rows: (front count, feasible count)
+PARETO_ROWS = PARETO_HEADER + MAX_FRONT
+DOM_CHUNK = 256       # column tile of the reference's dominance pass
+CARRY_FRONT = 128     # carried-in front points per workload (+inf padded)
+#: Metrics a frontier kernel can minimize, in the order of their codes.
+PARETO_METRICS = ("area", "power", "energy", "latency", "edp")
+#: Blocks per batched (n, n) dominance pass of the plain frontier version.
+PLAIN_BATCH = 32
+
+#: Launch counts of the six kernels, one plain integer each; a wrapper adds
 #: one where it launches its kernel and nowhere else.
 LAUNCHES = {"dse_eval_padded": 0, "dse_search_padded": 0,
-            "dse_search_decoded": 0, "dse_decode_rows": 0}
+            "dse_search_decoded": 0, "dse_decode_rows": 0,
+            "dse_pareto_padded": 0, "dse_pareto_decoded": 0}
 
 # Packed parameter block the kernels read (int32 words; floats bit-cast):
 #   [W, n_gemms] + N_CONST folded constants + W * WL_WORDS workload records
@@ -322,6 +348,129 @@ def dse_decode_rows_plain(axes, meta, *, radices: tuple,
     return torch.stack(list(cols) + [valid.float()])
 
 
+def _block_front_plain(objs, ok):
+    """(B, n) mask of block-locally non-dominated feasible lanes, B blocks
+    at once, with the Pallas kernel's semantics (module docstring): one
+    masked (K, K) comparison per block over the sorted prefix that holds
+    every feasible lane (rows past it cannot precede a feasible column)."""
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=ok.device)
+    o = [torch.where(ok, x, inf) for x in objs]
+    n = ok.shape[1]
+    order = torch.sort(o[0], dim=1, stable=True).indices
+    so = [x.gather(1, order) for x in o]
+    s_ok = ok.gather(1, order)
+    pos = torch.arange(n, device=ok.device)
+    k = int(torch.where(s_ok, pos + 1, 0).max())
+    dominated = torch.zeros_like(ok)
+    if k > 1:
+        le = lt = None
+        for x in so:
+            r, c = x[:, :k, None], x[:, None, :k]
+            le = (r <= c) if le is None else le & (r <= c)
+            lt = (r < c) if lt is None else lt | (r < c)
+        tri = pos[:k, None] < pos[None, :k]
+        dom = (le & lt & tri).any(dim=1)
+        # A column whose DOM_CHUNK tile starts at a non-finite objective 0
+        # is skipped by the reference's lax.cond.
+        live = torch.isfinite(so[0][:, (pos[:k] // DOM_CHUNK) * DOM_CHUNK])
+        dominated[:, :k] = dom & live
+    unsorted = torch.zeros_like(ok).scatter_(1, order, dominated)
+    return ok & ~unsorted
+
+
+def _carry_dominated_plain(carry_pts, objs):
+    """(B, n) mask of lanes strictly dominated by a carried point.
+    carry_pts: (CARRY_FRONT, d); objs: d (B, n) vectors (+inf where
+    infeasible). +inf padding rows never dominate; exact ties survive."""
+    le = lt = None
+    for j, x in enumerate(objs):
+        cj = carry_pts[:, j][None, :, None]
+        xx = x[:, None, :]
+        le = (cj <= xx) if le is None else le & (cj <= xx)
+        lt = (cj < xx) if lt is None else lt | (cj < xx)
+    return (le & lt).any(dim=1)
+
+
+def _objective_codes(objectives) -> tuple:
+    """Codes of `objectives` in PARETO_METRICS; refuses what the frontier
+    kernels do not model (`util`) and any list the kernels cannot hold."""
+    objectives = tuple(objectives)
+    bad = [k for k in objectives if k not in PARETO_METRICS]
+    if bad or not 1 <= len(objectives) <= len(PARETO_METRICS):
+        raise ValueError(f"the frontier kernels minimize 1 to 5 of "
+                         f"{PARETO_METRICS}, got {objectives!r}")
+    return tuple(PARETO_METRICS.index(k) for k in objectives)
+
+
+def _pareto_reduce_plain(workloads, objectives, has_carry: bool, c, cols,
+                         valid, base, cons, carry) -> torch.Tensor:
+    """(PARETO_ROWS * W, n_blocks) block-front reduction over lanes laid
+    out as (n_blocks * BLOCK,) vectors; `base` holds each block's float32
+    first global index."""
+    _objective_codes(objectives)
+    k, per_wl = _statics(workloads, c)
+    n_blocks = valid.shape[0] // BLOCK
+    dev = valid.device
+    out = torch.empty((PARETO_ROWS * len(workloads), n_blocks),
+                      dtype=torch.float32, device=dev)
+    local = torch.arange(BLOCK, dtype=torch.int32, device=dev).float()
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    for w, (wl, gm) in enumerate(per_wl):
+        area, power = _config_metrics_hw(k, wl, *cols)
+        energy, latency = _config_metrics_wl(k, wl, gm, power, *cols)
+        ok = (valid & (area < cons[w, 0]) & (power < cons[w, 1])
+              & (energy < cons[w, 2]) & (latency < cons[w, 3]))
+        vals = {"area": area, "power": power, "energy": energy,
+                "latency": latency, "edp": energy * latency}
+        objs = [vals[m].view(n_blocks, BLOCK) for m in objectives]
+        ok = ok.view(n_blocks, BLOCK)
+        carry_pts = carry[w * CARRY_FRONT:(w + 1) * CARRY_FRONT]
+        r0 = PARETO_ROWS * w
+        for s in range(0, n_blocks, PLAIN_BATCH):
+            e = min(s + PLAIN_BATCH, n_blocks)
+            ok_b = ok[s:e]
+            ob = [x[s:e] for x in objs]
+            front = _block_front_plain(ob, ok_b)
+            if has_carry:
+                front = front & ~_carry_dominated_plain(
+                    carry_pts, [torch.where(ok_b, x, inf) for x in ob])
+            key = torch.where(front, local, float(BLOCK)).sort(dim=1) \
+                .values[:, :MAX_FRONT]
+            out[r0, s:e] = front.sum(dim=1).float()
+            out[r0 + 1, s:e] = ok_b.sum(dim=1).float()
+            out[r0 + PARETO_HEADER:r0 + PARETO_ROWS, s:e] = torch.where(
+                key < BLOCK, base[s:e, None] + key,
+                torch.full_like(key, -1.0)).T
+    return out
+
+
+def dse_pareto_padded_plain(cfg_cols, mask, cons, carry, *,
+                            workloads: tuple, objectives: tuple,
+                            has_carry: bool = True,
+                            constants: DeviceConstants) -> torch.Tensor:
+    """Plain version of `dse_pareto_padded`: (130W, ceil(G / BLOCK))."""
+    cfg_cols, mask = _pad_cols(cfg_cols, mask)
+    n_blocks = cfg_cols.shape[1] // BLOCK
+    base = (torch.arange(n_blocks, dtype=torch.int32, device=cfg_cols.device)
+            * BLOCK).float()
+    cols = tuple(cfg_cols[i] for i in range(5))
+    return _pareto_reduce_plain(workloads, objectives, has_carry, constants,
+                                cols, mask[0] > 0.0, base, cons, carry)
+
+
+def dse_pareto_decoded_plain(axes, meta, cons, carry, *, radices: tuple,
+                             n_blocks: int, workloads: tuple,
+                             objectives: tuple, has_carry: bool = True,
+                             constants: DeviceConstants) -> torch.Tensor:
+    """Plain version of `dse_pareto_decoded`: (130W, n_blocks), BLOCK
+    decoded lanes per block, global indices."""
+    cols, idx, valid = _decode_block_plain(radices, axes, meta, n_blocks,
+                                           BLOCK)
+    base = idx.view(n_blocks, BLOCK)[:, 0]
+    return _pareto_reduce_plain(workloads, objectives, has_carry, constants,
+                                cols, valid, base, cons, carry)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -468,4 +617,94 @@ def dse_decode_rows(axes, meta, *, radices: tuple,
         _stream())
     _check(rc, "dse_decode_rows")
     LAUNCHES["dse_decode_rows"] += 1
+    return out
+
+
+def _pareto_args(objectives, has_carry: bool, carry, w: int):
+    """(d, packed objective codes, has_carry) launch arguments; the carry
+    must be the (W * CARRY_FRONT, d) float32 operand."""
+    codes = _objective_codes(objectives)
+    if carry.shape != (w * CARRY_FRONT, len(codes)):
+        raise ValueError(f"carry must be (W * CARRY_FRONT, d) = "
+                         f"({w * CARRY_FRONT}, {len(codes)}), got "
+                         f"{tuple(carry.shape)}")
+    packed = sum(code << (3 * i) for i, code in enumerate(codes))
+    return [ctypes.c_int(len(codes)), ctypes.c_int(packed),
+            ctypes.c_int(int(bool(has_carry)))]
+
+
+def dse_pareto_padded(cfg_cols, mask, cons, carry, *, workloads: tuple,
+                      objectives: tuple, has_carry: bool = True,
+                      constants: DeviceConstants) -> torch.Tensor:
+    """Frontier-candidate reduction over a (5, G) config grid, any G (same
+    contract as `repro/kernels/dse_eval.py:dse_pareto_padded`, which it
+    replaces).
+
+    cfg_cols (5, G), mask (1, G), cons (W, 4) and carry (W * CARRY_FRONT, d)
+    float32; `objectives` names d of PARETO_METRICS; `has_carry=False`
+    skips the carried-front prune. Returns (PARETO_ROWS * W,
+    ceil(G / BLOCK)) float32: per workload, the block's true front count,
+    its feasible count, then up to MAX_FRONT launch-local indices of its
+    front in ascending order, -1 padded.
+    """
+    if not cfg_cols.is_cuda:
+        return dse_pareto_padded_plain(cfg_cols, mask, cons, carry,
+                                       workloads=workloads,
+                                       objectives=objectives,
+                                       has_carry=has_carry,
+                                       constants=constants)
+    from ._build import load_library
+    _require([cfg_cols, mask, cons, carry], [torch.float32] * 4,
+             "dse_pareto_padded")
+    g = cfg_cols.shape[1]
+    w = len(workloads)
+    if cons.shape != (w, 4) or mask.shape != (1, g):
+        raise ValueError("dse_pareto_padded: operand shapes disagree")
+    obj_args = _pareto_args(objectives, has_carry, carry, w)
+    n_blocks = max(1, math.ceil(g / BLOCK))
+    params = _device_params(workloads, constants, cfg_cols.device)
+    out = torch.empty((PARETO_ROWS * w, n_blocks), dtype=torch.float32,
+                      device=cfg_cols.device)
+    rc = load_library().dse_pareto_padded_launch(
+        _ptr(cfg_cols), _ptr(mask), ctypes.c_int(g), _ptr(cons),
+        _ptr(carry), *obj_args, _ptr(params), ctypes.c_int(params.numel()),
+        _ptr(out), ctypes.c_int(n_blocks), _stream())
+    _check(rc, "dse_pareto_padded")
+    LAUNCHES["dse_pareto_padded"] += 1
+    return out
+
+
+def dse_pareto_decoded(axes, meta, cons, carry, *, radices: tuple,
+                       n_blocks: int, workloads: tuple, objectives: tuple,
+                       has_carry: bool = True,
+                       constants: DeviceConstants) -> torch.Tensor:
+    """Frontier-candidate reduction over the span (and slab digit ranges)
+    of the (META_COLS,) int32 meta row, BLOCK decoded lanes per block; same
+    output layout as `dse_pareto_padded` with global indices. Replaces
+    `repro/kernels/dse_eval.py:dse_pareto_decoded`."""
+    if not axes.is_cuda:
+        return dse_pareto_decoded_plain(axes, meta, cons, carry,
+                                        radices=radices, n_blocks=n_blocks,
+                                        workloads=workloads,
+                                        objectives=objectives,
+                                        has_carry=has_carry,
+                                        constants=constants)
+    from ._build import load_library
+    _require([axes, meta, cons, carry],
+             [torch.float32, torch.int32, torch.float32, torch.float32],
+             "dse_pareto_decoded")
+    w = len(workloads)
+    if meta.shape != (META_COLS,) or cons.shape != (w, 4):
+        raise ValueError("dse_pareto_decoded: operand shapes disagree")
+    obj_args = _pareto_args(objectives, has_carry, carry, w)
+    params = _device_params(workloads, constants, axes.device)
+    out = torch.empty((PARETO_ROWS * w, n_blocks), dtype=torch.float32,
+                      device=axes.device)
+    rc = load_library().dse_pareto_decoded_launch(
+        _ptr(axes), ctypes.c_int(axes.shape[1]), _ptr(meta),
+        *_radix_args(radices, axes), _ptr(cons), _ptr(carry), *obj_args,
+        _ptr(params), ctypes.c_int(params.numel()), _ptr(out),
+        ctypes.c_int(n_blocks), _stream())
+    _check(rc, "dse_pareto_decoded")
+    LAUNCHES["dse_pareto_decoded"] += 1
     return out

@@ -8,6 +8,9 @@ DSE half, with "pallas" read as "cuda").
   * `dse_search_multi_factorized` / `dse_search_spans_factorized` — the same
     over index spans (optionally slab-masked) of a product space, configs
     decoded on device;
+  * `dse_pareto_multi` / `dse_pareto_multi_factorized` /
+    `dse_pareto_spans_factorized` — the frontier-candidate counterparts:
+    per-block local fronts, merged into per-workload candidate index sets;
   * `decode_rows_device` — the on-device decode, as rows.
 
 Each takes `device=`: a CUDA device launches the kernels, "cpu" runs their
@@ -20,6 +23,7 @@ carry).
 from __future__ import annotations
 
 import functools
+import logging
 import math
 
 import numpy as np
@@ -27,11 +31,13 @@ import torch
 
 from .._device import resolve_device
 from ..core.arch_params import PTAConfig
-from ..core.factorized import full_ranges
+from ..core.factorized import decode_digits, full_ranges
 from ..core.performance_model import workload_statics
 from ..core.photonic_model import CONSTANTS, DeviceConstants
 from ..core.workload import Workload
 from . import dse_eval as _dse
+
+log = logging.getLogger("repro_torch.kernels")
 
 
 def _cols(grid: np.ndarray, device) -> torch.Tensor:
@@ -63,6 +69,60 @@ def _search_carry_rows(carry_edp, w: int, device) -> torch.Tensor:
     if carry_edp is not None:
         arr[:, 0] = np.asarray(carry_edp, np.float64).astype(np.float32)
     return torch.from_numpy(arr).to(device)
+
+
+def _front_carry_rows(carry_points, w: int, d: int, device) -> torch.Tensor:
+    """(W * CARRY_FRONT, d) float32 carried-front operand, +inf-padded.
+
+    carry_points: per-workload (F, d) objective-point arrays (or None).
+    Fronts longer than CARRY_FRONT are truncated — the kernel prune is a
+    candidate filter, so carrying any subset stays exact.
+    """
+    cf = _dse.CARRY_FRONT
+    arr = np.full((w * cf, d), np.inf, np.float32)
+    if carry_points is not None:
+        for wi, pts in enumerate(carry_points):
+            if pts is None or len(pts) == 0:
+                continue
+            p = np.asarray(pts, np.float32)[:cf]
+            arr[wi * cf:wi * cf + len(p)] = p
+    return torch.from_numpy(arr).to(device)
+
+
+def _has_carry(carry_points) -> bool:
+    return carry_points is not None and any(
+        p is not None and len(p) for p in carry_points)
+
+
+def _front_candidates(out: np.ndarray, w: int, blk_lo: np.ndarray,
+                      limit: int, what: str, keep=None):
+    """Per-workload (candidate indices, n_feasible, n_overflow) from a
+    (PARETO_ROWS * W, n_blocks) frontier reduction. A block whose local
+    front overflowed MAX_FRONT joins the candidates whole — [blk_lo,
+    min(blk_lo + BLOCK, limit)), filtered by `keep` when given — so the
+    emission bound never drops a frontier point; the caller's float64
+    refinement restores the exact frontier."""
+    results = []
+    for wi in range(w):
+        rows = out[_dse.PARETO_ROWS * wi:_dse.PARETO_ROWS * (wi + 1)]
+        counts, nfeas_b = rows[0], rows[1]
+        idx = rows[_dse.PARETO_HEADER:]
+        cand = idx[idx >= 0].astype(np.int64)
+        overflowed = np.nonzero(counts > _dse.MAX_FRONT)[0]
+        if len(overflowed):
+            log.warning("%s: %d block(s) overflowed MAX_FRONT=%d; falling "
+                        "back to whole-block candidates (exact, "
+                        "host-refined)", what, len(overflowed),
+                        _dse.MAX_FRONT)
+        for b in overflowed:
+            lo = int(blk_lo[b])
+            fallback = np.arange(lo, min(lo + _dse.BLOCK, limit))
+            if keep is not None:
+                fallback = fallback[keep(fallback)]
+            cand = np.concatenate([cand, fallback])
+        results.append((np.unique(cand), int(round(float(nfeas_b.sum()))),
+                        int(len(overflowed))))
+    return results
 
 
 def _reduce_blocks(out: np.ndarray, w: int, carry_edp):
@@ -118,6 +178,38 @@ def dse_search_multi(grid: np.ndarray, wls, constraints_seq,
     return _reduce_blocks(out.cpu().numpy(), len(workloads), carry_edp)
 
 
+def dse_pareto_multi(grid: np.ndarray, wls, constraints_seq,
+                     c: DeviceConstants = CONSTANTS, device=None,
+                     objectives: tuple = ("area", "power", "edp"), *,
+                     carry_points=None):
+    """Batched frontier-candidate search: W workloads x one grid, one launch.
+
+    The kernel reduces every block to its local non-dominated feasible set
+    (at most MAX_FRONT indices per block); this wrapper merges the
+    per-block lists, taking every row of a block whose front overflowed.
+    `carry_points` (per-workload (F, d) running-front points in the
+    kernel's float32 metric space) prunes candidates a carried point
+    strictly dominates. Returns a list of (candidate_indices, n_feasible,
+    n_overflow) per workload: sorted int64 grid rows covering the
+    workload's feasible frontier as the kernel's float32 metrics see it,
+    and the number of overflowed blocks.
+    """
+    dev = resolve_device(device)
+    workloads = tuple(workload_statics(wl, c) for wl in wls)
+    objectives = tuple(objectives)
+    cols = _cols(grid, dev)
+    mask = torch.ones((1, cols.shape[1]), dtype=torch.float32, device=dev)
+    out = _dse.dse_pareto_padded(
+        cols, mask, _constraint_rows(constraints_seq, dev),
+        _front_carry_rows(carry_points, len(workloads), len(objectives),
+                          dev),
+        workloads=workloads, objectives=objectives,
+        has_carry=_has_carry(carry_points), constants=c).cpu().numpy()
+    blk_lo = np.arange(out.shape[1], dtype=np.int64) * _dse.BLOCK
+    return _front_candidates(out, len(workloads), blk_lo, len(grid),
+                             "pareto kernel")
+
+
 # ---------------------------------------------------------------------------
 # Factorized-space launches: on-device candidate generation
 # ---------------------------------------------------------------------------
@@ -161,20 +253,43 @@ def _check_decode_span(limit: int):
             f"Use the numpy factorized engine for larger spaces.")
 
 
-def _decoded_launch(space, start: int, count: int, workloads: tuple,
-                    c: DeviceConstants, cons, carry, dev, slab=None):
-    """One decoded search launch over [start, start + count), optionally
-    masked to a slab's digit ranges: the (3W, n_blocks) reduction."""
+def _slab_member_mask(radices, slab, idx: np.ndarray) -> np.ndarray:
+    """Boolean mask of flat indices whose digits fall inside the slab."""
+    digits = decode_digits(np.asarray(idx, np.int64), radices)
+    ok = np.ones(len(idx), bool)
+    for d, (lo, hi) in zip(digits, slab):
+        ok &= (d >= lo) & (d < hi)
+    return ok
+
+
+def _decoded_launch(space, start: int, count: int, kind: str,
+                    workloads: tuple, c: DeviceConstants, cons, carry, dev,
+                    slab=None, objectives=None, has_carry=False):
+    """One decoded launch over [start, start + count), optionally masked to
+    a slab's digit ranges: kind "search" gives the (3W, n_blocks)
+    reduction over DECODE_BLOCK-lane blocks, "pareto" the (PARETO_ROWS * W,
+    n_blocks) frontier reduction over BLOCK-lane blocks (its dominance pass
+    is quadratic in the block). Returns (out, each block's first global
+    index)."""
     axes_cols, radices = _axes_operand(space, dev)
     limit = min(start + count, space.size)
     _check_decode_span(limit)
-    n_blocks = max(1, math.ceil(count / _dse.DECODE_BLOCK))
+    block = _dse.DECODE_BLOCK if kind == "search" else _dse.BLOCK
+    n_blocks = max(1, math.ceil(count / block))
     meta = torch.from_numpy(_meta_rows(radices, [start], limit, slab)[0]) \
         .to(dev)
-    out = _dse.dse_search_decoded(axes_cols, meta, cons, carry,
-                                  radices=radices, n_blocks=n_blocks,
-                                  workloads=workloads, constants=c)
-    return out.cpu().numpy()
+    if kind == "search":
+        out = _dse.dse_search_decoded(axes_cols, meta, cons, carry,
+                                      radices=radices, n_blocks=n_blocks,
+                                      workloads=workloads, constants=c)
+    else:
+        out = _dse.dse_pareto_decoded(axes_cols, meta, cons, carry,
+                                      radices=radices, n_blocks=n_blocks,
+                                      workloads=workloads,
+                                      objectives=objectives,
+                                      has_carry=has_carry, constants=c)
+    blk_lo = start + np.arange(n_blocks, dtype=np.int64) * block
+    return out.cpu().numpy(), blk_lo
 
 
 def dse_search_multi_factorized(space, start: int, count: int, wls,
@@ -191,11 +306,39 @@ def dse_search_multi_factorized(space, start: int, count: int, wls,
     """
     dev = resolve_device(device)
     workloads = tuple(workload_statics(wl, c) for wl in wls)
-    out = _decoded_launch(space, start, count, workloads, c,
-                          _constraint_rows(constraints_seq, dev),
-                          _search_carry_rows(carry_edp, len(workloads), dev),
-                          dev, slab)
+    out, _ = _decoded_launch(space, start, count, "search", workloads, c,
+                             _constraint_rows(constraints_seq, dev),
+                             _search_carry_rows(carry_edp, len(workloads),
+                                                dev),
+                             dev, slab)
     return _reduce_blocks(out, len(workloads), carry_edp)
+
+
+def dse_pareto_multi_factorized(space, start: int, count: int, wls,
+                                constraints_seq,
+                                c: DeviceConstants = CONSTANTS, device=None,
+                                objectives: tuple = ("area", "power", "edp"),
+                                *, carry_points=None, slab=None):
+    """Batched frontier-candidate search over an index span of a product
+    space; same contract as `dse_pareto_multi` — (candidate_indices,
+    n_feasible, n_overflow) triples — with global flat-space candidate
+    indices. `slab` masks the span to a slab's members in-kernel, and an
+    overflowing block's whole-block fallback is clipped back to the slab's
+    members."""
+    dev = resolve_device(device)
+    workloads = tuple(workload_statics(wl, c) for wl in wls)
+    objectives = tuple(objectives)
+    out, blk_lo = _decoded_launch(
+        space, start, count, "pareto", workloads, c,
+        _constraint_rows(constraints_seq, dev),
+        _front_carry_rows(carry_points, len(workloads), len(objectives),
+                          dev),
+        dev, slab, objectives, _has_carry(carry_points))
+    keep = None if slab is None else \
+        functools.partial(_slab_member_mask, space.radices, slab)
+    return _front_candidates(out, len(workloads), blk_lo,
+                             min(start + count, space.size),
+                             "pareto decode kernel", keep)
 
 
 def dse_search_spans_factorized(space, items, wls, constraints_seq,
@@ -223,6 +366,35 @@ def dse_search_spans_factorized(space, items, wls, constraints_seq,
                 best_idx[wi], best_edp[wi] = bi[wi], be[wi]
                 carry[wi] = be[wi]
     return best_idx, best_edp, n_feasible
+
+
+def dse_pareto_spans_factorized(space, items, wls, constraints_seq,
+                                c: DeviceConstants = CONSTANTS, device=None,
+                                objectives: tuple = ("area", "power", "edp"),
+                                *, carry_points=None):
+    """Compose `dse_pareto_multi_factorized` launches over a work list of
+    (start, count, slab) triples: per-workload (candidate-index union,
+    summed feasible count, summed overflow count) triples. `carry_points`
+    (the running front at entry) prunes every launch's emissions;
+    candidates of earlier items are not folded into the carry — the union
+    is a candidate superset either way, and the caller's float64
+    refinement restores exactness."""
+    w = len(wls)
+    cands = [[] for _ in range(w)]
+    n_feasible = [0] * w
+    n_overflow = [0] * w
+    for start, count, slab in items:
+        per_wl = dse_pareto_multi_factorized(
+            space, start, count, wls, constraints_seq, c, device,
+            objectives=objectives, carry_points=carry_points, slab=slab)
+        for wi, (idx, f, n_over) in enumerate(per_wl):
+            n_feasible[wi] += f
+            n_overflow[wi] += n_over
+            if len(idx):
+                cands[wi].append(idx)
+    return [(np.unique(np.concatenate(cc)) if cc
+             else np.zeros(0, np.int64), f, o)
+            for cc, f, o in zip(cands, n_feasible, n_overflow)]
 
 
 def decode_rows_device(space, start: int, count: int, device=None,

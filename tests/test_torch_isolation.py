@@ -19,6 +19,7 @@ from repro_torch.kernels import ops
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 MODULES = ("repro_torch", "repro_torch.core", "repro_torch.core.search",
+           "repro_torch.core.pareto",
            "repro_torch.core.factorized", "repro_torch.interop",
            "repro_torch.kernels", "repro_torch.kernels.dse_eval",
            "repro_torch.kernels.ops", "repro_torch.kernels.ref",
@@ -61,8 +62,13 @@ def _no_card():
     lambda wl: ops.dse_search_grid(P.FactorizedSpace.full(3).to_grid(), wl,
                                    P.Constraints()),
     lambda wl: ops.decode_rows_device(P.FactorizedSpace.full(3), 0, 10),
+    lambda wl: P.search(wl, objective="pareto"),
+    lambda wl: P.pareto_front(P.FactorizedSpace.full(3).to_grid(), wl),
+    lambda wl: ops.dse_pareto_multi(P.FactorizedSpace.full(3).to_grid(),
+                                    [wl], [P.Constraints()]),
 ], ids=["search", "search_bound", "search_workloads", "dxpta_search",
-        "hw_prefilter", "dse_search_grid", "decode_rows_device"])
+        "hw_prefilter", "dse_search_grid", "decode_rows_device",
+        "search_pareto", "pareto_front", "dse_pareto_multi"])
 def test_entry_points_raise_without_a_card(call):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):

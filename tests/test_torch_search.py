@@ -223,7 +223,7 @@ def test_kernel_wrappers_match_reference_oracles():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(objective="pareto"), dict(shard=2), dict(runtime="policy"),
+    dict(shard=2), dict(runtime="policy"),
     dict(keep_ledger=True), dict(workers=2), dict(calibration="nominal"),
     dict(robust="worst_case"), dict(engine="torch"), dict(engine="jax")],
     ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
