@@ -26,10 +26,26 @@ From the root of a checkout, with one CUDA card visible. It
      the golden frontiers and the numpy engine, then `search(...,
      factorized=True, prune="bound")` on the 24^5 space per paper workload,
      frontier and counters checked against the numpy engine;
-  5. prints one JSON line with every kernel's launches (counted per
+  5. holds the two LM kernels against their plain versions on the card:
+     `ddot_gemm_quantized` (the photonic 4-bit GEMM) `torch.equal` at the
+     qwen2.5-3b LM head (4 x 2048 x 151,936), its MLP up-projection (256 x
+     2048 x 11,008) and a ragged shape, without and with shot noise (the
+     same explicit z); `flash_attention_bhsd` within the reference's
+     tolerance (2e-5 f32, 2e-2 bf16) at qwen2.5-3b attention (S = 4096, 16
+     query and 2 KV heads, D = 128, bf16, causal) and at small D = 80 and
+     D = 256 cases in both dtypes, one bidirectional;
+  6. serves tokens from qwen2.5-3b at its full published width (random
+     weights from a seeded generator): `Server(batch_size=4, max_len=64)`
+     answers 4 requests of 12 new tokens, prefill logits are checked
+     finite, a reduced qwen2.5-3b is held against the port's CPU path, the
+     photonic LM head runs through `photonic_matmul` (noise 0.02 and 0),
+     `photonic_report` prices the workload, and `kernels.flash_attention`
+     runs at the attention shape above;
+  7. prints one JSON line with every kernel's launches (counted per
      entry-point call, the counts set to 0 just before each call and read
      just after it), its largest difference from its plain version, its
-     time, its plain version's time and its bound, then the result line.
+     time, its plain version's time, its bound and, where one PyTorch call
+     computes the same function, that call's time; then the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. It exits non-zero at once without a CUDA card, or outside a checkout.
@@ -44,11 +60,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM rate and the
-# float32 rate outside the tensor cores. Integer operations of the cost model
-# are counted at the float32 rate, which keeps the bound a lower bound.
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM rate, the
+# float32 rate outside the tensor cores, and the dense tensor-core rates for
+# int8 and bf16. Integer operations of the cost model are counted at the
+# float32 rate, which keeps the bound a lower bound.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 
 # Operations per config of the shared cost model (csrc/dse_eval.cu), each
 # float32 or int32 add, multiply, divide, min/max, conversion and compare
@@ -68,8 +87,21 @@ REPLACES = {
     "dse_decode_rows": "src/repro/kernels/dse_eval.py:716",
     "dse_pareto_padded": "src/repro/kernels/dse_eval.py:596",
     "dse_pareto_decoded": "src/repro/kernels/dse_eval.py:690",
+    "ddot_gemm_quantized": "src/repro/kernels/ddot_gemm.py:61",
+    "flash_attention_bhsd": "src/repro/kernels/flash_attention.py:70",
 }
-SOURCE = "src/repro_torch/kernels/csrc/dse_eval.cu"
+SOURCES = {name: "src/repro_torch/kernels/csrc/"
+           + ("lm_kernels.cu" if name in ("ddot_gemm_quantized",
+                                          "flash_attention_bhsd")
+              else "dse_eval.cu") for name in REPLACES}
+# Tolerances of the attention kernel against its plain version: the
+# reference's own (tests/test_flash_attention.py), since exponentials and
+# summation order differ.
+FLASH_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
+# Logits of the card's LM path against the port's CPU path on the same
+# reduced model: tests/test_torch_lm.py's LOGIT_ATOL (bf16 activations,
+# f32 sums in another order).
+LOGIT_ATOL = 0.03
 
 
 def _fail(msg: str):
@@ -124,9 +156,9 @@ def _max_abs_err(got, want) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def _bound_ms(n_bytes: float, n_ops: float):
+def _bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -146,9 +178,18 @@ def main() -> None:
     from repro_torch.core.paper_workloads import PAPER_WORKLOADS, load
     from repro_torch.core.performance_model import workload_statics
     from repro_torch.core.photonic_model import CONSTANTS
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import ddot_gemm as ddot
     from repro_torch.kernels import dse_eval as dse
     from repro_torch.kernels import ops
     from repro_torch.kernels._build import build_all
+    from repro_torch.kernels.flash_attention import LAUNCHES as FA_LAUNCHES
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bhsd, flash_attention_bhsd_plain)
+    from repro_torch.kernels.ref import quantize4
+    from repro_torch.train.serve import Request, Server, photonic_report
+    counters = (dse.LAUNCHES, ddot.LAUNCHES, FA_LAUNCHES)
 
     smi = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
@@ -159,6 +200,13 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     print(f"build: {build_all():.1f} s (nvcc, sm_90a, all sources)")
+    # The LM path multiplies in full float32 (the reference's f32 products):
+    # TF32 must stay off.
+    print(f"float32 matmul precision {torch.get_float32_matmul_precision()!r},"
+          f" allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
+    _check(torch.get_float32_matmul_precision() == "highest"
+           and not torch.backends.cuda.matmul.allow_tf32,
+           "TF32 is on: the LM path's float32 products would round")
 
     names = sorted(PAPER_WORKLOADS)
     cons = Constraints()
@@ -182,41 +230,61 @@ def main() -> None:
                f"{shape} (max abs err {err!r})")
         return err
 
-    def measure(name, kernel, plain, n_bytes, n_ops, shape, plain_time):
-        """Check one kernel run against its plain version and time both;
-        `n_ops` may be a function of the kernel's output (work that
-        depends on the data)."""
+    def check_close(name, got, want, shape, tol):
+        torch.cuda.synchronize()
+        same_shape = got.shape == want.shape and got.dtype == want.dtype
+        err = _max_abs_err(got, want) if same_shape else math.inf
+        _check(same_shape and torch.allclose(got.float(), want.float(),
+                                             rtol=tol, atol=tol),
+               f"{name}: kernel output differs from its plain version past "
+               f"rtol = atol = {tol} at {shape} (max abs err {err!r})")
+        return err
+
+    def measure(name, kernel, plain, n_bytes, n_ops, shape, plain_time,
+                ops_per_s=F32_OPS_PER_S, tol=None, library=None):
+        """Check one kernel run against its plain version (equal, or
+        allclose at `tol`) and time both, and `library` (one PyTorch call
+        computing the same function) where given; `n_ops` may be a
+        function of the kernel's output (work that depends on the
+        data)."""
         got = kernel()
-        err = check_equal(name, got, plain(), shape)
+        if tol is None:
+            err = check_equal(name, got, plain(), shape)
+        else:
+            err = check_close(name, got, plain(), shape, tol)
         if callable(n_ops):
             n_ops = n_ops(got)
         ms, plain_ms = _time_ms(kernel), plain_time(plain)
-        bound, bound_by = _bound_ms(n_bytes, n_ops)
-        print(f"{name} {shape}: equal to plain (max abs err {err!r}); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-              f"({bound_by})")
+        lib_ms = None if library is None else _time_ms(library)
+        bound, bound_by = _bound_ms(n_bytes, n_ops, ops_per_s)
+        print(f"{name} {shape}: "
+              + ("equal to plain" if tol is None else f"within {tol} of plain")
+              + f" (max abs err {err!r}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), "
+              f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
         return got, {"shape": shape, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": bound_by}
+                     "bound_by": bound_by, "library_ms": lib_ms}
 
     def record(name, kernel, plain, n_bytes, n_ops, shape,
-               plain_time=_time_ms):
+               plain_time=_time_ms, **kw):
         got, m = measure(name, kernel, plain, n_bytes, n_ops, shape,
-                         plain_time)
-        rows[name] = {"name": name, "route": "cuda", "source": SOURCE,
+                         plain_time, **kw)
+        rows[name] = {"name": name, "route": "cuda", "source": SOURCES[name],
                       "replaces": REPLACES[name], "launches": 0,
-                      "launches_by_path": {}, "max_abs_err": m["max_abs_err"],
+                      "launches_by_path": {}, "shape": shape,
+                      "max_abs_err": m["max_abs_err"],
                       "ms": m["ms"], "plain_ms": m["plain_ms"],
                       "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-                      "library_ms": None, "variants": []}
+                      "library_ms": m["library_ms"], "variants": []}
         return got
 
     def variant(name, kernel, plain, n_bytes, n_ops, shape,
-                plain_time=_time_ms):
+                plain_time=_time_ms, **kw):
         """A further input of a recorded kernel: checked and timed the
         same way, kept under the kernel's "variants"."""
         got, m = measure(name, kernel, plain, n_bytes, n_ops, shape,
-                         plain_time)
+                         plain_time, **kw)
         rows[name]["variants"].append(m)
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                         m["max_abs_err"])
@@ -431,12 +499,14 @@ def main() -> None:
         """One call of a kernel path through its entry point, with every
         launch count set to 0 just before it and read just after; fails
         unless each kernel in `needs` was launched in that call."""
-        dse.reset_launch_counts()
+        for c in counters:
+            for k in c:
+                c[k] = 0
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(dse.LAUNCHES)
+        counts = {k: n for c in counters for k, n in c.items()}
         for name in needs:
             _check(counts[name] > 0, f"{path}: never launched {name}")
         for name, n in counts.items():
@@ -640,6 +710,192 @@ def main() -> None:
               f"pruned {r.pruned_fraction:.6f} n_bounds {r.n_bounds} "
               f"n_overflow {r.n_overflow}; cuda {t_cold:.4f} s cold, "
               f"{t_warm:.4f} s warm; numpy {t_np:.4f} s")
+
+    # -- kernel 7: the photonic DDot GEMM, at the serving path's shapes ----
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def ddot_operands(m, k, n):
+        a = torch.randn((m, k), generator=gen, device=dev)
+        b = torch.randn((k, n), generator=gen, device=dev)
+        qa, sa = quantize4(a, axis=1)
+        qb, sb = quantize4(b, axis=0)
+        z = torch.randn((m, n), generator=gen, device=dev)
+        return qa.to(torch.int8), qb.to(torch.int8), sa, sb, z
+
+    def ddot_case(m, k, n, noise, main=False):
+        qa, qb, sa, sb, z = ddot_operands(m, k, n)
+        noisy = noise > 0.0
+        n_bytes = (m * k + k * n + 4 * (m + n) + 4 * m * n
+                   + (4 * m * n if noisy else 0))
+        n_ops = 2 * m * n * k * (2 if noisy else 1)
+        library = None
+        if m > 16 and k % 8 == 0 and n % 8 == 0:
+            # torch._int_mm (int8 x int8 -> int32) computes the exact
+            # accumulation; its shape rules want M > 16, K and N % 8 == 0
+            library = lambda: torch._int_mm(qa, qb)  # noqa: E731
+        (record if main else variant)(
+            "ddot_gemm_quantized",
+            lambda: ddot.ddot_gemm_quantized(qa, qb, sa, sb, z,
+                                             noise_rms=noise),
+            lambda: ddot.ddot_gemm_quantized_plain(qa, qb, sa, sb, z,
+                                                   noise_rms=noise),
+            n_bytes=n_bytes, n_ops=n_ops, ops_per_s=INT8_OPS_PER_S,
+            shape=f"({m}, {k}) x ({k}, {n}), noise_rms {noise}",
+            library=library)
+
+    qcfg = get_config("qwen2.5-3b")
+    ddot_case(4, qcfg.d_model, qcfg.vocab, 0.0, main=True)
+    ddot_case(4, qcfg.d_model, qcfg.vocab, 0.02)
+    ddot_case(256, qcfg.d_model, qcfg.d_ff, 0.0)
+    ddot_case(256, qcfg.d_model, qcfg.d_ff, 0.02)
+    ddot_case(33, 1000, 257, 0.0)
+    ddot_case(33, 1000, 257, 0.02)
+    torch.cuda.empty_cache()
+
+    # -- kernel 8: fused attention ------------------------------------------
+    def flash_case(bh, s_len, d, group, dtype, causal, main=False):
+        q = torch.randn((bh, s_len, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((bh // group, s_len, d), generator=gen,
+                        device=dev).to(dtype)
+        v = torch.randn((bh // group, s_len, d), generator=gen,
+                        device=dev).to(dtype)
+        size = q.element_size()
+        n_bytes = size * d * s_len * (2 * bh + 2 * (bh // group))
+        n_ops = 4 * bh * s_len * s_len * d / (2 if causal else 1)
+
+        def library():
+            # one batch of bh query heads over bh // group KV heads
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=causal,
+                enable_gqa=group > 1)
+
+        (record if main else variant)(
+            "flash_attention_bhsd",
+            lambda: flash_attention_bhsd(q, k, v, causal=causal, group=group),
+            lambda: flash_attention_bhsd_plain(q, k, v, causal=causal,
+                                               group=group),
+            n_bytes=n_bytes, n_ops=n_ops,
+            ops_per_s=(BF16_OPS_PER_S if dtype == torch.bfloat16
+                       else F32_OPS_PER_S),
+            shape=(f"BH {bh}, S {s_len}, D {d}, group {group}, "
+                   f"{str(dtype)[6:]}, {'causal' if causal else 'bidirectional'}"),
+            tol=FLASH_TOL[str(dtype)], library=library)
+
+    group = qcfg.n_heads // qcfg.n_kv_heads
+    flash_case(qcfg.n_heads, 4096, qcfg.resolved_head_dim, group,
+               torch.bfloat16, True, main=True)
+    for d_, dt in ((80, torch.float32), (80, torch.bfloat16),
+                   (256, torch.float32), (256, torch.bfloat16)):
+        flash_case(8, 200, d_, 4, dt, True)
+    flash_case(4, 256, 128, 1, torch.float32, False)
+    torch.cuda.empty_cache()
+
+    # -- the serving path: qwen2.5-3b at full width -------------------------
+    # A reduced qwen2.5-3b on the card against the port's CPU path (held
+    # against repro in tests/test_torch_lm.py), same weights and prompts.
+    small_cfg = reduced(qcfg)
+    small_cpu = models.init_params(small_cfg,
+                                   torch.Generator().manual_seed(1), "cpu")
+    small_dev = models.init_params(small_cfg,
+                                   torch.Generator().manual_seed(1), "cpu")
+    small_dev = small_dev.to(dev)
+    toks = np.random.default_rng(1).integers(
+        1, small_cfg.vocab, size=(4, 10)).astype(np.int32)
+    with torch.inference_mode():
+        l_cpu, _ = models.prefill(small_cpu, small_cfg,
+                                  {"tokens": torch.from_numpy(toks)})
+        l_dev, _ = models.prefill(small_dev, small_cfg,
+                                  {"tokens": torch.from_numpy(toks).to(dev)})
+    err = float((l_dev.cpu() - l_cpu).abs().max())
+    _check(err <= LOGIT_ATOL, f"reduced qwen2.5-3b prefill logits: card vs "
+           f"CPU path differ by {err!r} > {LOGIT_ATOL}")
+    print(f"reduced qwen2.5-3b prefill: card within {err!r} of the CPU path")
+    del small_cpu, small_dev
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_params(qcfg, gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"qwen2.5-3b (full width, {qcfg.n_layers} layers): {n_params} "
+          f"parameters, {n_params * 2 / 1e9:.2f} GB bf16, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, qcfg.vocab, size=rng.integers(4, 12))
+               .astype(np.int32) for _ in range(4)]
+    with torch.inference_mode():
+        plen = max(len(p_) for p_ in prompts)
+        batch = np.zeros((4, plen), np.int32)
+        for i, p_ in enumerate(prompts):
+            batch[i, plen - len(p_):] = p_
+        logits, cache = models.prefill(
+            params, qcfg, {"tokens": torch.from_numpy(batch).to(dev)})
+        _check(tuple(logits.shape) == (4, qcfg.vocab)
+               and bool(torch.isfinite(logits).all())
+               and tuple(cache["k"].shape) == (
+                   qcfg.n_layers, 4, plen, qcfg.n_kv_heads,
+                   qcfg.resolved_head_dim),
+               "qwen2.5-3b prefill: logits not finite or shapes wrong")
+    del logits, cache
+    srv = Server(qcfg, params, batch_size=4, max_len=64, device=dev)
+    for run in ("first", "second"):
+        reqs = [Request(prompt=p_, max_new=12) for p_ in prompts]
+        stats, _ = drive(f"serve qwen2.5-3b 4x12 ({run})",
+                         lambda: srv.generate(reqs), needs=())
+        _check(all(len(r.out) == 12 and all(0 <= t_ < qcfg.vocab
+                                            for t_ in r.out) for r in reqs)
+               and stats["tokens"] == 48,
+               "qwen2.5-3b serving: wrong number of tokens or ids")
+        print(f"serve qwen2.5-3b ({run} call): {stats['tokens']} tokens, "
+              f"ttft_s {stats['ttft_s']!r}, decode_s_per_tok "
+              f"{stats['decode_s_per_tok']!r}; request 0: {reqs[0].out}")
+    print(f"serving peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    x = torch.randn((4, qcfg.d_model), generator=gen, device=dev)
+    table_t = params.embed.table.T.float()
+    exact = x @ table_t
+    for noise in (0.02, 0.0):
+        head, t_head = drive(
+            f"photonic LM head noise_rms {noise}",
+            lambda: ops.photonic_matmul(x, table_t, noise, key_data=7),
+            needs=("ddot_gemm_quantized",))
+        rel = float(torch.linalg.norm(head - exact)
+                    / torch.linalg.norm(exact))
+        _check(bool(torch.isfinite(head).all())
+               and tuple(head.shape) == (4, qcfg.vocab),
+               f"photonic LM head (noise {noise}): not finite")
+        if noise == 0.0:
+            _check(rel < 0.25, f"photonic LM head without noise: relative "
+                   f"error {rel!r} >= 0.25 (tests/test_kernels.py's bound)")
+        print(f"photonic LM head (4-bit DDot kernel, noise_rms {noise}): "
+              f"rel_err {rel!r} vs fp32, {t_head * 1e3:.3f} ms")
+    del table_t, exact, srv
+    print("photonic_report:", photonic_report(qcfg, seq_len=64, batch=4,
+                                              new_tokens=12, device=dev))
+    del params
+    torch.cuda.empty_cache()
+
+    # -- the attention entry point at qwen2.5-3b's attention shape ---------
+    b, s_len, d = 1, 4096, qcfg.resolved_head_dim
+    qh = torch.randn((b, s_len, qcfg.n_heads, d), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    kh, vh = (torch.randn((b, s_len, qcfg.n_kv_heads, d), generator=gen,
+                          device=dev).to(torch.bfloat16) for _ in range(2))
+    out, t_fa = drive("flash_attention qwen2.5-3b S 4096",
+                      lambda: ops.flash_attention(qh, kh, vh, causal=True),
+                      needs=("flash_attention_bhsd",))
+    want = flash_attention_bhsd_plain(
+        qh.permute(0, 2, 1, 3).reshape(b * qcfg.n_heads, s_len, d),
+        kh.permute(0, 2, 1, 3).reshape(b * qcfg.n_kv_heads, s_len, d),
+        vh.permute(0, 2, 1, 3).reshape(b * qcfg.n_kv_heads, s_len, d),
+        causal=True, group=group)
+    want = want.reshape(b, qcfg.n_heads, s_len, d).permute(0, 2, 1, 3)
+    check_close("flash_attention (entry point)", out, want,
+                "(1, 4096, 16, 128) bf16", FLASH_TOL["torch.bfloat16"])
+    print(f"flash_attention entry point (1, 4096, 16/2 heads, 128) bf16: "
+          f"within tolerance, {t_fa * 1e3:.3f} ms with its layout copies")
 
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     print(json.dumps({"ok": True, "device": {

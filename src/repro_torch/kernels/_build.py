@@ -28,11 +28,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("dse_eval",)
+SOURCES = ("dse_eval", "lm_kernels")
 
 # argtypes of each library's C entry points: every pointer and the stream
-# as c_void_p (a bare int would be cut to 32 bits), every count as c_int.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# as c_void_p (a bare int would be cut to 32 bits), every count as c_int,
+# every float32 scalar as c_float.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "dse_eval": {
         "dse_eval_launch": [_P, _P, _I, _P, _I, _P],
@@ -45,6 +46,11 @@ _SIGNATURES = {
                                      _P, _I, _P],
         "dse_pareto_decoded_launch": [_P, _I, _P, _I, _I, _I, _I, _I, _P,
                                       _P, _I, _I, _I, _P, _I, _P, _I, _P],
+    },
+    "lm_kernels": {
+        "ddot_gemm_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _F, _I, _P],
     },
 }
 

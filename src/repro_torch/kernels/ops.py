@@ -11,10 +11,16 @@ DSE half, with "pallas" read as "cuda").
   * `dse_pareto_multi` / `dse_pareto_multi_factorized` /
     `dse_pareto_spans_factorized` — the frontier-candidate counterparts:
     per-block local fronts, merged into per-workload candidate index sets;
-  * `decode_rows_device` — the on-device decode, as rows.
+  * `decode_rows_device` — the on-device decode, as rows;
+  * `ddot_matmul` / `photonic_matmul` — the photonic 4-bit GEMM simulation
+    (quantize in plain torch, then the ddot_gemm kernel), the latter with
+    the reference's straight-through-estimator gradient;
+  * `flash_attention` — fused attention on (B, S, H, D) with GQA.
 
-Each takes `device=`: a CUDA device launches the kernels, "cpu" runs their
-plain PyTorch versions (see `kernels/dse_eval.py`). The reference's
+Each DSE wrapper takes `device=`: a CUDA device launches the kernels, "cpu"
+runs their plain PyTorch versions (see `kernels/dse_eval.py`). The LM
+wrappers run where their tensor operands lie; numpy operands go to
+`device=` ("cuda" unless the caller names another). The reference's
 power-of-two bucketing of launch widths existed only to bound JAX's jit
 cache; the port launches exactly ceil(G / block) blocks, which returns the
 same wrapper-level results (extra blocks are all-invalid and reduce to the
@@ -35,7 +41,10 @@ from ..core.factorized import decode_digits, full_ranges
 from ..core.performance_model import workload_statics
 from ..core.photonic_model import CONSTANTS, DeviceConstants
 from ..core.workload import Workload
+from . import ddot_gemm as _ddot
 from . import dse_eval as _dse
+from .flash_attention import flash_attention_bhsd
+from .ref import quantize4
 
 log = logging.getLogger("repro_torch.kernels")
 
@@ -428,3 +437,115 @@ def cuda_grid_search(grid: np.ndarray, wl: Workload, constraints,
         return None, m
     i = int(np.argmin(edp))
     return PTAConfig.from_array(grid[i]), m
+
+
+# ---------------------------------------------------------------------------
+# Photonic DDot GEMM (4-bit functional simulation) and fused attention
+# ---------------------------------------------------------------------------
+
+def _operand(x, device) -> torch.Tensor:
+    """A tensor operand stays where it lies unless `device` names another
+    place; a numpy operand goes to `device` ("cuda" by default)."""
+    if isinstance(x, torch.Tensor) and device is None:
+        return x
+    return torch.as_tensor(x, device=resolve_device(device))
+
+
+def ddot_matmul(a, b, *, noise_rms: float = 0.0, generator=None,
+                device=None) -> torch.Tensor:
+    """Photonic-PTA simulated matmul: a (M, K) @ b (K, N) -> (M, N) float32.
+
+    Both operands are quantized to symmetric 4 bits (per row of a, per
+    column of b) in plain torch, then multiplied exactly by the ddot_gemm
+    kernel, any shape (the kernel masks its ragged edges, where the
+    reference pads with zeros). With noise_rms > 0 the shot-noise draws
+    come from `generator` (a torch.Generator on the operands' device): they
+    are not `jax.random`'s draws, so noise compares by distribution only.
+    Exact against `ref.ddot_matmul_ref` when noise_rms == 0.
+    """
+    a, b = _operand(a, device), _operand(b, device)
+    qa, sa = quantize4(a, axis=1)
+    qb, sb = quantize4(b, axis=0)
+    z = None
+    if noise_rms > 0.0:
+        if generator is None:
+            raise ValueError("noise_rms > 0 requires a torch.Generator")
+        z = torch.randn((a.shape[0], b.shape[1]), generator=generator,
+                        device=a.device, dtype=torch.float32)
+    # contiguous: the kernel reads row-major operands, and a transposed
+    # view (the LM head's `table.T`) quantizes to a transposed layout
+    return _ddot.ddot_gemm_quantized(
+        qa.to(torch.int8).contiguous(), qb.to(torch.int8).contiguous(),
+        sa.contiguous(), sb.contiguous(), z, noise_rms=noise_rms)
+
+
+class _PhotonicMatmul(torch.autograd.Function):
+    """4-bit photonic forward, straight-through-estimator backward: the
+    gradients are those of the full-precision product (`g @ b.T`,
+    `a.T @ g`), as for QAT through hard quantizers."""
+
+    @staticmethod
+    def forward(ctx, a, b, noise_rms, key_data):
+        ctx.save_for_backward(a, b)
+        gen = None
+        if noise_rms > 0.0:
+            gen = torch.Generator(device=a.device)
+            gen.manual_seed(int(key_data))
+        return ddot_matmul(a, b, noise_rms=noise_rms, generator=gen)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = (g @ b.to(g.dtype).T).to(a.dtype)
+        gb = (a.to(g.dtype).T @ g).to(b.dtype)
+        return ga, gb, None, None
+
+
+def photonic_matmul(a, b, noise_rms: float = 0.0, key_data: int = 0, *,
+                    device=None) -> torch.Tensor:
+    """`ddot_matmul` with the STE gradient; the noise generator is seeded
+    with `key_data` on the operands' device (the reference's
+    `jax.random.key(key_data)`)."""
+    return _PhotonicMatmul.apply(_operand(a, device), _operand(b, device),
+                                 float(noise_rms), int(key_data))
+
+
+def _rup(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
+                    bk: int = 128, device=None) -> torch.Tensor:
+    """Fused attention for (B, S, H, D) tensors with GQA support, through
+    the flash_attention_bhsd kernel; the reference wrapper's contract.
+
+    K/V with fewer heads than Q serve `H // Hkv` query heads each (the
+    kernel reads KV head h // g, the reference repeats K/V); sequences are
+    zero-padded to multiples of min(bq, S rounded up to 8) and min(bk, ...)
+    as the reference pads, so padded keys are masked by the causal mask;
+    bidirectional attention over a padded key tail raises ValueError.
+    """
+    q, k, v = (_operand(x, device) for x in (q, k, v))
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"flash_attention: {hq} query heads do not split "
+                         f"into groups over {hkv} KV heads")
+    bq_ = min(bq, _rup(sq, 8))
+    bk_ = min(bk, _rup(skv, 8))
+    pq = (-sq) % bq_
+    pk = (-skv) % bk_
+    if pk and not causal:
+        raise ValueError("bidirectional flash_attention requires "
+                         f"skv % {bk_} == 0 (got {skv})")
+
+    def to_bhsd(x, h, pad):
+        x = x.permute(0, 2, 1, 3).reshape(b * h, x.shape[1], d)
+        if pad:
+            x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        return x.contiguous()
+
+    out = flash_attention_bhsd(to_bhsd(q, hq, pq), to_bhsd(k, hkv, pk),
+                               to_bhsd(v, hkv, pk), causal=causal,
+                               group=hq // hkv)
+    return out[:, :sq].reshape(b, hq, sq, d).permute(0, 2, 1, 3)

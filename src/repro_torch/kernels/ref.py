@@ -1,8 +1,10 @@
-"""Float64 numpy oracles for the DSE kernels (the port's copy of the DSE
-half of `repro/kernels/ref.py`)."""
+"""Oracles for the kernels (the port's copy of `repro/kernels/ref.py`):
+float64 numpy ones for the DSE kernels, plain torch ones for the 4-bit DDot
+GEMM and for attention."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core.photonic_model import CONSTANTS, DeviceConstants
 from ..core.search import evaluate_grid
@@ -30,3 +32,58 @@ def dse_search_ref(grid: np.ndarray, wl: Workload, constraints,
         return -1, 0
     edp = np.where(ok, m["edp"], np.inf)
     return int(np.argmin(edp)), n_feasible
+
+
+QMAX = 7.0
+NEG_INF = -1e30
+
+
+def quantize4(x, axis: int):
+    """Symmetric 4-bit quantization along `axis` (the contraction dim).
+
+    Returns float32 (q, scale) with x ~= q * scale, q integer-valued in
+    [-QMAX, QMAX]. Both divisions take a tensor divisor: PyTorch's CUDA
+    division by a Python scalar multiplies by its reciprocal instead.
+    """
+    x = torch.as_tensor(x).float()
+    qmax = torch.tensor(QMAX, dtype=torch.float32, device=x.device)
+    s = x.abs().amax(dim=axis, keepdim=True) / qmax
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    q = torch.clamp(torch.round(x / s), -QMAX, QMAX)
+    return q, s
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root (IEEE sqrtf, as CUDA and
+    XLA take it). PyTorch's vectorized CPU float32 sqrt is not correctly
+    rounded (sqrt(2535) comes out one ulp low); the float64 root rounded
+    once to float32 is, for every float32 input."""
+    return torch.sqrt(x.double()).float()
+
+
+def ddot_matmul_ref(a, b, noise_rms: float = 0.0, z=None):
+    """Oracle for kernels.ops.ddot_matmul: quantize -> exact int GEMM ->
+    dequant (+ shot noise)."""
+    qa, sa = quantize4(a, axis=1)          # per-row of A
+    qb, sb = quantize4(b, axis=0)          # per-column of B
+    acc = qa @ qb
+    if noise_rms > 0.0:
+        power = qa.abs() @ qb.abs()
+        nr = torch.tensor(np.float32(noise_rms), device=acc.device)
+        acc = acc + (nr * sqrt_f32(power)) * z
+    return acc * sa * sb
+
+
+def flash_attention_ref(q, k, v, causal: bool = True):
+    """Oracle for kernels.ops.flash_attention: plain softmax attention in
+    float32, cast to q's dtype. q, k, v: (BH, S, D)."""
+    d = q.shape[-1]
+    scale = torch.tensor(np.float32(d ** -0.5), device=q.device)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if causal:
+        sq, skv = q.shape[1], k.shape[1]
+        mask = (torch.arange(skv, device=q.device)[None, :]
+                <= torch.arange(sq, device=q.device)[:, None])
+        s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)

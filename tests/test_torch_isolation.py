@@ -9,13 +9,17 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import repro_torch.core as P
+import repro_torch.models as M
+from repro_torch.configs import get_config, reduced
 from repro_torch.core.paper_workloads import load
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops
+from repro_torch.train.serve import Request, Server
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 MODULES = ("repro_torch", "repro_torch.core", "repro_torch.core.search",
@@ -23,14 +27,18 @@ MODULES = ("repro_torch", "repro_torch.core", "repro_torch.core.search",
            "repro_torch.core.factorized", "repro_torch.interop",
            "repro_torch.kernels", "repro_torch.kernels.dse_eval",
            "repro_torch.kernels.ops", "repro_torch.kernels.ref",
-           "repro_torch.kernels._build")
+           "repro_torch.kernels._build", "repro_torch.configs",
+           "repro_torch.core.extract", "repro_torch.models",
+           "repro_torch.models.lm", "repro_torch.train.serve",
+           "repro_torch.launch.serve", "repro_torch.kernels.ddot_gemm",
+           "repro_torch.kernels.flash_attention")
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro'))\n"
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
             "print(repr(bad), 'torch' in sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True,
@@ -39,12 +47,15 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
 
 
 def test_no_source_file_names_jax_or_the_reference_package():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
-                     re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro|ml_dtypes)"
+                     r"(\.|\s|$)", re.M)
     files = sorted((SRC / "repro_torch").rglob("*.py"))
     assert len(files) >= 15
     for f in files:
         assert not pat.search(f.read_text()), f
+
+
+_CFG = reduced(get_config("granite-3-2b"))
 
 
 def _no_card():
@@ -66,9 +77,19 @@ def _no_card():
     lambda wl: P.pareto_front(P.FactorizedSpace.full(3).to_grid(), wl),
     lambda wl: ops.dse_pareto_multi(P.FactorizedSpace.full(3).to_grid(),
                                     [wl], [P.Constraints()]),
+    lambda wl: ops.ddot_matmul(np.ones((4, 8), np.float32),
+                               np.ones((8, 3), np.float32)),
+    lambda wl: ops.photonic_matmul(np.ones((4, 8), np.float32),
+                                   np.ones((8, 3), np.float32), 0.02, 7),
+    lambda wl: ops.flash_attention(*[np.ones((1, 16, 4, 32), np.float32)] * 3),
+    lambda wl: M.init_params(reduced(get_config("qwen2.5-3b"))),
+    lambda wl: Server(_CFG, M.init_params(_CFG, device="cpu"), 1, 16)
+    .generate([Request(prompt=np.arange(1, 5, dtype=np.int32), max_new=2)]),
 ], ids=["search", "search_bound", "search_workloads", "dxpta_search",
         "hw_prefilter", "dse_search_grid", "decode_rows_device",
-        "search_pareto", "pareto_front", "dse_pareto_multi"])
+        "search_pareto", "pareto_front", "dse_pareto_multi", "ddot_matmul",
+        "photonic_matmul", "flash_attention", "init_params",
+        "server_generate"])
 def test_entry_points_raise_without_a_card(call):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -85,3 +106,16 @@ def test_kernel_build_keeps_the_float32_contract():
     path = _build.library_path("dse_eval")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libdse_eval-") and path.suffix == ".so"
+
+
+def test_lm_kernels_build_under_the_same_flags():
+    # Both sources share NVCC_FLAGS (one library each, content-addressed);
+    # ddot_gemm's epilogue relies on -fmad=false as the DSE kernels do.
+    assert _build.SOURCES == ("dse_eval", "lm_kernels")
+    for name in _build.SOURCES:
+        assert (_build.CSRC / f"{name}.cu").is_file()
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR
+        assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
+    assert set(_build._SIGNATURES["lm_kernels"]) == {
+        "ddot_gemm_launch", "flash_attention_launch"}

@@ -1,0 +1,256 @@
+"""The port's LM kernels, held against the Pallas kernels they replace.
+
+`ddot_gemm_quantized` (photonic 4-bit GEMM) and `flash_attention_bhsd`
+(fused attention): the port's wrappers are given CPU tensors, so they run
+the kernels' plain PyTorch versions, and the reference runs on the same
+numpy inputs, made from seeds, in interpret mode (the Pallas kernels) or
+through its public wrappers.
+
+Tolerances:
+  * ddot: exact (`np.array_equal`). The products of 4-bit integers sum to
+    exact integers in float32 whatever the order, and the epilogue is the
+    reference's float32 order. The noise path compares the raw kernel with
+    an explicit `z` (the draws of a torch.Generator are not jax.random's);
+    its reference is compiled with XLA's algebraic simplifier off and LLVM
+    at -O0 (`STRICT`), since XLA's default CPU pipeline contracts the
+    epilogue's multiply-add into an FMA.
+  * flash attention: the reference's own, rtol = atol = 2e-5 in float32 and
+    2e-2 in bfloat16 (`tests/test_flash_attention.py`): exponentials and
+    summation order differ between XLA and PyTorch.
+  * photonic_matmul's STE gradients: 1e-4, as the reference's test.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ddot_matmul as ref_ddot_matmul
+from repro.kernels.ops import flash_attention as ref_flash_attention
+from repro.kernels import quantize4 as ref_quantize4
+from repro.kernels.ddot_gemm import ddot_gemm_quantized as ref_ddot_gemm
+from repro.kernels.flash_attention import flash_attention_bhsd as ref_flash
+from repro_torch.kernels import ddot_gemm as pddot
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention_bhsd
+
+STRICT = {"xla_disable_hlo_passes": "algsimp",
+          "xla_backend_optimization_level": 0}
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _normal(shape, seed):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _both(x, dtype):
+    """The same values as a jax array and a CPU tensor of `dtype`."""
+    jdt, tdt = DTYPES[dtype]
+    j = jnp.asarray(x, jdt)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(tdt)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+# ---------------------------------------------------------------- ddot ---
+
+SHAPES = [
+    (8, 16, 8),        # tiny
+    (128, 128, 128),   # exactly one block
+    (100, 200, 60),    # nothing divides the blocks
+    (256, 512, 384),   # multiple blocks each axis
+    (33, 1000, 257),   # prime-ish
+]
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ddot_matmul_equals_the_reference(m, k, n, dtype):
+    ja, ta = _both(_normal((m, k), 1), dtype)
+    jb, tb = _both(_normal((k, n), 2), dtype)
+    want = np.asarray(ref_ddot_matmul(ja, jb, bm=64, bn=128, bk=128))
+    got = ops.ddot_matmul(ta, tb)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(ref.ddot_matmul_ref(ta, tb).numpy(), want)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize4_equals_the_reference(axis, dtype):
+    x = _normal((37, 53), 3)
+    x[5] = 0.0                 # an all-zero row: scale 1
+    x[:, 7] = 0.0              # an all-zero column
+    jx, tx = _both(x, dtype)
+    q_ref, s_ref = ref_quantize4(jx, axis=axis)
+    q, s = ref.quantize4(tx, axis=axis)
+    assert np.array_equal(q.numpy(), np.asarray(q_ref))
+    assert np.array_equal(s.numpy(), np.asarray(s_ref))
+    assert float(q.abs().max()) <= ref.QMAX
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 256, 128), (33, 1000, 257)])
+def test_ddot_gemm_noise_equals_the_reference_with_the_same_draws(m, k, n):
+    a, b = _normal((m, k), 3), _normal((k, n), 4)
+    z = _normal((m, n), 5)
+    qa, sa = ref_quantize4(jnp.asarray(a), axis=1)
+    qb, sb = ref_quantize4(jnp.asarray(b), axis=0)
+    pad_m, pad_n, pad_k = (-m) % 64, (-n) % 128, (-k) % 128
+
+    def pad(x, p0, p1):
+        return jnp.pad(x, ((0, p0), (0, p1)))
+
+    args = [pad(qa.astype(jnp.bfloat16), pad_m, pad_k),
+            pad(qb.astype(jnp.bfloat16), pad_k, pad_n),
+            pad(sa, pad_m, 0), pad(sb, 0, pad_n), pad(jnp.asarray(z), pad_m,
+                                                      pad_n)]
+    fn = functools.partial(ref_ddot_gemm, bm=64, bn=128, bk=128,
+                           noise_rms=0.1, interpret=True)
+    want = np.asarray(jax.jit(fn).lower(*args).compile(STRICT)(*args))[:m, :n]
+
+    def t(x):
+        return torch.from_numpy(np.array(x))
+
+    got = pddot.ddot_gemm_quantized(t(qa).to(torch.int8), t(qb).to(torch.int8),
+                                    t(sa), t(sb), t(z), noise_rms=0.1)
+    assert np.array_equal(got.numpy(), want)
+    got_ref = ref.ddot_matmul_ref(t(a), t(b), noise_rms=0.1, z=t(z))
+    assert np.array_equal(got_ref.numpy(), want)
+
+
+def test_ddot_gemm_rejects_k_past_the_exact_limit():
+    k = pddot.K_MAX + 1
+    assert 49 * pddot.K_MAX < 2 ** 24 <= 49 * k
+    qa = torch.zeros((1, k), dtype=torch.int8)
+    qb = torch.zeros((k, 1), dtype=torch.int8)
+    one = torch.ones((1, 1))
+    with pytest.raises(ValueError, match="exceeds"):
+        pddot.ddot_gemm_quantized(qa, qb, one, one)
+    out = pddot.ddot_gemm_quantized(qa[:, :-1], qb[:-1], one, one)
+    assert out.shape == (1, 1) and float(out[0, 0]) == 0.0
+
+
+def test_ddot_gemm_needs_z_for_noise():
+    q = torch.ones((2, 2), dtype=torch.int8)
+    one = torch.ones((2, 1))
+    with pytest.raises(ValueError, match="needs z"):
+        pddot.ddot_gemm_quantized(q, q, one, one.T, noise_rms=0.1)
+    with pytest.raises(ValueError, match="Generator"):
+        ops.ddot_matmul(torch.ones((2, 2)), torch.ones((2, 2)), noise_rms=0.1)
+
+
+def test_ddot_quantization_error_bounded():
+    a = torch.from_numpy(_normal((128, 512), 6))
+    b = torch.from_numpy(_normal((512, 128), 7))
+    out = ops.ddot_matmul(a, b)
+    rel = torch.linalg.norm(out - a @ b) / torch.linalg.norm(a @ b)
+    assert float(rel) < 0.25
+
+
+def test_photonic_matmul_ste_gradients():
+    a = torch.from_numpy(_normal((32, 64), 8)).requires_grad_()
+    b = torch.from_numpy(_normal((64, 16), 9)).requires_grad_()
+    out = ops.photonic_matmul(a, b)
+    (out ** 2).sum().backward()
+    out = out.detach()
+    np.testing.assert_allclose(a.grad.numpy(), (2 * out @ b.detach().T).numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(b.grad.numpy(), (2 * a.detach().T @ out).numpy(),
+                               rtol=1e-4, atol=1e-4)
+    # the forward is the reference's, exactly
+    want = np.asarray(ref_ddot_matmul(jnp.asarray(a.detach().numpy()),
+                                      jnp.asarray(b.detach().numpy())))
+    assert np.array_equal(out.numpy(), want)
+
+
+def test_photonic_matmul_noise_is_seeded_by_key_data():
+    a = torch.from_numpy(_normal((16, 64), 10))
+    b = torch.from_numpy(_normal((64, 24), 11))
+    one = ops.photonic_matmul(a, b, 0.05, key_data=7)
+    assert torch.equal(one, ops.photonic_matmul(a, b, 0.05, key_data=7))
+    assert not torch.equal(one, ops.photonic_matmul(a, b, 0.05, key_data=8))
+    clean = ops.photonic_matmul(a, b)
+    assert 0.0 < float((one - clean).abs().max()) < float(clean.abs().max())
+
+
+# ----------------------------------------------------- flash attention ---
+
+@pytest.mark.parametrize("s,d,bq,bk", [
+    (128, 64, 128, 128),     # single block
+    (256, 64, 128, 128),     # multi-block, diagonal skipping
+    (384, 128, 128, 128),    # 3 blocks, wider head
+    (256, 64, 64, 32),       # uneven block shapes
+    (128, 80, 64, 64),       # h2o-danube's head dim, not a power of two
+    (64, 256, 32, 32),       # gemma3's head dim
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_pallas(s, d, bq, bk, causal):
+    q, k, v = (_normal((4, s, d), seed) for seed in (1, 2, 3))
+    want = ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=causal, bq=bq, bk=bk)
+    got = flash_attention_bhsd(*(torch.from_numpy(x) for x in (q, k, v)),
+                                   causal=causal)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_dtypes(dtype):
+    (jq, tq), (jk, tk), (jv, tv) = (_both(_normal((2, 128, 64), s), dtype)
+                                    for s in (4, 5, 6))
+    want = ref_flash(jq, jk, jv, causal=True)
+    got = flash_attention_bhsd(tq, tk, tv, causal=True)
+    assert got.dtype == DTYPES[dtype][1]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,bq,bk", [
+    (2, 100, 8, 2, 64, 64, 64),      # the reference's GQA + padding case
+    (1, 70, 16, 2, 128, 128, 128),   # qwen2.5-3b's heads, one ragged block
+    (1, 40, 32, 8, 80, 16, 16),      # h2o-danube's heads
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_wrapper_gqa_and_padding(b, s, hq, hkv, d, bq, bk, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(_normal(shape, seed), dtype)
+        for shape, seed in (((b, s, hq, d), 7), ((b, s, hkv, d), 8),
+                            ((b, s, hkv, d), 9)))
+    want = ref_flash_attention(jq, jk, jv, causal=True, bq=bq, bk=bk)
+    got = ops.flash_attention(tq, tk, tv, causal=True, bq=bq, bk=bk)
+    assert got.shape == (b, s, hq, d)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+def test_flash_wrapper_bidirectional_full_blocks():
+    q, k, v = (torch.from_numpy(_normal((1, 128, 4, 64), s)) for s in (1, 2, 3))
+    want = ref_flash_attention(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                               causal=False, bq=64, bk=64)
+    got = ops.flash_attention(q, k, v, causal=False, bq=64, bk=64)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_bidirectional_padding_guard():
+    q = torch.from_numpy(_normal((1, 100, 4, 64), 0))
+    with pytest.raises(ValueError, match="bidirectional"):
+        ops.flash_attention(q, q, q, causal=False, bq=64, bk=64)
+    with pytest.raises(ValueError):
+        ref_flash_attention(jnp.asarray(q.numpy()), jnp.asarray(q.numpy()),
+                            jnp.asarray(q.numpy()), causal=False, bq=64, bk=64)
+
+
+def test_flash_rejects_what_the_kernel_does_not_take():
+    x = torch.zeros((2, 8, 257))
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bhsd(x, x, x)
+    q = torch.zeros((1, 8, 6, 64))
+    with pytest.raises(ValueError, match="groups"):
+        ops.flash_attention(q, q[:, :, :4], q[:, :, :4])

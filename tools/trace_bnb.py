@@ -31,8 +31,15 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def _device_us(evt) -> float:
-    """Self device time of a profiler average, in microseconds, under
-    either of the attribute names PyTorch versions use."""
+    """Self device time of a profiler average that is a device event (a
+    kernel or a copy), in microseconds, under either of the attribute names
+    PyTorch versions use; 0 for host events. An operator's average carries
+    its kernels' device time too, so summing every row would count each
+    kernel twice (the profiler's own table sums device events only)."""
+    from torch.autograd import DeviceType
+    if evt.device_type != DeviceType.CUDA \
+            or getattr(evt, "is_user_annotation", False):
+        return 0.0
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
