@@ -6,7 +6,9 @@
 From the root of a checkout, with one CUDA card visible. It
 
   1. prints the card's name and power limit and builds the CUDA kernels from
-     `src/repro_torch/kernels/csrc/` (nvcc, sm_90a);
+     `src/repro_torch/kernels/csrc/` (nvcc, sm_90a, one process per source,
+     all started together), printing each source's build seconds and
+     ptxas's registers and spills of each kernel;
   2. holds each of the six DSE kernels against its plain PyTorch version on
      the card, at the main path's shapes (the paper's 12^5 grid for the
      grid-operand kernels, the 24^5 product space and one slab of it for the
@@ -27,20 +29,27 @@ From the root of a checkout, with one CUDA card visible. It
      factorized=True, prune="bound")` on the 24^5 space per paper workload,
      frontier and counters checked against the numpy engine;
   5. holds the two LM kernels against their plain versions on the card:
-     `ddot_gemm_quantized` (the photonic 4-bit GEMM) `torch.equal` at the
-     qwen2.5-3b LM head (4 x 2048 x 151,936), its MLP up-projection (256 x
-     2048 x 11,008) and a ragged shape, without and with shot noise (the
-     same explicit z); `flash_attention_bhsd` within the reference's
-     tolerance (2e-5 f32, 2e-2 bf16) at qwen2.5-3b attention (S = 4096, 16
-     query and 2 KV heads, D = 128, bf16, causal) and at small D = 80 and
-     D = 256 cases in both dtypes, one bidirectional;
+     `ddot_gemm_quantized` (the photonic 4-bit GEMM, int8 tensor cores)
+     `torch.equal` at the qwen2.5-3b LM head (4 x 2048 x 151,936, B
+     K-major as the head's transposed table gives it, no copy), its MLP
+     up-projection (256 x 2048 x 11,008, B in both layouts; the wrapper's
+     K-major copy of a row-major B timed on its own line) and a ragged
+     shape in both layouts, without and with shot noise (the same explicit
+     z); `flash_attention_bhsd` within the reference's tolerance (2e-5 f32,
+     2e-2 bf16) at qwen2.5-3b attention (S = 4096, 16 query and 2 KV heads,
+     D = 128, bf16, causal) and at small bf16 cases with D = 56, 64, 80,
+     112 and 256 and a bidirectional one, all on the tensor-core kernel,
+     and f32 cases (D = 128 bidirectional, 80, 256) and a bf16 D = 36 case
+     on the CUDA-core kernel; each case asserts through `LAUNCHES` which of
+     the two kernels ran;
   6. serves tokens from qwen2.5-3b at its full published width (random
      weights from a seeded generator): `Server(batch_size=4, max_len=64)`
      answers 4 requests of 12 new tokens, prefill logits are checked
      finite, a reduced qwen2.5-3b is held against the port's CPU path, the
      photonic LM head runs through `photonic_matmul` (noise 0.02 and 0),
      `photonic_report` prices the workload, and `kernels.flash_attention`
-     runs at the attention shape above;
+     runs at the attention shape above (bf16, the tensor-core kernel) and
+     at S = 512 in f32 (the CUDA-core kernel);
   7. prints one JSON line with every kernel's launches (counted per
      entry-point call, the counts set to 0 just before each call and read
      just after it), its largest difference from its plain version, its
@@ -80,6 +89,9 @@ SEARCH_TAIL_OPS = 4      # energy/latency compares, EDP, argmin compare
 PARETO_TAIL_OPS = 3      # energy/latency compares, EDP
 DECODE_OPS = 29
 
+# The kernels, each with the TPU kernel it replaces. Two CUDA kernels
+# replace flash_attention_bhsd: the tensor-core one (bf16, D % 8 == 0) and
+# the CUDA-core one (f32, other head dims); each has its own row.
 REPLACES = {
     "dse_eval_padded": "src/repro/kernels/dse_eval.py:530",
     "dse_search_padded": "src/repro/kernels/dse_eval.py:550",
@@ -89,11 +101,14 @@ REPLACES = {
     "dse_pareto_decoded": "src/repro/kernels/dse_eval.py:690",
     "ddot_gemm_quantized": "src/repro/kernels/ddot_gemm.py:61",
     "flash_attention_bhsd": "src/repro/kernels/flash_attention.py:70",
+    "flash_attention_bhsd_cuda_cores":
+        "src/repro/kernels/flash_attention.py:70",
 }
-SOURCES = {name: "src/repro_torch/kernels/csrc/"
-           + ("lm_kernels.cu" if name in ("ddot_gemm_quantized",
-                                          "flash_attention_bhsd")
-              else "dse_eval.cu") for name in REPLACES}
+SOURCES = {name: "src/repro_torch/kernels/csrc/" + (
+    "flash_attention.cu" if name == "flash_attention_bhsd"
+    else "lm_kernels.cu" if name in ("ddot_gemm_quantized",
+                                     "flash_attention_bhsd_cuda_cores")
+    else "dse_eval.cu") for name in REPLACES}
 # Tolerances of the attention kernel against its plain version: the
 # reference's own (tests/test_flash_attention.py), since exponentials and
 # summation order differ.
@@ -183,10 +198,10 @@ def main() -> None:
     from repro_torch.kernels import ddot_gemm as ddot
     from repro_torch.kernels import dse_eval as dse
     from repro_torch.kernels import ops
-    from repro_torch.kernels._build import build_all
+    from repro_torch.kernels._build import build_all, library_path
     from repro_torch.kernels.flash_attention import LAUNCHES as FA_LAUNCHES
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bhsd, flash_attention_bhsd_plain)
+        flash_attention_bhsd, flash_attention_bhsd_plain, tensor_core_path)
     from repro_torch.kernels.ref import quantize4
     from repro_torch.train.serve import Request, Server, photonic_report
     counters = (dse.LAUNCHES, ddot.LAUNCHES, FA_LAUNCHES)
@@ -199,7 +214,16 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    print(f"build: {build_all():.1f} s (nvcc, sm_90a, all sources)")
+    build_s = build_all()
+    print("build: " + ", ".join(f"{n} {t:.1f} s" for n, t in build_s.items())
+          + " (nvcc, sm_90a, one process per source, all started together)")
+    for name in build_s:
+        # ptxas's registers, spills and static shared memory of each kernel
+        log = library_path(name).with_suffix(".log")
+        for line in (log.read_text().splitlines() if log.exists() else ()):
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
     # The LM path multiplies in full float32 (the reference's f32 products):
     # TF32 must stay off.
     print(f"float32 matmul precision {torch.get_float32_matmul_precision()!r},"
@@ -715,16 +739,23 @@ def main() -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
-    def ddot_operands(m, k, n):
+    def ddot_operands(m, k, n, k_major):
+        """Quantized operands; with k_major, b is the transposed view of an
+        (n, k) tensor (the LM head's `table.T`), so qb.T is contiguous and
+        the kernel reads it without a copy."""
         a = torch.randn((m, k), generator=gen, device=dev)
-        b = torch.randn((k, n), generator=gen, device=dev)
+        b = (torch.randn((n, k), generator=gen, device=dev).T if k_major
+             else torch.randn((k, n), generator=gen, device=dev))
         qa, sa = quantize4(a, axis=1)
         qb, sb = quantize4(b, axis=0)
+        qb = qb.to(torch.int8)
+        _check(qb.T.is_contiguous() is k_major,
+               f"ddot operand layout: qb.T contiguous is not {k_major}")
         z = torch.randn((m, n), generator=gen, device=dev)
-        return qa.to(torch.int8), qb.to(torch.int8), sa, sb, z
+        return qa.to(torch.int8), qb, sa, sb, z
 
-    def ddot_case(m, k, n, noise, main=False):
-        qa, qb, sa, sb, z = ddot_operands(m, k, n)
+    def ddot_case(m, k, n, noise, k_major, main=False):
+        qa, qb, sa, sb, z = ddot_operands(m, k, n, k_major)
         noisy = noise > 0.0
         n_bytes = (m * k + k * n + 4 * (m + n) + 4 * m * n
                    + (4 * m * n if noisy else 0))
@@ -734,6 +765,7 @@ def main() -> None:
             # torch._int_mm (int8 x int8 -> int32) computes the exact
             # accumulation; its shape rules want M > 16, K and N % 8 == 0
             library = lambda: torch._int_mm(qa, qb)  # noqa: E731
+        layout = "B K-major (no copy)" if k_major else "B row-major"
         (record if main else variant)(
             "ddot_gemm_quantized",
             lambda: ddot.ddot_gemm_quantized(qa, qb, sa, sb, z,
@@ -741,19 +773,27 @@ def main() -> None:
             lambda: ddot.ddot_gemm_quantized_plain(qa, qb, sa, sb, z,
                                                    noise_rms=noise),
             n_bytes=n_bytes, n_ops=n_ops, ops_per_s=INT8_OPS_PER_S,
-            shape=f"({m}, {k}) x ({k}, {n}), noise_rms {noise}",
+            shape=f"({m}, {k}) x ({k}, {n}), noise_rms {noise}, {layout}",
             library=library)
+        if not k_major and not noisy and k * n >= 1 << 20:
+            # a row-major B costs the wrapper one K-major copy a call
+            print(f"ddot_gemm_quantized ({k}, {n}) row-major B: the "
+                  f"wrapper's K-major copy takes "
+                  f"{_time_ms(lambda: ddot.k_major(qb)):.4f} ms")
 
     qcfg = get_config("qwen2.5-3b")
-    ddot_case(4, qcfg.d_model, qcfg.vocab, 0.0, main=True)
-    ddot_case(4, qcfg.d_model, qcfg.vocab, 0.02)
-    ddot_case(256, qcfg.d_model, qcfg.d_ff, 0.0)
-    ddot_case(256, qcfg.d_model, qcfg.d_ff, 0.02)
-    ddot_case(33, 1000, 257, 0.0)
-    ddot_case(33, 1000, 257, 0.02)
+    ddot_case(4, qcfg.d_model, qcfg.vocab, 0.0, True, main=True)
+    ddot_case(4, qcfg.d_model, qcfg.vocab, 0.02, True)
+    for k_major in (True, False):
+        ddot_case(256, qcfg.d_model, qcfg.d_ff, 0.0, k_major)
+    ddot_case(256, qcfg.d_model, qcfg.d_ff, 0.02, False)
+    for k_major in (False, True):
+        ddot_case(33, 1000, 257, 0.0, k_major)
+        ddot_case(33, 1000, 257, 0.02, k_major)
     torch.cuda.empty_cache()
 
-    # -- kernel 8: fused attention ------------------------------------------
+    # -- kernel 8: fused attention, on the tensor cores (bf16, D % 8 == 0)
+    # and on the CUDA cores (f32, other head dims) ----------------------
     def flash_case(bh, s_len, d, group, dtype, causal, main=False):
         q = torch.randn((bh, s_len, d), generator=gen, device=dev).to(dtype)
         k = torch.randn((bh // group, s_len, d), generator=gen,
@@ -763,6 +803,11 @@ def main() -> None:
         size = q.element_size()
         n_bytes = size * d * s_len * (2 * bh + 2 * (bh // group))
         n_ops = 4 * bh * s_len * s_len * d / (2 if causal else 1)
+        name = ("flash_attention_bhsd" if tensor_core_path(dtype, d)
+                else "flash_attention_bhsd_cuda_cores")
+
+        def kernel():
+            return flash_attention_bhsd(q, k, v, causal=causal, group=group)
 
         def library():
             # one batch of bh query heads over bh // group KV heads
@@ -770,9 +815,14 @@ def main() -> None:
                 q[None], k[None], v[None], is_causal=causal,
                 enable_gqa=group > 1)
 
+        before = dict(FA_LAUNCHES)
+        kernel()
+        ran = {n: FA_LAUNCHES[n] - before[n] for n in FA_LAUNCHES}
+        _check(ran == {n: int(n == name) for n in FA_LAUNCHES},
+               f"flash_attention_bhsd D {d} {dtype}: launched {ran}, "
+               f"expected one {name}")
         (record if main else variant)(
-            "flash_attention_bhsd",
-            lambda: flash_attention_bhsd(q, k, v, causal=causal, group=group),
+            name, kernel,
             lambda: flash_attention_bhsd_plain(q, k, v, causal=causal,
                                                group=group),
             n_bytes=n_bytes, n_ops=n_ops,
@@ -783,12 +833,16 @@ def main() -> None:
             tol=FLASH_TOL[str(dtype)], library=library)
 
     group = qcfg.n_heads // qcfg.n_kv_heads
-    flash_case(qcfg.n_heads, 4096, qcfg.resolved_head_dim, group,
-               torch.bfloat16, True, main=True)
-    for d_, dt in ((80, torch.float32), (80, torch.bfloat16),
-                   (256, torch.float32), (256, torch.bfloat16)):
-        flash_case(8, 200, d_, 4, dt, True)
-    flash_case(4, 256, 128, 1, torch.float32, False)
+    bf16, f32 = torch.bfloat16, torch.float32
+    flash_case(qcfg.n_heads, 4096, qcfg.resolved_head_dim, group, bf16, True,
+               main=True)
+    for d_ in (56, 64, 80, 112, 256):
+        flash_case(8, 200, d_, 4, bf16, True)
+    flash_case(4, 256, 128, 1, bf16, False)
+    flash_case(4, 256, 128, 1, f32, False, main=True)
+    for d_ in (80, 256):
+        flash_case(8, 200, d_, 4, f32, True)
+    flash_case(8, 200, 36, 4, bf16, True)
     torch.cuda.empty_cache()
 
     # -- the serving path: qwen2.5-3b at full width -------------------------
@@ -895,6 +949,22 @@ def main() -> None:
     check_close("flash_attention (entry point)", out, want,
                 "(1, 4096, 16, 128) bf16", FLASH_TOL["torch.bfloat16"])
     print(f"flash_attention entry point (1, 4096, 16/2 heads, 128) bf16: "
+          f"within tolerance, {t_fa * 1e3:.3f} ms with its layout copies")
+    # f32 takes the CUDA-core kernel (TF32 would miss the f32 tolerance)
+    q32, k32, v32 = (x[:, :512].float() for x in (qh, kh, vh))
+    s_len = q32.shape[1]
+    out, t_fa = drive("flash_attention qwen2.5-3b S 512 f32",
+                      lambda: ops.flash_attention(q32, k32, v32, causal=True),
+                      needs=("flash_attention_bhsd_cuda_cores",))
+    want = flash_attention_bhsd_plain(
+        q32.permute(0, 2, 1, 3).reshape(b * qcfg.n_heads, s_len, d),
+        k32.permute(0, 2, 1, 3).reshape(b * qcfg.n_kv_heads, s_len, d),
+        v32.permute(0, 2, 1, 3).reshape(b * qcfg.n_kv_heads, s_len, d),
+        causal=True, group=group)
+    want = want.reshape(b, qcfg.n_heads, s_len, d).permute(0, 2, 1, 3)
+    check_close("flash_attention (entry point, f32)", out, want,
+                "(1, 512, 16, 128) f32", FLASH_TOL["torch.float32"])
+    print(f"flash_attention entry point (1, 512, 16/2 heads, 128) f32: "
           f"within tolerance, {t_fa * 1e3:.3f} ms with its layout copies")
 
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))

@@ -4,15 +4,20 @@ Each `csrc/*.cu` source compiles with nvcc for sm_90a into a shared library
 with a plain C interface, loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
-         -shared -Xcompiler -fPIC -o build/repro_torch/lib<name>-<hash>.so \
+         -Xptxas -v -shared -Xcompiler -fPIC \
+         -o build/repro_torch/lib<name>-<hash>.so \
          src/repro_torch/kernels/csrc/<name>.cu
 
 The build lands in `build/repro_torch/` at the repository root (listed in
-.gitignore), at first use, from the sources in the repository only. The
-library name carries a hash of the source and the flags, so an edited
-source rebuilds and a stale library is never loaded. `-fmad=false` (no FMA
-contraction) and the default IEEE division are part of the kernels' float32
-contract with the Pallas kernels they replace; never add --use_fast_math.
+.gitignore), at first use, from the sources in the repository only, with
+the compiler's output (ptxas's registers, shared memory and spills of each
+kernel) beside it in `lib<name>-<hash>.log`. The library name carries a
+hash of the source and its flags, so an edited source rebuilds and a stale
+library is never loaded. `-fmad=false` (no FMA contraction) and the default
+IEEE division are part of the float32 contract of the DSE and DDot kernels
+with the Pallas kernels they replace, which they equal bit for bit; never
+add --use_fast_math. The bf16 attention source, held to a tolerance, builds
+without `-fmad=false` (`FLAGS`).
 """
 from __future__ import annotations
 
@@ -27,8 +32,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("dse_eval", "lm_kernels")
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC")
+SOURCES = ("dse_eval", "lm_kernels", "flash_attention")
+#: nvcc flags of each source: the exact sources keep NVCC_FLAGS.
+FLAGS = {"dse_eval": NVCC_FLAGS, "lm_kernels": NVCC_FLAGS,
+         "flash_attention": tuple(f for f in NVCC_FLAGS
+                                  if f != "-fmad=false")}
 
 # argtypes of each library's C entry points: every pointer and the stream
 # as c_void_p (a bare int would be cut to 32 bits), every count as c_int,
@@ -52,6 +62,10 @@ _SIGNATURES = {
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _F, _I, _P],
     },
+    "flash_attention": {
+        "flash_attention_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _I, _F, _P],
+    },
 }
 
 _LOADED: dict = {}
@@ -72,7 +86,7 @@ def nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library of `csrc/<name>.cu` lands (content-addressed)."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(FLAGS[name]).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -83,28 +97,32 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *FLAGS[name], "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out, cmd
+    return name, proc, tmp, out, cmd
 
 
-def build_all(names=SOURCES) -> float:
+def build_all(names=SOURCES) -> dict:
     """Compile every missing library, one nvcc per source, all started
-    together; returns the wall seconds spent. Raises on a failed build with
-    the compiler's output."""
+    together; returns the wall seconds from the common start to each
+    source's end (0.0 for a library that was already built). Raises on a
+    failed build with the compiler's output."""
     t0 = time.perf_counter()
     jobs = [j for j in (_start(n) for n in names) if j is not None]
+    seconds = {n: 0.0 for n in names}
     errors = []
-    for proc, tmp, out, cmd in jobs:
+    for name, proc, tmp, out, cmd in jobs:
         log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             errors.append(f"{' '.join(cmd)}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
-    return time.perf_counter() - t0
+    return seconds
 
 
 def load_library(name: str = "dse_eval") -> ctypes.CDLL:

@@ -11,10 +11,17 @@ Exactness: every product is an integer of magnitude at most 49, so while
 49 * K < 2**24 (K <= K_MAX) every partial sum is an integer that float32
 holds exactly, and the reference's float32 accumulation equals the exact
 integer sum whatever the order. The CUDA kernel (`csrc/lm_kernels.cu`)
-carries the operands as int8 and accumulates in int32, the plain version
-multiplies them as float32; both then run the epilogue in the reference's
-float32 order, `(acc + (noise_rms * sqrt(pow)) * z) * sa * sb`, so the two
-are equal bit for bit, with and without noise, given the same `z`.
+carries the operands as int8 and accumulates in int32 on the tensor cores,
+the plain version multiplies them as float32; both then run the epilogue in
+the reference's float32 order, `(acc + (noise_rms * sqrt(pow)) * z) * sa *
+sb`, so the two are equal bit for bit, with and without noise, given the
+same `z`.
+
+Layout: the kernel reads B K-major, as the (N, K) rows of `qb.T` (8-bit
+tensor-core operands are K-major only). The wrapper keeps the reference's
+(K, N) signature and passes `qb.T` without a copy when that view is
+contiguous, which is the case of a quantized transposed view such as the
+LM head's `table.T`; otherwise it makes the K-major copy (`k_major`).
 
 The wrapper takes tensors. Given CUDA tensors it launches the kernel (and
 counts the launch in `LAUNCHES`) or raises; given CPU tensors it runs the
@@ -78,12 +85,21 @@ def _check_operands(qa, qb, sa, sb, z, noise_rms):
     return m, k, n
 
 
+def k_major(qb: torch.Tensor) -> torch.Tensor:
+    """The (N, K) K-major rows of a (K, N) operand: the view `qb.T` when it
+    is contiguous, else a contiguous copy of it."""
+    qbt = qb.T
+    return qbt if qbt.is_contiguous() else qbt.contiguous()
+
+
 def ddot_gemm_quantized(qa: torch.Tensor, qb: torch.Tensor, sa: torch.Tensor,
                         sb: torch.Tensor, z: Optional[torch.Tensor] = None, *,
                         noise_rms: float = 0.0) -> torch.Tensor:
     """Quantized GEMM on pre-quantized operands, any M, K <= K_MAX, N.
 
-    qa (M, K) and qb (K, N) int8 holding integers in [-QMAX, QMAX]; sa (M, 1)
+    qa (M, K) and qb (K, N) int8 holding integers in [-QMAX, QMAX] (qa
+    contiguous; qb contiguous or the transpose of a contiguous (N, K)
+    tensor, the layout the kernel reads without a copy); sa (M, 1)
     and sb (1, N) float32 dequantization scales; z (M, N) float32 standard
     normal draws, read only when noise_rms > 0. Returns (M, N) float32.
     Replaces `repro/kernels/ddot_gemm.py:ddot_gemm_quantized`.
@@ -94,12 +110,13 @@ def ddot_gemm_quantized(qa: torch.Tensor, qb: torch.Tensor, sa: torch.Tensor,
                                          noise_rms=noise_rms)
     from ._build import load_library
     noisy = noise_rms > 0.0
-    ops = [qa, qb, sa, sb] + ([z] if noisy else [])
+    qbt = k_major(qb)
+    ops = [qa, qbt, sa, sb] + ([z] if noisy else [])
     _require(ops, [torch.int8, torch.int8, torch.float32, torch.float32,
                    torch.float32], "ddot_gemm_quantized")
     out = torch.empty((m, n), dtype=torch.float32, device=qa.device)
     rc = load_library("lm_kernels").ddot_gemm_launch(
-        _ptr(qa), _ptr(qb), _ptr(sa), _ptr(sb),
+        _ptr(qa), _ptr(qbt), _ptr(sa), _ptr(sb),
         _ptr(z) if noisy else None, _ptr(out), ctypes.c_int(m),
         ctypes.c_int(n), ctypes.c_int(k), ctypes.c_int(int(noisy)),
         ctypes.c_float(float(np.float32(noise_rms))), _stream())

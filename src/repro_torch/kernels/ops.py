@@ -472,10 +472,11 @@ def ddot_matmul(a, b, *, noise_rms: float = 0.0, generator=None,
             raise ValueError("noise_rms > 0 requires a torch.Generator")
         z = torch.randn((a.shape[0], b.shape[1]), generator=generator,
                         device=a.device, dtype=torch.float32)
-    # contiguous: the kernel reads row-major operands, and a transposed
-    # view (the LM head's `table.T`) quantizes to a transposed layout
+    # qb keeps its layout: a transposed view (the LM head's `table.T`)
+    # quantizes to a transposed int8 operand, which the kernel reads K-major
+    # without a copy
     return _ddot.ddot_gemm_quantized(
-        qa.to(torch.int8).contiguous(), qb.to(torch.int8).contiguous(),
+        qa.to(torch.int8).contiguous(), qb.to(torch.int8),
         sa.contiguous(), sb.contiguous(), z, noise_rms=noise_rms)
 
 

@@ -20,6 +20,7 @@ Tolerances:
   * photonic_matmul's STE gradients: 1e-4, as the reference's test.
 """
 import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,9 @@ from repro.kernels.flash_attention import flash_attention_bhsd as ref_flash
 from repro_torch.kernels import ddot_gemm as pddot
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
+
+# the module (the package attribute of the same name is the function)
+pfa = importlib.import_module("repro_torch.kernels.flash_attention")
 
 STRICT = {"xla_disable_hlo_passes": "algsimp",
           "xla_backend_optimization_level": 0}
@@ -254,3 +258,102 @@ def test_flash_rejects_what_the_kernel_does_not_take():
     q = torch.zeros((1, 8, 6, 64))
     with pytest.raises(ValueError, match="groups"):
         ops.flash_attention(q, q[:, :, :4], q[:, :, :4])
+
+
+# ------------------------------------- the tensor-core kernels' design ---
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.bfloat16().float()
+
+
+def _wgmma_attention(q, k, v, *, causal, group):
+    """Plain emulation of the tensor-core attention kernel's arithmetic
+    (`csrc/flash_attention.cu`): key tiles of 128 keys (64 past D = 128,
+    its `KeyTile`), f32 scores `(q . k) * scale`, f32 running max,
+    correction and denominator (summed from the f32 weights), the weights
+    rounded to bf16 before P . V, f32 accumulation, `acc / max(l, 1e-30)`
+    rounded to bf16. q, k, v are float32 tensors holding bf16 values."""
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    k = k.repeat_interleave(group, dim=0)
+    v = v.repeat_interleave(group, dim=0)
+    scale = torch.tensor(np.float32(d ** -0.5))
+    m = torch.full((bh, sq, 1), ref.NEG_INF)
+    den = torch.zeros((bh, sq, 1))
+    acc = torch.zeros((bh, sq, d))
+    rows = torch.arange(sq)[:, None]
+    bk = 64 if d > 128 else 128
+    for k0 in range(0, skv, bk):
+        kt, vt = k[:, k0:k0 + bk], v[:, k0:k0 + bk]
+        s = torch.einsum("bqd,bkd->bqk", q, kt) * scale
+        if causal:
+            keys = k0 + torch.arange(kt.shape[1])[None, :]
+            s = torch.where(keys <= rows, s, torch.full_like(s, ref.NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        den = den * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bqk,bkd->bqd", _bf16(p), vt)
+        m = m_new
+    return _bf16(acc / torch.clamp(den, min=1e-30))
+
+
+@pytest.mark.parametrize("d", [80, 128, 256])
+@pytest.mark.parametrize("group", [1, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_p_stays_inside_the_reference_tolerance(d, group, causal):
+    """The tensor-core kernel's one extra rounding (P to bf16 before P . V,
+    ~2**-9 relative on each weight) keeps it within the reference's own
+    bf16 tolerance of 2e-2: its emulation against the Pallas kernel."""
+    bh, s = 8, 256
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(_normal(shape, seed), "bfloat16")
+        for shape, seed in (((bh, s, d), 21), ((bh // group, s, d), 22),
+                            ((bh // group, s, d), 23)))
+    want = ref_flash(jq, jnp.repeat(jk, group, axis=0),
+                     jnp.repeat(jv, group, axis=0), causal=causal)
+    got = _wgmma_attention(tq.float(), tk.float(), tv.float(), causal=causal,
+                           group=group)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL["bfloat16"],
+                               atol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("d", [8, 32, 36, 56, 64, 80, 100, 112, 128, 200,
+                               256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_path_follows_dtype_and_head_dim(d, dtype):
+    want = dtype == "bfloat16" and d % 8 == 0
+    assert pfa.tensor_core_path(DTYPES[dtype][1], d) is want
+    assert set(pfa.LAUNCHES) == {"flash_attention_bhsd",
+                                "flash_attention_bhsd_cuda_cores"}
+
+
+def test_every_configs_head_dim_takes_the_tensor_core_path():
+    from repro_torch.configs import ARCHS
+    dims = {c.resolved_head_dim for c in ARCHS.values()}
+    assert dims >= {64, 80, 112, 128, 256}
+    assert all(pfa.tensor_core_path(torch.bfloat16, d) for d in dims)
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("layout", ["row_major", "k_major_view"])
+def test_ddot_gemm_takes_b_in_both_layouts(m, k, n, layout):
+    """The kernel reads B K-major: the wrapper passes the transpose of a
+    transposed view without a copy and copies a row-major B. Either way
+    the result is the reference's, exactly."""
+    a, b = _normal((m, k), 12), _normal((k, n), 13)
+    want = np.asarray(ref_ddot_matmul(jnp.asarray(a), jnp.asarray(b)))
+    tb = (torch.from_numpy(np.ascontiguousarray(b.T)).T
+          if layout == "k_major_view" else torch.from_numpy(b))
+    qa, sa = ref.quantize4(torch.from_numpy(a), axis=1)
+    qb, sb = ref.quantize4(tb, axis=0)
+    qb = qb.to(torch.int8)
+    assert qb.is_contiguous() is (layout == "row_major")
+    qbt = pddot.k_major(qb)
+    assert qbt.is_contiguous() and torch.equal(qbt, qb.T)
+    assert (qbt.data_ptr() == qb.data_ptr()) is (layout == "k_major_view")
+    got = pddot.ddot_gemm_quantized(qa.to(torch.int8).contiguous(), qb, sa,
+                                    sb)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(ops.ddot_matmul(torch.from_numpy(a), tb).numpy(),
+                          want)
