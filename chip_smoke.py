@@ -12,9 +12,11 @@ From the root of a checkout, with one CUDA card visible. It
   2. holds each of the six DSE kernels against its plain PyTorch version on
      the card, at the main path's shapes (the paper's 12^5 grid for the
      grid-operand kernels, the 24^5 product space and one slab of it for the
-     decoded ones; the frontier kernels also with a carried front and with a
-     block of 2048 duplicate rows that overflows MAX_FRONT), with
-     `torch.equal`, and times both with CUDA events;
+     decoded ones; the frontier kernels also with a carried front, with a
+     block of 2048 duplicate rows that overflows MAX_FRONT, and at a clock
+     slow enough that EDP overflows to +inf on feasible lanes, which makes
+     a block sort all its lanes), with `torch.equal`, and times both with
+     CUDA events;
   3. drives the min-EDP co-search through the port's entry points:
      `search_workloads` over the five paper workloads on the 12^5 grid
      (cuda engine, hierarchical), checked against `tests/golden/dse_12x5.json`
@@ -38,18 +40,20 @@ From the root of a checkout, with one CUDA card visible. It
      z); `flash_attention_bhsd` within the reference's tolerance (2e-5 f32,
      2e-2 bf16) at qwen2.5-3b attention (S = 4096, 16 query and 2 KV heads,
      D = 128, bf16, causal) and at small bf16 cases with D = 56, 64, 80,
-     112 and 256 and a bidirectional one, all on the tensor-core kernel,
-     and f32 cases (D = 128 bidirectional, 80, 256) and a bf16 D = 36 case
-     on the CUDA-core kernel; each case asserts through `LAUNCHES` which of
-     the two kernels ran;
+     112 and 256 and a bidirectional one, all on the wgmma kernel, and
+     f32 cases (D = 128 bidirectional, 80, 256 with the keys split across
+     CTAs; D = 128 and 256 at BH 16, S = 512, and D = 128 at BH 32, the
+     last two with one split) and a bf16 D = 36 case on the TF32 mma.sync
+     kernel; each case asserts through
+     `LAUNCHES` which of the two kernels ran;
   6. serves tokens from qwen2.5-3b at its full published width (random
      weights from a seeded generator): `Server(batch_size=4, max_len=64)`
      answers 4 requests of 12 new tokens, prefill logits are checked
      finite, a reduced qwen2.5-3b is held against the port's CPU path, the
      photonic LM head runs through `photonic_matmul` (noise 0.02 and 0),
      `photonic_report` prices the workload, and `kernels.flash_attention`
-     runs at the attention shape above (bf16, the tensor-core kernel) and
-     at S = 512 in f32 (the CUDA-core kernel);
+     runs at the attention shape above (bf16, the wgmma kernel) and at
+     S = 512 in f32 (the TF32 kernel);
   7. prints one JSON line with every kernel's launches (counted per
      entry-point call, the counts set to 0 just before each call and read
      just after it), its largest difference from its plain version, its
@@ -59,6 +63,7 @@ From the root of a checkout, with one CUDA card visible. It
 Any failed check raises, so the script exits non-zero and prints no result
 line. It exits non-zero at once without a CUDA card, or outside a checkout.
 """
+import dataclasses
 import json
 import math
 import statistics
@@ -90,8 +95,8 @@ PARETO_TAIL_OPS = 3      # energy/latency compares, EDP
 DECODE_OPS = 29
 
 # The kernels, each with the TPU kernel it replaces. Two CUDA kernels
-# replace flash_attention_bhsd: the tensor-core one (bf16, D % 8 == 0) and
-# the CUDA-core one (f32, other head dims); each has its own row.
+# replace flash_attention_bhsd: the wgmma one (bf16, D % 8 == 0) and the
+# TF32 mma.sync one (f32, other head dims); each has its own row.
 REPLACES = {
     "dse_eval_padded": "src/repro/kernels/dse_eval.py:530",
     "dse_search_padded": "src/repro/kernels/dse_eval.py:550",
@@ -101,13 +106,12 @@ REPLACES = {
     "dse_pareto_decoded": "src/repro/kernels/dse_eval.py:690",
     "ddot_gemm_quantized": "src/repro/kernels/ddot_gemm.py:61",
     "flash_attention_bhsd": "src/repro/kernels/flash_attention.py:70",
-    "flash_attention_bhsd_cuda_cores":
-        "src/repro/kernels/flash_attention.py:70",
+    "flash_attention_bhsd_tf32": "src/repro/kernels/flash_attention.py:70",
 }
 SOURCES = {name: "src/repro_torch/kernels/csrc/" + (
     "flash_attention.cu" if name == "flash_attention_bhsd"
-    else "lm_kernels.cu" if name in ("ddot_gemm_quantized",
-                                     "flash_attention_bhsd_cuda_cores")
+    else "flash_attention_tf32.cu" if name == "flash_attention_bhsd_tf32"
+    else "lm_kernels.cu" if name == "ddot_gemm_quantized"
     else "dse_eval.cu") for name in REPLACES}
 # Tolerances of the attention kernel against its plain version: the
 # reference's own (tests/test_flash_attention.py), since exponentials and
@@ -177,6 +181,63 @@ def _bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def dse_inputs(dev):
+    """The DSE kernels' operands this script checks and times (and
+    `tools/stage_dse.py` times stage by stage), on device `dev`: deit-b
+    under the default constraints; the paper's 12^5 grid, and a block of
+    2048 copies of the golden deit-b winner followed by 300 grid rows; the
+    whole 24^5 product space and one slab of it. Needs `src` on sys.path."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    from repro_torch.core import Constraints, FactorizedSpace, config_grid
+    from repro_torch.core.factorized import slab_bounding_span
+    from repro_torch.core.paper_workloads import load
+    from repro_torch.core.performance_model import workload_statics
+    from repro_torch.core.photonic_model import CONSTANTS
+    from repro_torch.kernels import dse_eval as dse
+    from repro_torch.kernels import ops
+
+    def cols_of(rows):
+        return torch.from_numpy(rows.T.astype("float32")).contiguous().to(dev)
+
+    def ones(n):
+        return torch.ones((1, n), dtype=torch.float32, device=dev)
+
+    cons = Constraints()
+    wl = load("deit-b")
+    gemms, wl_scalars = workload_statics(wl, CONSTANTS)
+    golden = json.loads(
+        (ROOT / "tests" / "golden" / "dse_12x5.json").read_text())
+    inc12 = list(range(1, 13))
+    grid12 = config_grid(inc12, inc12, inc12, inc12, inc12)
+    dup = np.concatenate([np.tile(
+        np.asarray(golden["workloads"]["deit-b"]["best"]), (dse.BLOCK, 1)),
+        grid12[:300]])
+    space24 = FactorizedSpace.full(24)
+    axes, radices = ops._axes_operand(space24, dev)
+    slab = ((0, 3), (0, 4), (4, 20), (2, 18), (8, 16))
+    b0, b1 = slab_bounding_span(radices, slab)
+    return SimpleNamespace(
+        cons=cons,
+        cons_row=torch.tensor([[cons.area_mm2, cons.power_w, cons.energy_j,
+                                cons.latency_s]], dtype=torch.float32,
+                              device=dev),
+        carry=torch.full((1, 1), float("inf"), dtype=torch.float32,
+                         device=dev),
+        wl=wl, gemms=gemms, wl_scalars=wl_scalars,
+        workloads=((gemms, wl_scalars),), golden=golden,
+        grid12=grid12, cols=cols_of(grid12), mask=ones(len(grid12)),
+        dup=dup, cols_dup=cols_of(dup), mask_dup=ones(len(dup)),
+        space24=space24, axes=axes, radices=radices, n24=space24.size,
+        meta=torch.from_numpy(
+            ops._meta_rows(radices, [0], space24.size)[0]).to(dev),
+        slab=slab, b0=b0, b1=b1,
+        meta_s=torch.from_numpy(
+            ops._meta_rows(radices, [b0], b1, slab)[0]).to(dev))
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -187,9 +248,8 @@ def main() -> None:
               f"not hold the repro_torch package")
     sys.path.insert(0, str(ROOT / "src"))
 
-    from repro_torch.core import (Constraints, FactorizedSpace, config_grid,
-                                  search, search_workloads)
-    from repro_torch.core.factorized import slab_bounding_span, slab_indices
+    from repro_torch.core import FactorizedSpace, search, search_workloads
+    from repro_torch.core.factorized import slab_indices
     from repro_torch.core.paper_workloads import PAPER_WORKLOADS, load
     from repro_torch.core.performance_model import workload_statics
     from repro_torch.core.photonic_model import CONSTANTS
@@ -198,10 +258,12 @@ def main() -> None:
     from repro_torch.kernels import ddot_gemm as ddot
     from repro_torch.kernels import dse_eval as dse
     from repro_torch.kernels import ops
-    from repro_torch.kernels._build import build_all, library_path
+    from repro_torch.kernels._build import (build_all, library_path,
+                                            load_library)
     from repro_torch.kernels.flash_attention import LAUNCHES as FA_LAUNCHES
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bhsd, flash_attention_bhsd_plain, tensor_core_path)
+        flash_attention_bhsd, flash_attention_bhsd_plain, tf32_splits,
+        wgmma_path)
     from repro_torch.kernels.ref import quantize4
     from repro_torch.train.serve import Request, Server, photonic_report
     counters = (dse.LAUNCHES, ddot.LAUNCHES, FA_LAUNCHES)
@@ -224,6 +286,11 @@ def main() -> None:
             if "Compiling entry" in line or "registers" in line \
                     or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    # dynamic shared memory the launchers opt into (ptxas reports static)
+    tf32 = load_library("flash_attention_tf32")
+    print("flash_attention_tf32 dynamic smem: " + ", ".join(
+        f"D {d_} {tf32.flash_attention_tf32_smem_bytes(d_)} B"
+        for d_ in (36, 80, 128, 256)))
     # The LM path multiplies in full float32 (the reference's f32 products):
     # TF32 must stay off.
     print(f"float32 matmul precision {torch.get_float32_matmul_precision()!r},"
@@ -233,14 +300,9 @@ def main() -> None:
            "TF32 is on: the LM path's float32 products would round")
 
     names = sorted(PAPER_WORKLOADS)
-    cons = Constraints()
-    cons_row = torch.tensor([[cons.area_mm2, cons.power_w, cons.energy_j,
-                              cons.latency_s]], dtype=torch.float32,
-                            device=dev)
-    carry = torch.full((1, 1), float("inf"), dtype=torch.float32,
-                       device=dev)
-    wl = load("deit-b")
-    gemms, wl_scalars = workload_statics(wl, CONSTANTS)
+    inp = dse_inputs(dev)
+    cons, cons_row, carry = inp.cons, inp.cons_row, inp.carry
+    wl, gemms, wl_scalars = inp.wl, inp.gemms, inp.wl_scalars
     n_gemms = len(gemms)
     wl_ops = WL_FIXED_OPS + WL_PER_GEMM_OPS * n_gemms
     rows = {}
@@ -272,6 +334,13 @@ def main() -> None:
         function of the kernel's output (work that depends on the
         data)."""
         got = kernel()
+        extra = {}
+        if name.startswith("dse_pareto"):
+            # workload 0's feasible count per block: the frontier stage's
+            # work (blocks with none skip it, f rows sort)
+            f = got[1]
+            extra = {"blocks_with_feasible": int((f > 0).sum()),
+                     "blocks": f.numel(), "max_feasible": int(f.max())}
         if tol is None:
             err = check_equal(name, got, plain(), shape)
         else:
@@ -285,10 +354,14 @@ def main() -> None:
               + ("equal to plain" if tol is None else f"within {tol} of plain")
               + f" (max abs err {err!r}); kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), "
-              f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+              f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+              + ("" if not extra else
+                 f"; {extra['blocks_with_feasible']} of {extra['blocks']} "
+                 f"blocks with a feasible lane, largest f "
+                 f"{extra['max_feasible']}"))
         return got, {"shape": shape, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": bound_by, "library_ms": lib_ms}
+                     "bound_by": bound_by, "library_ms": lib_ms, **extra}
 
     def record(name, kernel, plain, n_bytes, n_ops, shape,
                plain_time=_time_ms, **kw):
@@ -300,7 +373,9 @@ def main() -> None:
                       "max_abs_err": m["max_abs_err"],
                       "ms": m["ms"], "plain_ms": m["plain_ms"],
                       "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-                      "library_ms": m["library_ms"], "variants": []}
+                      "library_ms": m["library_ms"], "variants": [],
+                      **{k: m[k] for k in ("blocks_with_feasible", "blocks",
+                                           "max_feasible") if k in m}}
         return got
 
     def variant(name, kernel, plain, n_bytes, n_ops, shape,
@@ -320,10 +395,8 @@ def main() -> None:
         return int(((m[0] < cons.area_mm2) & (m[1] < cons.power_w)).sum())
 
     # -- kernels 1-2: the paper's 12^5 grid, deit-b -----------------------
-    inc12 = list(range(1, 13))
-    grid12 = config_grid(inc12, inc12, inc12, inc12, inc12)
+    grid12, cols, mask = inp.grid12, inp.cols, inp.mask
     g = len(grid12)
-    cols = torch.from_numpy(grid12.T.astype("float32")).contiguous().to(dev)
     metrics = record(
         "dse_eval_padded",
         lambda: dse.dse_eval_padded(cols, gemms=gemms, wl_scalars=wl_scalars,
@@ -333,8 +406,7 @@ def main() -> None:
                                           constants=CONSTANTS),
         n_bytes=(5 + 4) * 4 * g, n_ops=g * (HW_OPS + wl_ops),
         shape=f"(5, {g}) deit-b")
-    mask = torch.ones((1, g), dtype=torch.float32, device=dev)
-    workloads = ((gemms, wl_scalars),)
+    workloads = inp.workloads
     record(
         "dse_search_padded",
         lambda: dse.dse_search_padded(cols, mask, cons_row, carry,
@@ -348,10 +420,8 @@ def main() -> None:
         shape=f"(5, {g}) deit-b, {hw_pass(metrics)} pass area/power")
 
     # -- kernels 3-4: the whole 24^5 product space, then one slab ---------
-    space24 = FactorizedSpace.full(24)
-    axes, radices = ops._axes_operand(space24, dev)
-    n24 = space24.size
-    meta = torch.from_numpy(ops._meta_rows(radices, [0], n24)[0]).to(dev)
+    space24, axes, radices = inp.space24, inp.axes, inp.radices
+    n24, meta = inp.n24, inp.meta
     nr = math.ceil(n24 / dse.BLOCK)
     decoded = record(
         "dse_decode_rows",
@@ -380,10 +450,7 @@ def main() -> None:
         n_ops=(nb * dse.DECODE_BLOCK * DECODE_OPS + n24 * HW_OPS
                + pass24 * (wl_ops + SEARCH_TAIL_OPS)),
         shape=f"24^5 span [0, {n24}) deit-b, {pass24} pass area/power")
-    slab = ((0, 3), (0, 4), (4, 20), (2, 18), (8, 16))
-    b0, b1 = slab_bounding_span(radices, slab)
-    meta_s = torch.from_numpy(ops._meta_rows(radices, [b0], b1, slab)[0]) \
-        .to(dev)
+    slab, b0, b1, meta_s = inp.slab, inp.b0, inp.b1, inp.meta_s
     nb_s = math.ceil((b1 - b0) / dse.DECODE_BLOCK)
     nr_s = math.ceil((b1 - b0) / dse.BLOCK)
     kw = dict(radices=radices, n_blocks=nb_s, workloads=workloads,
@@ -407,8 +474,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- kernels 5-6: the frontier kernels, deit-b, (area, power, edp) ----
-    golden = json.loads(
-        (ROOT / "tests" / "golden" / "dse_12x5.json").read_text())
+    golden = inp.golden
     objs = ("area", "power", "edp")
     d = len(objs)
     no_carry = torch.full((dse.CARRY_FRONT, d), float("inf"),
@@ -424,6 +490,10 @@ def main() -> None:
     carry_front[:fm.shape[1]] = torch.stack([fm[0], fm[1], fm[2] * fm[3]],
                                             dim=1)
     pk = dict(workloads=workloads, objectives=objs, constants=CONSTANTS)
+    n_words = dse._device_params(workloads, CONSTANTS, dev).numel()
+    print("dse_pareto dynamic smem: " + ", ".join(
+        f"d {d_} {load_library('dse_eval').dse_pareto_smem_bytes(d_, n_words)}"
+        f" B" for d_ in (3, 5)))
 
     def dominance_ops(out, carried):
         """Pairwise compares of this run's data: f(f-1)/2 pairs of 2d
@@ -466,10 +536,7 @@ def main() -> None:
             plain_time=plain_slow)
     # A block of 2048 copies of the deit-b winner: 2048 exact ties, all on
     # the block's front, past MAX_FRONT; 300 grid rows follow.
-    dup = np.concatenate([np.tile(np.asarray(gold_b["best"]),
-                                  (dse.BLOCK, 1)), grid12[:300]])
-    cols_dup = torch.from_numpy(dup.T.astype("float32")).contiguous().to(dev)
-    mask_dup = torch.ones((1, len(dup)), dtype=torch.float32, device=dev)
+    dup, cols_dup, mask_dup = inp.dup, inp.cols_dup, inp.mask_dup
     n_bytes, n_ops = padded_work(cols_dup, False)
     over = variant(
         "dse_pareto_padded",
@@ -516,6 +583,61 @@ def main() -> None:
                            + pass_s * (wl_ops + PARETO_TAIL_OPS)
                            + dominance_ops(out, False)),
         shape=f"24^5 slab, {len(members)} members, {pass_s} pass area/power",
+        plain_time=plain_slow)
+    # Feasible lanes whose objective 0 is +inf: at a clock of 2e-11 Hz the
+    # latencies reach ~1e19 s and EDP overflows float32 on some lanes; with
+    # energy and latency left open those lanes stay feasible, so a block
+    # holding one sorts all its lanes (the frontier template's all-lanes
+    # branch), the masked and over-budget lanes joining as +inf rows.
+    slow = dataclasses.replace(CONSTANTS, f_clk_hz=2e-11)
+    gemms_o, wl_scalars_o = workload_statics(wl, slow)
+    cons_open = torch.tensor([[cons.area_mm2, cons.power_w, math.inf,
+                               math.inf]], dtype=torch.float32, device=dev)
+    mask_odd = (torch.arange(g, device=dev) % 4 != 3).to(torch.float32)[None]
+    ko = dict(workloads=((gemms_o, wl_scalars_o),), objectives=objs,
+              constants=slow)
+    for label, cfg_, keep in (
+            ("12^5, every fourth lane masked", cols, mask_odd[0] > 0),
+            ("24^5 slab", torch.from_numpy(members.T.astype("float32"))
+             .contiguous().to(dev), None)):
+        m_o = dse.dse_eval_padded(cfg_, gemms=gemms_o,
+                                  wl_scalars=wl_scalars_o, constants=slow)
+        ok_o = (m_o[0] < cons.area_mm2) & (m_o[1] < cons.power_w)
+        if keep is not None:
+            ok_o &= keep
+        n_inf = int((ok_o & ~torch.isfinite(m_o[2] * m_o[3])).sum())
+        n_ok = int(ok_o.sum())
+        _check(0 < n_inf < n_ok,
+               f"{label} at 2e-11 Hz: {n_inf} of {n_ok} feasible lanes with "
+               f"EDP +inf (the case needs some, not all)")
+        print(f"{label} at 2e-11 Hz: {n_inf} of {n_ok} feasible lanes with "
+              f"objective 0 (EDP) +inf")
+    n_bytes, n_ops = padded_work(cols, False)
+    variant(
+        "dse_pareto_padded",
+        lambda: dse.dse_pareto_padded(cols, mask_odd, cons_open, no_carry,
+                                      has_carry=False, **ko),
+        lambda: dse.dse_pareto_padded_plain(cols, mask_odd, cons_open,
+                                            no_carry, has_carry=False, **ko),
+        n_bytes=n_bytes, n_ops=n_ops,
+        shape=f"(5, {g}) deit-b at 2e-11 Hz, every fourth lane masked, "
+              f"EDP +inf on feasible lanes",
+        plain_time=plain_slow)
+    variant(
+        "dse_pareto_decoded",
+        lambda: dse.dse_pareto_decoded(axes, meta_s, cons_open, no_carry,
+                                       n_blocks=nr_s, has_carry=False,
+                                       radices=radices, **ko),
+        lambda: dse.dse_pareto_decoded_plain(axes, meta_s, cons_open,
+                                             no_carry, n_blocks=nr_s,
+                                             has_carry=False,
+                                             radices=radices, **ko),
+        n_bytes=axes.numel() * 4 + 4 * dse.PARETO_ROWS * nr_s,
+        n_ops=lambda out: (nr_s * dse.BLOCK * DECODE_OPS
+                           + len(members) * HW_OPS
+                           + pass_s * (wl_ops + PARETO_TAIL_OPS)
+                           + dominance_ops(out, False)),
+        shape="24^5 slab at 2e-11 Hz, EDP +inf on feasible lanes",
         plain_time=plain_slow)
     torch.cuda.empty_cache()
 
@@ -792,8 +914,9 @@ def main() -> None:
         ddot_case(33, 1000, 257, 0.02, k_major)
     torch.cuda.empty_cache()
 
-    # -- kernel 8: fused attention, on the tensor cores (bf16, D % 8 == 0)
-    # and on the CUDA cores (f32, other head dims) ----------------------
+    # -- kernel 8: fused attention, on wgmma (bf16, D % 8 == 0) and on
+    # mma.sync in TF32 (f32, other head dims) ----------------------------
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     def flash_case(bh, s_len, d, group, dtype, causal, main=False):
         q = torch.randn((bh, s_len, d), generator=gen, device=dev).to(dtype)
         k = torch.randn((bh // group, s_len, d), generator=gen,
@@ -803,8 +926,10 @@ def main() -> None:
         size = q.element_size()
         n_bytes = size * d * s_len * (2 * bh + 2 * (bh // group))
         n_ops = 4 * bh * s_len * s_len * d / (2 if causal else 1)
-        name = ("flash_attention_bhsd" if tensor_core_path(dtype, d)
-                else "flash_attention_bhsd_cuda_cores")
+        name = ("flash_attention_bhsd" if wgmma_path(dtype, d)
+                else "flash_attention_bhsd_tf32")
+        tiling = ("" if name == "flash_attention_bhsd" else
+                  f", {tf32_splits(bh, s_len, s_len, d, n_sm)} key splits")
 
         def kernel():
             return flash_attention_bhsd(q, k, v, causal=causal, group=group)
@@ -829,7 +954,8 @@ def main() -> None:
             ops_per_s=(BF16_OPS_PER_S if dtype == torch.bfloat16
                        else F32_OPS_PER_S),
             shape=(f"BH {bh}, S {s_len}, D {d}, group {group}, "
-                   f"{str(dtype)[6:]}, {'causal' if causal else 'bidirectional'}"),
+                   f"{str(dtype)[6:]}, {'causal' if causal else 'bidirectional'}"
+                   f"{tiling}"),
             tol=FLASH_TOL[str(dtype)], library=library)
 
     group = qcfg.n_heads // qcfg.n_kv_heads
@@ -842,6 +968,11 @@ def main() -> None:
     flash_case(4, 256, 128, 1, f32, False, main=True)
     for d_ in (80, 256):
         flash_case(8, 200, d_, 4, f32, True)
+    # wider grids: 128 query blocks (two key splits at D 128, one past
+    # it, where a block takes 200 KB of shared memory) and 256 (one split)
+    flash_case(16, 512, 128, 1, f32, False)
+    flash_case(16, 512, 256, 4, f32, True)
+    flash_case(32, 512, 128, 8, f32, False)
     flash_case(8, 200, 36, 4, bf16, True)
     torch.cuda.empty_cache()
 
@@ -950,12 +1081,12 @@ def main() -> None:
                 "(1, 4096, 16, 128) bf16", FLASH_TOL["torch.bfloat16"])
     print(f"flash_attention entry point (1, 4096, 16/2 heads, 128) bf16: "
           f"within tolerance, {t_fa * 1e3:.3f} ms with its layout copies")
-    # f32 takes the CUDA-core kernel (TF32 would miss the f32 tolerance)
+    # f32 takes the TF32 kernel (3xTF32 products)
     q32, k32, v32 = (x[:, :512].float() for x in (qh, kh, vh))
     s_len = q32.shape[1]
     out, t_fa = drive("flash_attention qwen2.5-3b S 512 f32",
                       lambda: ops.flash_attention(q32, k32, v32, causal=True),
-                      needs=("flash_attention_bhsd_cuda_cores",))
+                      needs=("flash_attention_bhsd_tf32",))
     want = flash_attention_bhsd_plain(
         q32.permute(0, 2, 1, 3).reshape(b * qcfg.n_heads, s_len, d),
         k32.permute(0, 2, 1, 3).reshape(b * qcfg.n_kv_heads, s_len, d),

@@ -16,7 +16,7 @@ hash of the source and its flags, so an edited source rebuilds and a stale
 library is never loaded. `-fmad=false` (no FMA contraction) and the default
 IEEE division are part of the float32 contract of the DSE and DDot kernels
 with the Pallas kernels they replace, which they equal bit for bit; never
-add --use_fast_math. The bf16 attention source, held to a tolerance, builds
+add --use_fast_math. The two attention sources, held to a tolerance, build
 without `-fmad=false` (`FLAGS`).
 """
 from __future__ import annotations
@@ -34,11 +34,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC")
-SOURCES = ("dse_eval", "lm_kernels", "flash_attention")
+SOURCES = ("dse_eval", "lm_kernels", "flash_attention",
+           "flash_attention_tf32")
+_TOLERANT = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
 #: nvcc flags of each source: the exact sources keep NVCC_FLAGS.
 FLAGS = {"dse_eval": NVCC_FLAGS, "lm_kernels": NVCC_FLAGS,
-         "flash_attention": tuple(f for f in NVCC_FLAGS
-                                  if f != "-fmad=false")}
+         "flash_attention": _TOLERANT, "flash_attention_tf32": _TOLERANT}
 
 # argtypes of each library's C entry points: every pointer and the stream
 # as c_void_p (a bare int would be cut to 32 bits), every count as c_int,
@@ -56,15 +57,19 @@ _SIGNATURES = {
                                      _P, _I, _P],
         "dse_pareto_decoded_launch": [_P, _I, _P, _I, _I, _I, _I, _I, _P,
                                       _P, _I, _I, _I, _P, _I, _P, _I, _P],
+        "dse_pareto_smem_bytes": [_I, _I],
     },
     "lm_kernels": {
         "ddot_gemm_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _F, _I, _P],
     },
     "flash_attention": {
         "flash_attention_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                          _I, _F, _P],
+    },
+    "flash_attention_tf32": {
+        "flash_attention_tf32_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _I, _F, _I, _I, _P, _P],
+        "flash_attention_tf32_smem_bytes": [_I],
     },
 }
 

@@ -35,7 +35,12 @@
 // constants sit in shared memory (one small parameter block per launch);
 // lanes that fail the cheap area/power half skip the GEMM loop (exact:
 // feasibility needs both); each logical block (2048 lanes, 16384 decoded
-// for the search) is reduced inside one CUDA block.
+// for the search) is reduced inside one CUDA block. The card has no
+// integer divide instruction, so the model's integer divisions are
+// division-free and exact: the GEMM ceil-divisions by an integer
+// reciprocal taken once per lane and one correction (ceil_div), the
+// decoder's digits by a multiply and a shift with host-computed constants
+// (make_radix).
 //
 // Float32 parity with the Pallas source: built with -fmad=false (no FMA
 // contraction) and IEEE division; every static scalar arrives pre-folded in
@@ -63,6 +68,7 @@ constexpr int kMaxFront = 128;       // emitted front indices per block
 constexpr int kParetoRows = 2 + kMaxFront;
 constexpr int kCarryFront = 128;     // carried front points per workload
 constexpr int kDomChunk = 256;       // the reference's dominance column tile
+constexpr int kBatch = 64;           // sorted columns per dominance batch
 constexpr int kMaxObjectives = 5;
 constexpr int kLanesPerThread = kBlock / kThreads;
 constexpr int kConsts = 23;
@@ -125,22 +131,48 @@ __device__ __forceinline__ void hw_metrics(const int* p, int w, Cfg x,
   power = q;
 }
 
+// ceil(a / b) for 0 <= a < 2^31 and b >= 1, exact, with no division in
+// the GEMM loop: each lane computes inv = floor((2^32 - 1) / b) once per
+// divisor (make_divisor), then q = umulhi(a, inv) is floor(a / b) or one
+// less (a * inv / 2^32 > a / b - 1 for a < 2^31), and one integer
+// correction step makes it exact. (A float-reciprocal quotient needs two
+// int/float conversions per division, which run at a quarter of the
+// integer rate; on an H100 it was slower than an integer division.)
+struct Divisor {
+  int b;
+  unsigned inv;
+};
+
+__device__ __forceinline__ Divisor make_divisor(int b) {
+  return Divisor{b, 0xffffffffu / static_cast<unsigned>(b)};
+}
+
+__device__ __forceinline__ int ceil_div(int a, Divisor d) {
+  int q = static_cast<int>(__umulhi(static_cast<unsigned>(a), d.inv));
+  int rem = a - q * d.b;
+  if (rem >= d.b) {
+    ++q;
+    rem -= d.b;
+  }
+  return q + (rem > 0 ? 1 : 0);
+}
+
 // _config_metrics_wl: (energy, latency) of one config for workload w.
 __device__ __forceinline__ void wl_metrics(const int* p, int w, Cfg x,
                                            float power, float& energy,
                                            float& latency) {
   const int* r = wl_record(p, w);
   float lanes = (((x.t * x.h) + x.v) * x.c) * x.l;
-  int d_m = static_cast<int>(x.t * x.h);
-  int d_n = static_cast<int>(x.v);
-  int d_k = static_cast<int>(x.c * x.l);
+  const Divisor d_m = make_divisor(static_cast<int>(x.t * x.h));
+  const Divisor d_n = make_divisor(static_cast<int>(x.v));
+  const Divisor d_k = make_divisor(static_cast<int>(x.c * x.l));
   float total = 0.0f;
   float sram_lane = 0.0f;
   for (int g = r[W_G0]; g < r[W_G1]; ++g) {
     const int* q = gemm_record(p, g);  // [m, k, n, count]
-    int cm = (q[0] + d_m - 1) / d_m;
-    int cn = (q[2] + d_n - 1) / d_n;
-    int ck = (q[1] + d_k - 1) / d_k;
+    int cm = ceil_div(q[0], d_m);
+    int cn = ceil_div(q[2], d_n);
+    int ck = ceil_div(q[1], d_k);
     float cyc = ((static_cast<float>(cm) * static_cast<float>(cn))
                  * static_cast<float>(ck)) * __int_as_float(q[3]);
     total = total + cyc;
@@ -161,23 +193,55 @@ __device__ __forceinline__ void load_params(const int* __restrict__ params,
   __syncthreads();
 }
 
+// n / r for 0 <= n < 2^31 by one widening multiply and a shift, exact
+// (Granlund and Montgomery, 1994, Thm 4.2): with l = ceil(log2 r) and
+// mul = ceil(2^(31 + l) / r), mul * r - 2^(31 + l) < r <= 2^l, so
+// floor(mul * n / 2^(31 + l)) = floor(n / r), and mul < 2^32. The host
+// computes (mul, shift) once per launch (make_radix).
+struct Radix {
+  unsigned mul;
+  int shift;
+  int r;
+};
+
+// The four divisors of the mixed-radix decode, in the order it divides.
+struct Decoder {
+  Radix l, h, v, c;
+};
+
+Radix make_radix(int r) {
+  int l = 0;
+  while ((1ll << l) < r) ++l;
+  const unsigned long long num = 1ull << (31 + l);
+  return Radix{static_cast<unsigned>((num + r - 1) / r), 31 + l, r};
+}
+
+Decoder make_decoder(int r_c, int r_v, int r_h, int r_l) {
+  return Decoder{make_radix(r_l), make_radix(r_h), make_radix(r_v),
+                 make_radix(r_c)};
+}
+
+// (n / r, n % r) of 0 <= n < 2^31.
+__device__ __forceinline__ int div_radix(int n, Radix d, int& rem) {
+  const int q = static_cast<int>(
+      (static_cast<unsigned long long>(d.mul) * static_cast<unsigned>(n))
+      >> d.shift);
+  rem = n - q * d.r;
+  return q;
+}
+
 // _decode_block for one lane: mixed-radix digits of gidx in meshgrid axis
 // order (t, c, v, h, lambda), slab-validity test, clamped per-axis gather.
 __device__ __forceinline__ Cfg decode_lane(const float* __restrict__ axes,
                                            int max_radix,
                                            const int* __restrict__ meta,
-                                           int r_t, int r_c, int r_v,
-                                           int r_h, int r_l, int gidx,
+                                           const Decoder& dec, int gidx,
                                            bool& valid) {
-  int i = gidx;
-  int d_l = i % r_l;
-  i = i / r_l;
-  int d_h = i % r_h;
-  i = i / r_h;
-  int d_v = i % r_v;
-  i = i / r_v;
-  int d_c = i % r_c;
-  int d_t = i / r_c;
+  int d_l, d_h, d_v, d_c;
+  int i = div_radix(gidx, dec.l, d_l);
+  i = div_radix(i, dec.h, d_h);
+  i = div_radix(i, dec.v, d_v);
+  const int d_t = div_radix(i, dec.c, d_c);
   valid = gidx < meta[1]
           && d_t >= meta[2] && d_t < meta[3] && d_c >= meta[4] && d_c < meta[5]
           && d_v >= meta[6] && d_v < meta[7] && d_h >= meta[8] && d_h < meta[9]
@@ -321,8 +385,7 @@ __global__ void dse_search_padded_kernel(const float* __restrict__ cfg,
 __global__ void dse_search_decoded_kernel(const float* __restrict__ axes,
                                           int max_radix,
                                           const int* __restrict__ meta,
-                                          int r_t, int r_c, int r_v, int r_h,
-                                          int r_l,
+                                          Decoder dec,
                                           const float* __restrict__ cons,
                                           const float* __restrict__ carry,
                                           const int* __restrict__ params,
@@ -338,8 +401,7 @@ __global__ void dse_search_decoded_kernel(const float* __restrict__ axes,
     int nf = 0;
     for (int lane = threadIdx.x; lane < kDecodeBlock; lane += blockDim.x) {
       bool valid;
-      Cfg x = decode_lane(axes, max_radix, meta, r_t, r_c, r_v, r_h, r_l,
-                          base + lane, valid);
+      Cfg x = decode_lane(axes, max_radix, meta, dec, base + lane, valid);
       lane_search(sp, w, x, valid, cons, lane, best, best_lane, nf);
     }
     block_reduce(best, best_lane, nf);
@@ -353,14 +415,13 @@ __global__ void dse_search_decoded_kernel(const float* __restrict__ axes,
 
 __global__ void dse_decode_rows_kernel(const float* __restrict__ axes,
                                        int max_radix,
-                                       const int* __restrict__ meta, int r_t,
-                                       int r_c, int r_v, int r_h, int r_l,
-                                       float* __restrict__ out, int width) {
+                                       const int* __restrict__ meta,
+                                       Decoder dec, float* __restrict__ out,
+                                       int width) {
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= width) return;
   bool valid;
-  Cfg x = decode_lane(axes, max_radix, meta, r_t, r_c, r_v, r_h, r_l,
-                      meta[0] + lane, valid);
+  Cfg x = decode_lane(axes, max_radix, meta, dec, meta[0] + lane, valid);
   out[lane] = x.t;
   out[width + lane] = x.c;
   out[2 * width + lane] = x.h;
@@ -377,22 +438,48 @@ __global__ void dse_decode_rows_kernel(const float* __restrict__ axes,
 // and a sorted row can dominate only rows after it), then the strict
 // carried-front prune and a compaction to at most kMaxFront lane indices.
 //
-// One CUDA block per logical block, looping over the W workloads; each
-// thread prices eight lanes into shared memory. Per workload:
-//   1. objectives in lane order (+inf where infeasible), feasible flags;
-//   2. a bitonic sort of (monotone objective-0 key, lane) pairs — the lane
+// One CUDA block per logical block, looping over the W workloads. Per
+// workload:
+//   1. each thread prices eight lanes; the f feasible lanes append their
+//      (monotone objective-0 key, lane) pairs to compact storage (a warp
+//      ballot and one shared atomic per warp and pass: the slots' order is
+//      free, since the lane in the key's low word fixes the sorted order);
+//   2. a bitonic sort of those f keys, padded with all-ones keys to the
+//      next power of two (one warp with shuffles when f <= 32) — the lane
 //      in the low word makes it the stable order of jnp.argsort;
-//   3. the objectives gathered into sorted order, carried points staged;
-//   4. one thread per sorted column scans the earlier rows and stops at the
-//      first dominator (a column whose kDomChunk tile starts at a
-//      non-finite objective 0 is skipped, as the reference's lax.cond
-//      skips the tile), then the carried points;
+//   3. the objectives of the sorted rows, priced again from each row's
+//      lane (few lanes are feasible, so re-pricing them is cheaper than
+//      keeping 2048 lanes of objectives), and the carried points;
+//   4. one warp per sorted column: its lanes stride the column's
+//      dominator candidates and __any_sync stops the warp at the first
+//      dominator (a column whose kDomChunk tile starts at a non-finite
+//      objective 0 is skipped, as the reference's lax.cond skips the
+//      tile), then the carried points; the front flag scatters back to the
+//      column's lane. Columns go in batches of kBatch; the candidates are
+//      the earlier rows of the batch and a list of the earlier batches'
+//      rows that no earlier row dominates, less those equal to their
+//      sorted predecessor (by transitivity neither kind can dominate a
+//      column that a listed row does not), so a block with a small front
+//      compares each column with a few rows, not with all earlier ones;
 //   5. a block-wide prefix sum over the front flags in lane order and a
 //      write of the first kMaxFront indices, base + lane in float32.
-// Shared memory: 8 B key + 2 x 4d B objectives + 2 B flags per lane, the
-// carried points and the parameter block — up to ~110 KB at d = 5, over the
-// 48 KB static limit, so the launchers opt in to that much dynamic shared
-// memory first. Blocks with no feasible lane skip steps 2-5.
+// Why the compaction is exact: an infeasible lane has every objective +inf.
+// When every feasible objective 0 is finite (the cost model's metrics are
+// finite positive floats), every infeasible key sorts after every feasible
+// one, so the feasible rows are the sorted prefix and keep their positions
+// (and so their kDomChunk tiles, whose first objective 0 is then finite:
+// the skip only ever skips infeasible columns); an all-+inf row never
+// dominates a feasible row (it is < on no objective); and infeasible
+// columns are never on the front. Dropping the infeasible rows changes
+// nothing. A block where some feasible objective 0 is not finite (the skip
+// and the tie with +inf rows would then depend on them) sorts all 2048
+// lanes instead, the infeasible ones at +inf.
+// Shared memory: 8 B of key, 4d B of sorted objectives and 2 B of list
+// per row (2048 rows at most), the carried points, a flag byte per lane
+// and the parameter block — 49 KB at d = 3, 66 KB at d = 5, past the 48 KB
+// static limit, so the launchers opt in to that much dynamic shared memory
+// first.
+// Blocks with no feasible lane skip steps 2-5.
 // ---------------------------------------------------------------------------
 
 // Monotone uint32 key of a float: ascending keys follow ascending values,
@@ -439,181 +526,318 @@ __device__ __forceinline__ bool row_dominates(const float* rows, int stride_k,
 
 __host__ __device__ constexpr size_t pareto_smem_bytes(int d, int n_words) {
   return sizeof(unsigned long long) * kBlock      // sort keys
-         + 2 * sizeof(float) * d * kBlock         // objectives, lane + sorted
+         + sizeof(float) * d * kBlock             // sorted rows' objectives
          + sizeof(float) * kCarryFront * d        // carried points
-         + 2 * kBlock                             // feasible + front flags
+         + kBlock                                 // feasible / front flags
+         + sizeof(unsigned short) * kBlock        // listed dominator rows
          + sizeof(int) * n_words;                 // parameter block
+}
+
+// Where a frontier block's lanes come from: a (5, g) config grid with a
+// mask, or the decoded span of a meta row.
+struct LaneSource {
+  const float* cfg;
+  const float* mask;
+  int g;
+  const float* axes;
+  int max_radix;
+  const int* meta;
+  Decoder dec;
+  int lane0;  // the block's first index (launch-local or global)
+};
+
+// Price lane `lane` of the block for workload w; true when it is feasible,
+// with its four metrics.
+template <bool kDecoded>
+__device__ __forceinline__ bool price_lane(const LaneSource& src,
+                                           const int* sp, int w,
+                                           const float* __restrict__ cons,
+                                           int lane, float& area,
+                                           float& power, float& energy,
+                                           float& latency) {
+  bool valid;
+  Cfg x{1.0f, 1.0f, 1.0f, 1.0f, 1.0f};
+  if (kDecoded) {
+    x = decode_lane(src.axes, src.max_radix, src.meta, src.dec,
+                    src.lane0 + lane, valid);
+  } else {
+    const int i = src.lane0 + lane;
+    valid = i < src.g && src.mask[i] > 0.0f;
+    if (valid) {
+      x = Cfg{src.cfg[i], src.cfg[src.g + i], src.cfg[2 * src.g + i],
+              src.cfg[3 * src.g + i], src.cfg[4 * src.g + i]};
+    }
+  }
+  if (!valid) return false;
+  hw_metrics(sp, w, x, area, power);
+  if (!(area < cons[4 * w + 0] && power < cons[4 * w + 1])) return false;
+  wl_metrics(sp, w, x, power, energy, latency);
+  return energy < cons[4 * w + 2] && latency < cons[4 * w + 3];
+}
+
+// Append this warp's flagged lanes' keys to keys[s_n...]; one shared
+// atomic per warp.
+__device__ __forceinline__ void append_keys(unsigned long long* keys,
+                                            int* s_n, bool take,
+                                            unsigned long long key) {
+  const unsigned full = 0xffffffffu;
+  const int wl = threadIdx.x & 31;
+  const unsigned bal = __ballot_sync(full, take);
+  int slot = 0;
+  if (wl == 0 && bal != 0u) slot = atomicAdd(s_n, __popc(bal));
+  slot = __shfl_sync(full, slot, 0);
+  if (take) keys[slot + __popc(bal & ((1u << wl) - 1u))] = key;
+}
+
+// Ascending sort of keys[0, n) (n <= kBlock) in place.
+__device__ __forceinline__ void sort_keys(unsigned long long* keys, int n) {
+  const int tid = threadIdx.x;
+  if (n <= 32) {  // one warp, in registers
+    if (tid < 32) {
+      unsigned long long key = tid < n ? keys[tid] : ~0ull;
+      for (int k = 2; k <= 32; k <<= 1) {
+        for (int j = k >> 1; j > 0; j >>= 1) {
+          const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, j);
+          const bool keep_min = ((tid & j) == 0) == ((tid & k) == 0);
+          key = keep_min ? (other < key ? other : key)
+                         : (other > key ? other : key);
+        }
+      }
+      if (tid < n) keys[tid] = key;
+    }
+    __syncthreads();
+    return;
+  }
+  int n2 = 64;
+  while (n2 < n) n2 <<= 1;
+  for (int i = n + tid; i < n2; i += kThreads) keys[i] = ~0ull;
+  __syncthreads();
+  for (int k = 2; k <= n2; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int p = tid; p < n2 / 2; p += kThreads) {
+        const int i = 2 * p - (p & (j - 1));  // bit j of i is clear
+        const unsigned long long a = keys[i];
+        const unsigned long long c = keys[i + j];
+        if ((a > c) == ((i & k) == 0)) {
+          keys[i] = c;
+          keys[i + j] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
 }
 
 template <bool kDecoded>
 __device__ __forceinline__ void pareto_block(
-    const float* __restrict__ cfg, const float* __restrict__ mask, int g,
-    const float* __restrict__ axes, int max_radix,
-    const int* __restrict__ meta, int r_t, int r_c, int r_v, int r_h,
-    int r_l, const float* __restrict__ cons, const float* __restrict__ carry,
-    int d, int codes, int has_carry, const int* __restrict__ params,
-    int n_words, float* __restrict__ out, int n_blocks) {
+    const LaneSource& src, const float* __restrict__ cons,
+    const float* __restrict__ carry, int d, int codes, int has_carry,
+    const int* __restrict__ params, int n_words, float* __restrict__ out,
+    int n_blocks) {
   extern __shared__ unsigned long long smem[];
   unsigned long long* keys = smem;
-  float* lobj = reinterpret_cast<float*>(keys + kBlock);
-  float* sobj = lobj + d * kBlock;
+  float* sobj = reinterpret_cast<float*>(keys + kBlock);
   float* cpts = sobj + d * kBlock;
-  unsigned char* okf = reinterpret_cast<unsigned char*>(cpts + kCarryFront * d);
-  unsigned char* frontf = okf + kBlock;
-  int* sp = reinterpret_cast<int*>(frontf + kBlock);
+  unsigned char* frontf =
+      reinterpret_cast<unsigned char*>(cpts + kCarryFront * d);
+  unsigned short* flist = reinterpret_cast<unsigned short*>(frontf + kBlock);
+  int* sp = reinterpret_cast<int*>(flist + kBlock);
   __shared__ int s_warp[kThreads / 32];
-  load_params(params, n_words, sp);
+  __shared__ int s_n;
+  __shared__ int s_nf;
+  __shared__ unsigned char s_bat[kBatch];
   const int tid = threadIdx.x;
+  const int wl = tid & 31;
+  const int wp = tid >> 5;
+  const unsigned full = 0xffffffffu;
+  if (tid == 0) s_n = 0;
+  load_params(params, n_words, sp);
   const int b = blockIdx.x;
-  // The block's first index: launch-local (grid operand) or global
-  // (decoded), as the Pallas kernels' float32 `base`.
-  const int lane0 = kDecoded ? meta[0] + b * kBlock : b * kBlock;
-  const float base = static_cast<float>(lane0);
+  const float base = static_cast<float>(src.lane0);
+  const unsigned long long inf_key =
+      static_cast<unsigned long long>(sort_key(INFINITY)) << 32;
   for (int w = 0; w < sp[0]; ++w) {
     float* o = out + static_cast<size_t>(kParetoRows) * w * n_blocks + b;
-    // 1. Price the lanes.
-    int n_ok = 0;
+    // 1. Price the lanes; the feasible ones' keys to compact storage.
+    bool odd = false;  // a feasible lane with a non-finite objective 0
     for (int r = 0; r < kLanesPerThread; ++r) {
       const int lane = r * kThreads + tid;
-      bool valid;
-      Cfg x{1.0f, 1.0f, 1.0f, 1.0f, 1.0f};
-      if (kDecoded) {
-        x = decode_lane(axes, max_radix, meta, r_t, r_c, r_v, r_h, r_l,
-                        lane0 + lane, valid);
-      } else {
-        const int i = lane0 + lane;
-        valid = i < g && mask[i] > 0.0f;
-        if (valid) {
-          x = Cfg{cfg[i], cfg[g + i], cfg[2 * g + i], cfg[3 * g + i],
-                  cfg[4 * g + i]};
-        }
-      }
-      bool ok = false;
-      float area = 0.0f, power = 0.0f, energy = 0.0f, latency = 0.0f;
-      if (valid) {
-        hw_metrics(sp, w, x, area, power);
-        if (area < cons[4 * w + 0] && power < cons[4 * w + 1]) {
-          wl_metrics(sp, w, x, power, energy, latency);
-          ok = energy < cons[4 * w + 2] && latency < cons[4 * w + 3];
-        }
-      }
-      for (int k = 0; k < d; ++k) {
-        lobj[k * kBlock + lane] =
-            ok ? pick_metric((codes >> (3 * k)) & 7, area, power, energy,
-                             latency)
-               : INFINITY;
-      }
-      okf[lane] = ok ? 1 : 0;
-      n_ok += __syncthreads_count(ok);
+      float area, power, energy, latency;
+      const bool ok = price_lane<kDecoded>(src, sp, w, cons, lane, area,
+                                           power, energy, latency);
+      const float o0 =
+          ok ? pick_metric(codes & 7, area, power, energy, latency) : 0.0f;
+      frontf[lane] = ok ? 1 : 0;
+      odd = odd || (ok && !isfinite(o0));
+      append_keys(keys, &s_n, ok,
+                  (static_cast<unsigned long long>(sort_key(o0)) << 32)
+                      | static_cast<unsigned>(lane));
     }
+    const bool all_lanes = __syncthreads_or(odd) != 0;
+#ifdef DSE_STAGE_PRICE_ONLY
+    // Timing build of tools/stage_dse.py (outputs wrong by design): every
+    // block takes the empty exit, so only the pricing remains.
+    const int n_ok = 0 * s_n;
+#else
+    const int n_ok = s_n;
+#endif
     if (n_ok == 0) {  // nothing feasible: counts 0, indices -1
       if (tid < kParetoRows) o[tid * n_blocks] = tid < 2 ? 0.0f : -1.0f;
-      continue;
-    }
-    // 2. Stable sort of the lanes by objective 0.
-    for (int r = 0; r < kLanesPerThread; ++r) {
-      const int lane = r * kThreads + tid;
-      keys[lane] = (static_cast<unsigned long long>(sort_key(lobj[lane]))
-                    << 32) | static_cast<unsigned>(lane);
-    }
-    __syncthreads();
-    for (int k = 2; k <= kBlock; k <<= 1) {
-      for (int j = k >> 1; j > 0; j >>= 1) {
-        for (int i = tid; i < kBlock; i += kThreads) {
-          const int ixj = i ^ j;
-          if (ixj > i) {
-            const unsigned long long a = keys[i];
-            const unsigned long long c = keys[ixj];
-            if ((a > c) == ((i & k) == 0)) {
-              keys[i] = c;
-              keys[ixj] = a;
+    } else {
+      int n_rows = n_ok;
+      if (all_lanes) {  // the infeasible lanes join as +inf rows
+        __syncthreads();  // every thread has read n_ok
+        for (int r = 0; r < kLanesPerThread; ++r) {
+          const int lane = r * kThreads + tid;
+          append_keys(keys, &s_n, frontf[lane] == 0,
+                      inf_key | static_cast<unsigned>(lane));
+        }
+        __syncthreads();
+        n_rows = kBlock;
+      }
+      // 2. Stable sort of the rows by objective 0.
+      sort_keys(keys, n_rows);
+      // 3. Objectives in sorted order; the carried points of workload w.
+      for (int j = tid; j < n_rows; j += kThreads) {
+        const int lane = static_cast<int>(keys[j] & 0xffffffffu);
+        float area, power, energy, latency;
+        const bool ok = price_lane<kDecoded>(src, sp, w, cons, lane, area,
+                                             power, energy, latency);
+        for (int k = 0; k < d; ++k) {
+          sobj[k * kBlock + j] =
+              ok ? pick_metric((codes >> (3 * k)) & 7, area, power, energy,
+                               latency)
+                 : INFINITY;
+        }
+      }
+      if (has_carry) {
+        const float* cw = carry + static_cast<size_t>(w) * kCarryFront * d;
+        for (int i = tid; i < kCarryFront * d; i += kThreads) cpts[i] = cw[i];
+      }
+      __syncthreads();
+      // 4. Dominance, one warp per sorted column, kBatch columns at a time;
+      // the warp's lanes stride the column's dominator candidates and
+      // __any_sync stops it at the first dominator. The candidates are the
+      // earlier rows of its batch and the listed rows of the earlier
+      // batches: those no earlier row dominates (a row that one dominates
+      // dominates nothing the other does not, by transitivity) and that
+      // differ from their sorted predecessor on some objective (an equal
+      // row adds nothing). Then the carried points.
+#ifndef DSE_STAGE_NO_DOMINANCE
+      int nf = 0;  // listed rows, the same in every thread
+      for (int j0 = 0; j0 < n_rows; j0 += kBatch) {
+        const int j1 = min(j0 + kBatch, n_rows);
+        for (int j = j0 + wp; j < j1; j += kThreads / 32) {
+          const int lane = static_cast<int>(keys[j] & 0xffffffffu);
+          const bool ok = frontf[lane] != 0;
+          bool dominated = false;
+          bool front = ok;
+          if (ok) {
+            float x[kMaxObjectives];
+#pragma unroll
+            for (int k = 0; k < kMaxObjectives; ++k) {
+              x[k] = k < d ? sobj[k * kBlock + j] : 0.0f;
             }
+            if (isfinite(sobj[j & ~(kDomChunk - 1)])) {
+              const int n_cand = nf + (j - j0);
+              for (int t0 = 0; t0 < n_cand; t0 += 32) {
+                const int t = t0 + wl;
+                const int i = t < nf ? flist[t] : j0 + (t - nf);
+                const bool dom =
+                    t < n_cand && row_dominates(sobj, kBlock, 1, i, x, d);
+                if (__any_sync(full, dom)) {
+                  dominated = true;
+                  break;
+                }
+              }
+            }
+            front = !dominated;
+            if (front && has_carry) {
+              for (int c0 = 0; c0 < kCarryFront; c0 += 32) {
+                const bool dom = row_dominates(cpts, 1, d, c0 + wl, x, d);
+                if (__any_sync(full, dom)) {
+                  front = false;
+                  break;
+                }
+              }
+            }
+          }
+          __syncwarp();  // every lane read frontf[lane] before lane 0 writes
+          if (wl == 0) {
+            frontf[lane] = front ? 1 : 0;
+            bool listed = ok && !dominated;
+            if (listed && j > 0) {
+              bool same = true;
+              for (int k = 0; k < d; ++k) {
+                same = same && sobj[k * kBlock + j] == sobj[k * kBlock + j - 1];
+              }
+              listed = !same;
+            }
+            s_bat[j - j0] = listed ? 1 : 0;
           }
         }
         __syncthreads();
-      }
-    }
-    // 3. Objectives in sorted order; the carried points of workload w.
-    for (int p = tid; p < kBlock; p += kThreads) {
-      const int lane = static_cast<int>(keys[p] & 0xffffffffu);
-      for (int k = 0; k < d; ++k) sobj[k * kBlock + p] = lobj[k * kBlock + lane];
-    }
-    if (has_carry) {
-      const float* cw = carry + static_cast<size_t>(w) * kCarryFront * d;
-      for (int i = tid; i < kCarryFront * d; i += kThreads) cpts[i] = cw[i];
-    }
-    __syncthreads();
-    // 4. Dominance: sorted column j against the rows before it, then the
-    // carried points.
-    for (int r = 0; r < kLanesPerThread; ++r) {
-      const int j = r * kThreads + tid;
-      const int lane = static_cast<int>(keys[j] & 0xffffffffu);
-      bool front = okf[lane] != 0;
-      if (front) {
-        float x[kMaxObjectives];
-#pragma unroll
-        for (int k = 0; k < kMaxObjectives; ++k) {
-          x[k] = k < d ? sobj[k * kBlock + j] : 0.0f;
-        }
-        if (isfinite(sobj[j & ~(kDomChunk - 1)])) {
-          for (int i = 0; i < j; ++i) {
-            if (row_dominates(sobj, kBlock, 1, i, x, d)) {
-              front = false;
-              break;
+        if (wp == 0) {  // list the batch's candidates
+          for (int c = 0; c < kBatch; c += 32) {
+            const bool take = j0 + c + wl < j1 && s_bat[c + wl] != 0;
+            const unsigned bal = __ballot_sync(full, take);
+            if (take) {
+              flist[nf + __popc(bal & ((1u << wl) - 1u))] =
+                  static_cast<unsigned short>(j0 + c + wl);
             }
+            nf += __popc(bal);
           }
+          if (wl == 0) s_nf = nf;
         }
-        if (front && has_carry) {
-          for (int c = 0; c < kCarryFront; ++c) {
-            if (row_dominates(cpts, 1, d, c, x, d)) {
-              front = false;
-              break;
-            }
-          }
-        }
+        __syncthreads();
+        nf = s_nf;
       }
-      frontf[lane] = front ? 1 : 0;
-    }
-    __syncthreads();
-    // 5. Compaction: each thread owns eight consecutive lanes; an
-    // exclusive prefix sum of their front counts gives the output rows.
-    const int first = tid * kLanesPerThread;
-    int cnt = 0;
-    for (int q = 0; q < kLanesPerThread; ++q) cnt += frontf[first + q];
-    const unsigned full = 0xffffffffu;
-    const int wl = tid & 31;
-    const int wp = tid >> 5;
-    int incl = cnt;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int v = __shfl_up_sync(full, incl, off);
-      if (wl >= off) incl += v;
-    }
-    if (wl == 31) s_warp[wp] = incl;
-    __syncthreads();
-    if (wp == 0) {
-      int v = wl < kThreads / 32 ? s_warp[wl] : 0;
+#else
+      // Timing build of tools/stage_dse.py (outputs wrong by design): no
+      // dominance test, every feasible row is front.
+      __syncthreads();
+#endif
+      // 5. Compaction: each thread owns eight consecutive lanes; an
+      // exclusive prefix sum of their front counts gives the output rows.
+      const int first = tid * kLanesPerThread;
+      int cnt = 0;
+      for (int q = 0; q < kLanesPerThread; ++q) cnt += frontf[first + q];
+      int incl = cnt;
       for (int off = 1; off < 32; off <<= 1) {
-        const int u = __shfl_up_sync(full, v, off);
-        if (wl >= off) v += u;
+        const int v = __shfl_up_sync(full, incl, off);
+        if (wl >= off) incl += v;
       }
-      if (wl < kThreads / 32) s_warp[wl] = v;
-    }
-    __syncthreads();
-    const int total = s_warp[kThreads / 32 - 1];
-    int pos = incl - cnt + (wp > 0 ? s_warp[wp - 1] : 0);
-    for (int q = 0; q < kLanesPerThread; ++q) {
-      if (frontf[first + q]) {
-        if (pos < kMaxFront) {
-          o[(2 + pos) * n_blocks] = base + static_cast<float>(first + q);
+      if (wl == 31) s_warp[wp] = incl;
+      __syncthreads();
+      if (wp == 0) {
+        int v = wl < kThreads / 32 ? s_warp[wl] : 0;
+        for (int off = 1; off < 32; off <<= 1) {
+          const int u = __shfl_up_sync(full, v, off);
+          if (wl >= off) v += u;
         }
-        ++pos;
+        if (wl < kThreads / 32) s_warp[wl] = v;
+      }
+      __syncthreads();
+      const int total = s_warp[kThreads / 32 - 1];
+      int pos = incl - cnt + (wp > 0 ? s_warp[wp - 1] : 0);
+      for (int q = 0; q < kLanesPerThread; ++q) {
+        if (frontf[first + q]) {
+          if (pos < kMaxFront) {
+            o[(2 + pos) * n_blocks] = base + static_cast<float>(first + q);
+          }
+          ++pos;
+        }
+      }
+      if (tid >= total && tid < kMaxFront) o[(2 + tid) * n_blocks] = -1.0f;
+      if (tid == 0) {
+        o[0] = static_cast<float>(total);
+        o[n_blocks] = static_cast<float>(n_ok);
       }
     }
-    if (tid >= total && tid < kMaxFront) o[(2 + tid) * n_blocks] = -1.0f;
-    if (tid == 0) {
-      o[0] = static_cast<float>(total);
-      o[n_blocks] = static_cast<float>(n_ok);
-    }
+    // Every thread has read s_n (n_ok) before this point: the feasible
+    // path passes barriers after the read, and on the empty path the
+    // count is 0 either way.
+    if (tid == 0) s_n = 0;
     __syncthreads();  // shared memory is reused for the next workload
   }
 }
@@ -623,20 +847,22 @@ __global__ void __launch_bounds__(kThreads) dse_pareto_padded_kernel(
     const float* __restrict__ cons, const float* __restrict__ carry, int d,
     int codes, int has_carry, const int* __restrict__ params, int n_words,
     float* __restrict__ out, int n_blocks) {
-  pareto_block<false>(cfg, mask, g, nullptr, 0, nullptr, 1, 1, 1, 1, 1,
-                      cons, carry, d, codes, has_carry, params, n_words, out,
-                      n_blocks);
+  const LaneSource src{cfg, mask, g, nullptr, 0, nullptr, Decoder{},
+                       static_cast<int>(blockIdx.x) * kBlock};
+  pareto_block<false>(src, cons, carry, d, codes, has_carry, params, n_words,
+                      out, n_blocks);
 }
 
 __global__ void __launch_bounds__(kThreads) dse_pareto_decoded_kernel(
     const float* __restrict__ axes, int max_radix,
-    const int* __restrict__ meta, int r_t, int r_c, int r_v, int r_h,
-    int r_l, const float* __restrict__ cons, const float* __restrict__ carry,
-    int d, int codes, int has_carry, const int* __restrict__ params,
-    int n_words, float* __restrict__ out, int n_blocks) {
-  pareto_block<true>(nullptr, nullptr, 0, axes, max_radix, meta, r_t, r_c,
-                     r_v, r_h, r_l, cons, carry, d, codes, has_carry, params,
-                     n_words, out, n_blocks);
+    const int* __restrict__ meta, Decoder dec,
+    const float* __restrict__ cons, const float* __restrict__ carry, int d,
+    int codes, int has_carry, const int* __restrict__ params, int n_words,
+    float* __restrict__ out, int n_blocks) {
+  const LaneSource src{nullptr, nullptr, 0, axes, max_radix, meta, dec,
+                       meta[0] + static_cast<int>(blockIdx.x) * kBlock};
+  pareto_block<true>(src, cons, carry, d, codes, has_carry, params, n_words,
+                     out, n_blocks);
 }
 
 }  // namespace
@@ -672,8 +898,8 @@ int dse_search_decoded_launch(const float* axes, int max_radix,
                               void* stream) {
   dse_search_decoded_kernel<<<n_blocks, kThreads, n_words * sizeof(int),
                               static_cast<cudaStream_t>(stream)>>>(
-      axes, max_radix, meta, r_t, r_c, r_v, r_h, r_l, cons, carry, params,
-      n_words, out, n_blocks);
+      axes, max_radix, meta, make_decoder(r_c, r_v, r_h, r_l), cons, carry,
+      params, n_words, out, n_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -683,7 +909,7 @@ int dse_decode_rows_launch(const float* axes, int max_radix, const int* meta,
   int width = n_blocks * kBlock;
   dse_decode_rows_kernel<<<(width + kThreads - 1) / kThreads, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      axes, max_radix, meta, r_t, r_c, r_v, r_h, r_l, out, width);
+      axes, max_radix, meta, make_decoder(r_c, r_v, r_h, r_l), out, width);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -717,9 +943,15 @@ int dse_pareto_decoded_launch(const float* axes, int max_radix,
   if (err != cudaSuccess) return static_cast<int>(err);
   dse_pareto_decoded_kernel<<<n_blocks, kThreads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
-      axes, max_radix, meta, r_t, r_c, r_v, r_h, r_l, cons, carry, d, codes,
-      has_carry, params, n_words, out, n_blocks);
+      axes, max_radix, meta, make_decoder(r_c, r_v, r_h, r_l), cons, carry,
+      d, codes, has_carry, params, n_words, out, n_blocks);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory (bytes) of a frontier block at d objectives and
+// n_words parameter words.
+int dse_pareto_smem_bytes(int d, int n_words) {
+  return static_cast<int>(pareto_smem_bytes(d, n_words));
 }
 
 }  // extern "C"

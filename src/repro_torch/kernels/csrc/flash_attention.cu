@@ -4,7 +4,7 @@
 //   flash_attention_wgmma_kernel <- src/repro/kernels/flash_attention.py
 //                                   flash_attention_bhsd (_flash_kernel)
 //
-// It computes what csrc/lm_kernels.cu's flash_attention_kernel computes
+// It computes what csrc/flash_attention_tf32.cu's kernel computes
 // (the reference's online softmax: f32 running max m, correction and
 // denominator l, s = (q . k) * scale, masked scores NEG_INF = -1e30, keys
 // past the end -inf, causal key tiles past the query tile skipped,
@@ -12,7 +12,7 @@
 // GQA reads KV head bh / group. One rounding differs: P is rounded to bf16
 // before P . V (the tensor cores take bf16 operands), about 2^-9 relative
 // on each weight, inside the reference's bf16 tolerance of 2e-2. f32 inputs
-// and other head dims stay on the CUDA-core kernel.
+// and other head dims run the TF32 kernel.
 //
 // What bounds it on this card: 4 * BH * S^2 * D operations (halved when
 // causal) against (2 BH + 2 BH / group) * S * D * 2 bytes; at qwen2.5-3b's

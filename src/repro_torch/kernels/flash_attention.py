@@ -5,14 +5,21 @@ PyTorch version.
 kernel of the same name: online-softmax attention on (BH, S, D) tensors,
 f32 running max and denominator, scores `(q . k) * f32(D**-0.5)`, masked
 scores -1e30, causal key blocks past the query block skipped, and
-`acc / max(l, 1e-30)` in q's dtype. Two CUDA kernels compute it, chosen
-by dtype and head dim (`tensor_core_path`):
+`acc / max(l, 1e-30)` in q's dtype. Two CUDA kernels compute it, both on
+the tensor cores, chosen by dtype and head dim (`wgmma_path`):
 
   * bf16 with D % 8 == 0 (every config's head dim): `csrc/flash_attention.cu`,
-    scores and P . V on the tensor cores (wgmma), K/V streamed by TMA in
-    tiles of 128 keys (64 past D = 128); it rounds P to bf16 before P . V;
-  * f32, and bf16 with another D: `csrc/lm_kernels.cu`'s CUDA-core kernel
-    (TF32 products would miss the f32 tolerance).
+    scores and P . V on wgmma, K/V streamed by TMA in tiles of 128 keys (64
+    past D = 128); it rounds P to bf16 before P . V;
+  * f32, and bf16 with another D: `csrc/flash_attention_tf32.cu`, mma.sync
+    in TF32. One TF32 pass would miss the f32 tolerance by about 100x, so
+    f32 products take three (3xTF32: x = hi + lo, a_lo b_hi + a_hi b_lo +
+    a_hi b_hi); bf16 operands are exact in TF32 and take one. Key tiles
+    are 32 keys. When the grid of 64-row query blocks is smaller than the
+    CTAs the card holds at once, the keys are split across CTAs
+    (`tf32_splits`) and a second kernel of the same call
+    merges the partial (acc, m, l) from a scratch buffer the wrapper
+    allocates.
 
 Both take any D <= MAX_HEAD_DIM and any S (they mask their own ragged
 tiles); K/V may hold fewer heads than Q (`group` query heads per KV head,
@@ -40,16 +47,33 @@ from .ref import flash_attention_ref
 
 MAX_HEAD_DIM = 256
 
-#: Launch counts of the two kernels (the tensor-core one, then the CUDA-core
-#: one); the wrapper adds one where it launches a kernel.
-LAUNCHES = {"flash_attention_bhsd": 0, "flash_attention_bhsd_cuda_cores": 0}
+#: Query rows of one block of the TF32 kernel (four warps of 16 rows).
+TF32_BLOCK_Q = 64
+#: Keys of one K/V tile of the TF32 kernel.
+TF32_BLOCK_K = 32
+#: Launch counts of the two kernels (the wgmma one, then the TF32 one); the
+#: wrapper adds one where it launches a kernel (a TF32 call that merges
+#: split keys launches its merge kernel inside the same count).
+LAUNCHES = {"flash_attention_bhsd": 0, "flash_attention_bhsd_tf32": 0}
 
 
-def tensor_core_path(dtype: torch.dtype, d: int) -> bool:
-    """Whether (BH, S, d) operands of `dtype` run the tensor-core kernel:
-    bf16 (its wgmma operand type) with d % 8 == 0 (TMA's 16-byte row
-    stride); everything else runs the CUDA-core kernel."""
+def wgmma_path(dtype: torch.dtype, d: int) -> bool:
+    """Whether (BH, S, d) operands of `dtype` run the wgmma kernel: bf16
+    (its wgmma operand type) with d % 8 == 0 (TMA's 16-byte row stride);
+    everything else runs the TF32 mma.sync kernel."""
     return dtype == torch.bfloat16 and d % 8 == 0 and 0 < d <= MAX_HEAD_DIM
+
+
+def tf32_splits(bh: int, sq: int, skv: int, d: int, n_sm: int) -> int:
+    """Key splits of a TF32 call on a card of `n_sm` SMs: as many as keep
+    the (query block, head, split) grid within the CTAs the card holds at
+    once (two an SM up to D = 128, whose blocks take 101 KB of shared
+    memory; one past it, up to 200 KB), at most one per key tile and at
+    most 64."""
+    blocks = bh * -(-sq // TF32_BLOCK_Q)
+    tiles = -(-skv // TF32_BLOCK_K)
+    resident = (2 if d <= 128 else 1) * n_sm
+    return max(1, min(tiles, resident // max(blocks, 1), 64))
 
 
 def flash_attention_bhsd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -96,14 +120,21 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ctypes.c_int(sq), ctypes.c_int(k.shape[1]), ctypes.c_int(d),
             ctypes.c_int(group), ctypes.c_int(int(causal)),
             ctypes.c_float(float(np.float32(d ** -0.5)))]
-    if tensor_core_path(q.dtype, d):
+    if wgmma_path(q.dtype, d):
         name = "flash_attention_bhsd"
         rc = load_library("flash_attention").flash_attention_wgmma_launch(
             *args, _stream())
     else:
-        name = "flash_attention_bhsd_cuda_cores"
-        rc = load_library("lm_kernels").flash_attention_launch(
-            *args, ctypes.c_int(int(q.dtype == torch.bfloat16)), _stream())
+        name = "flash_attention_bhsd_tf32"
+        n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits = tf32_splits(bh, sq, k.shape[1], d, n_sm)
+        part = (torch.empty(splits * bh * sq * (-(-d // 8) * 8 + 2),
+                            dtype=torch.float32, device=q.device)
+                if splits > 1 else None)
+        rc = load_library("flash_attention_tf32").flash_attention_tf32_launch(
+            *args, ctypes.c_int(int(q.dtype == torch.bfloat16)),
+            ctypes.c_int(splits),
+            None if part is None else _ptr(part), _stream())
     _check(rc, name)
     LAUNCHES[name] += 1
     return out

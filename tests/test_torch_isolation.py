@@ -111,13 +111,15 @@ def test_kernel_build_keeps_the_float32_contract():
 def test_lm_kernels_build_under_the_same_flags():
     # The exact sources share NVCC_FLAGS (one library each, content-
     # addressed): ddot_gemm's epilogue relies on -fmad=false as the DSE
-    # kernels do. The bf16 attention source, held to a tolerance, builds
+    # kernels do. The two attention sources, held to a tolerance, build
     # with the same flags less -fmad=false, and never with fast math.
-    assert _build.SOURCES == ("dse_eval", "lm_kernels", "flash_attention")
+    assert _build.SOURCES == ("dse_eval", "lm_kernels", "flash_attention",
+                              "flash_attention_tf32")
     assert _build.FLAGS["dse_eval"] == _build.FLAGS["lm_kernels"] \
         == _build.NVCC_FLAGS
-    assert _build.FLAGS["flash_attention"] == tuple(
-        f for f in _build.NVCC_FLAGS if f != "-fmad=false")
+    for name in ("flash_attention", "flash_attention_tf32"):
+        assert _build.FLAGS[name] == tuple(
+            f for f in _build.NVCC_FLAGS if f != "-fmad=false")
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
         path = _build.library_path(name)
@@ -126,7 +128,8 @@ def test_lm_kernels_build_under_the_same_flags():
         assert "arch=compute_90a,code=sm_90a" in _build.FLAGS[name]
         assert not any("fast_math" in f or "prec-div=false" in f
                        for f in _build.FLAGS[name])
-    assert set(_build._SIGNATURES["lm_kernels"]) == {
-        "ddot_gemm_launch", "flash_attention_launch"}
+    assert set(_build._SIGNATURES["lm_kernels"]) == {"ddot_gemm_launch"}
     assert set(_build._SIGNATURES["flash_attention"]) == {
         "flash_attention_wgmma_launch"}
+    assert set(_build._SIGNATURES["flash_attention_tf32"]) == {
+        "flash_attention_tf32_launch", "flash_attention_tf32_smem_bytes"}

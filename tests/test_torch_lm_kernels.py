@@ -323,16 +323,16 @@ def test_bf16_p_stays_inside_the_reference_tolerance(d, group, causal):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_path_follows_dtype_and_head_dim(d, dtype):
     want = dtype == "bfloat16" and d % 8 == 0
-    assert pfa.tensor_core_path(DTYPES[dtype][1], d) is want
+    assert pfa.wgmma_path(DTYPES[dtype][1], d) is want
     assert set(pfa.LAUNCHES) == {"flash_attention_bhsd",
-                                "flash_attention_bhsd_cuda_cores"}
+                                "flash_attention_bhsd_tf32"}
 
 
 def test_every_configs_head_dim_takes_the_tensor_core_path():
     from repro_torch.configs import ARCHS
     dims = {c.resolved_head_dim for c in ARCHS.values()}
     assert dims >= {64, 80, 112, 128, 256}
-    assert all(pfa.tensor_core_path(torch.bfloat16, d) for d in dims)
+    assert all(pfa.wgmma_path(torch.bfloat16, d) for d in dims)
 
 
 @pytest.mark.parametrize("m,k,n", SHAPES)
@@ -357,3 +357,166 @@ def test_ddot_gemm_takes_b_in_both_layouts(m, k, n, layout):
     assert np.array_equal(got.numpy(), want)
     assert np.array_equal(ops.ddot_matmul(torch.from_numpy(a), tb).numpy(),
                           want)
+
+
+# ------------------------------------------ the TF32 kernel's design ---
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on the float bits: round to nearest, ties away from
+    zero, keeping 10 mantissa bits (the low 13 bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_mm(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b on TF32 operands: one pass (hi . hi), or 3xTF32 with
+    x = hi + lo, lo = tf32(x - hi), summing a_lo b_hi + a_hi b_lo + a_hi b_hi
+    small terms first, as `csrc/flash_attention_tf32.cu`'s mma3."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _tf32_attention(q, k, v, *, causal, group, passes=3, splits=1):
+    """Plain emulation of the TF32 attention kernel's arithmetic
+    (`csrc/flash_attention_tf32.cu`): 64-row query blocks, key tiles of
+    32 keys split into `splits` contiguous runs per block
+    (the causal tile limit first), TF32 products in `passes` passes, f32
+    online softmax per run from m = -1e30, the runs merged by
+    l = sum l_s e^(m_s - m), acc likewise, out = acc / max(l, 1e-30).
+    q, k, v are float32 tensors."""
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    k = k.repeat_interleave(group, dim=0)
+    v = v.repeat_interleave(group, dim=0)
+    scale = torch.tensor(np.float32(d ** -0.5))
+    bq, bk = pfa.TF32_BLOCK_Q, pfa.TF32_BLOCK_K
+    out = torch.empty_like(q)
+    for q0 in range(0, sq, bq):
+        qt = q[:, q0:q0 + bq]
+        rows = q0 + torch.arange(qt.shape[1])[:, None]
+        n_tiles = -(-skv // bk)
+        if causal:
+            n_tiles = min(n_tiles, (q0 + bq - 1) // bk + 1)
+        per = -(-n_tiles // splits)
+        parts = []
+        for s in range(splits):
+            t0, t1 = s * per, min(n_tiles, (s + 1) * per)
+            if t0 >= t1:
+                continue
+            m = torch.full((bh, qt.shape[1], 1), ref.NEG_INF)
+            den = torch.zeros((bh, qt.shape[1], 1))
+            acc = torch.zeros((bh, qt.shape[1], d))
+            for t in range(t0, t1):
+                kt, vt = k[:, t * bk:(t + 1) * bk], v[:, t * bk:(t + 1) * bk]
+                sc = _tf32_mm(qt, kt.transpose(1, 2), passes) * scale
+                if causal:
+                    keys = t * bk + torch.arange(kt.shape[1])[None, :]
+                    sc = torch.where(keys <= rows, sc,
+                                     torch.full_like(sc, ref.NEG_INF))
+                m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                p = torch.exp(sc - m_new)
+                corr = torch.exp(m - m_new)
+                den = den * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + _tf32_mm(p, vt, passes)
+                m = m_new
+            parts.append((m, den, acc))
+        m = torch.stack([m_ for m_, _, _ in parts]).amax(0)
+        den = sum(d_ * torch.exp(m_ - m) for m_, d_, _ in parts)
+        acc = sum(a_ * torch.exp(m_ - m) for m_, _, a_ in parts)
+        out[:, q0:q0 + bq] = acc / torch.clamp(den, min=1e-30)
+    return out
+
+
+def _f32_case(bh, s, d, group, seeds=(31, 32, 33)):
+    return [_both(_normal(shape, seed), "float32")
+            for shape, seed in (((bh, s, d), seeds[0]),
+                                ((bh // group, s, d), seeds[1]),
+                                ((bh // group, s, d), seeds[2]))]
+
+
+def test_tf32_rounding_is_cvt_rna():
+    one = 1.0 + 2.0 ** -11          # half a TF32 ulp above 1: ties away
+    below = 1.0 + 2.0 ** -11 - 2.0 ** -23
+    x = torch.tensor([one, -one, below, 3.0, 0.0], dtype=torch.float32)
+    want = [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 3.0, 0.0]
+    assert _tf32(x).tolist() == want
+    y = torch.from_numpy(_normal((1000,), 41))
+    hi = _tf32(y)
+    assert torch.all((hi.view(torch.int32) & 0x1fff) == 0)
+    assert float(((y - hi).abs() / y.abs()).max()) <= 2.0 ** -11
+
+
+@pytest.mark.parametrize("d", [80, 128, 256])
+@pytest.mark.parametrize("group", [1, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tf32x3_stays_inside_the_f32_tolerance(d, group, causal):
+    """The TF32 kernel's arithmetic (3xTF32 products, and the key splits
+    and merge it takes on a 132-SM card at this shape, or one split)
+    against the Pallas kernel in f32: within the reference's 2e-5."""
+    bh, s = 8, 256
+    (jq, tq), (jk, tk), (jv, tv) = _f32_case(bh, s, d, group)
+    want = _np(ref_flash(jq, jnp.repeat(jk, group, axis=0),
+                         jnp.repeat(jv, group, axis=0), causal=causal))
+    splits = pfa.tf32_splits(bh, s, s, d, 132)
+    assert splits > 1
+    for n in (splits, 1):
+        got = _tf32_attention(tq, tk, tv, causal=causal, group=group,
+                              splits=n)
+        np.testing.assert_allclose(_np(got), want, rtol=TOL["float32"],
+                                   atol=TOL["float32"])
+
+
+@pytest.mark.parametrize("d", [80, 128, 256])
+def test_one_tf32_pass_misses_the_f32_tolerance(d):
+    """Why the kernel splits its f32 operands: one TF32 pass (10 mantissa
+    bits per operand) misses 2e-5 on the same inputs."""
+    bh, s, group = 8, 256, 1
+    (jq, tq), (jk, tk), (jv, tv) = _f32_case(bh, s, d, group)
+    want = _np(ref_flash(jq, jk, jv, causal=True))
+    one = _np(_tf32_attention(tq, tk, tv, causal=True, group=group,
+                              passes=1))
+    three = _np(_tf32_attention(tq, tk, tv, causal=True, group=group))
+    err1 = np.abs(one - want).max()
+    err3 = np.abs(three - want).max()
+    assert err1 > 10 * TOL["float32"] and err3 < TOL["float32"] < err1
+
+
+def test_bf16_odd_head_dim_takes_one_tf32_pass():
+    """bf16 operands are exact in TF32: the kernel's one pass (P rounded to
+    TF32) at a head dim the wgmma kernel does not take, within 2e-2."""
+    bh, s, d, group = 8, 200, 36, 4
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(_normal(shape, seed), "bfloat16")
+        for shape, seed in (((bh, s, d), 34), ((bh // group, s, d), 35),
+                            ((bh // group, s, d), 36)))
+    assert not pfa.wgmma_path(torch.bfloat16, d)
+    assert torch.equal(_tf32(tq.float()), tq.float())
+    want = ref_flash(jq, jnp.repeat(jk, group, axis=0),
+                     jnp.repeat(jv, group, axis=0), causal=True, bq=40,
+                     bk=40)
+    splits = pfa.tf32_splits(bh, s, s, d, 132)
+    got = _tf32_attention(tq.float(), tk.float(), tv.float(), causal=True,
+                          group=group, passes=1, splits=splits)
+    np.testing.assert_allclose(_np(got.bfloat16()), _np(want),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("bh,sq,skv,d,n_sm,want", [
+    (4, 256, 256, 128, 132, 8),       # 16 blocks, 8 key tiles: one a tile
+    (8, 200, 200, 80, 132, 7),        # 32 blocks: 8 would fit, 7 tiles
+    (8, 200, 200, 256, 132, 4),       # past D 128 one CTA an SM: 132 // 32
+    (16, 512, 512, 128, 132, 2),      # 128 blocks, two CTAs an SM
+    (16, 512, 512, 256, 132, 1),      # one CTA an SM: one wave already
+    (1, 64, 4096, 64, 132, 64),       # one block: at most 64 splits
+    (64, 4096, 4096, 128, 132, 1),    # many waves
+    (2, 40, 40, 64, 132, 2),          # fewer key tiles than CTAs allow
+])
+def test_tf32_splits_fill_the_resident_ctas(bh, sq, skv, d, n_sm, want):
+    splits = pfa.tf32_splits(bh, sq, skv, d, n_sm)
+    blocks = bh * -(-sq // pfa.TF32_BLOCK_Q)
+    assert splits == want
+    assert 1 <= splits <= -(-skv // pfa.TF32_BLOCK_K)
+    assert splits == 1 or blocks * splits <= (2 if d <= 128 else 1) * n_sm

@@ -240,3 +240,263 @@ def test_frontier_wrappers_refuse_util_and_bad_carry():
             pk.CARRY_FRONT, pk.DOM_CHUNK) == (
         rk.MAX_FRONT, rk.PARETO_HEADER, rk.PARETO_ROWS, rk.CARRY_FRONT,
         rk.DOM_CHUNK)
+
+
+# ------------------------------------- the frontier kernels' design ---
+# numpy emulations of csrc/dse_eval.cu's division-free pricing and of the
+# compact-then-sort frontier stage, held against the reference.
+
+def _radix_magic(r):
+    """(mul, shift) of make_radix: l = ceil(log2 r), mul = ceil(2^(31 + l)
+    / r), shift = 31 + l."""
+    l = (int(r) - 1).bit_length()
+    return ((1 << (31 + l)) + int(r) - 1) // int(r), 31 + l
+
+
+def _div_radix(n, r):
+    """(n / r, n % r) of div_radix: one widening multiply and a shift."""
+    mul, shift = _radix_magic(r)
+    assert mul < 2 ** 32
+    q = ((np.asarray(n, np.int64).astype(np.uint64) * np.uint64(mul))
+         >> np.uint64(shift)).astype(np.int64)
+    return q, np.asarray(n, np.int64) - q * int(r)
+
+
+def _decode_magic(gidx, radices):
+    """decode_lane's digits (t, c, v, h, lambda), division-free."""
+    _, r_c, r_v, r_h, r_l = radices
+    i, d_l = _div_radix(gidx, r_l)
+    i, d_h = _div_radix(i, r_h)
+    i, d_v = _div_radix(i, r_v)
+    d_t, d_c = _div_radix(i, r_c)
+    return d_t, d_c, d_v, d_h, d_l
+
+
+def _reference_digits(gidx, radices):
+    """The digits `repro`'s _decode_block uses (decode_digits, int32)."""
+    from repro.core.factorized import decode_digits
+    return [np.asarray(x) for x in decode_digits(
+        jnp.asarray(gidx, jnp.int32), radices, xp=jnp)]
+
+
+DECODE_SPANS = {
+    **{case: (tuple(len(a) for a in AXES), int(meta[0]),
+              (-(-int(meta[1] - meta[0]) // pk.BLOCK) + extra) * pk.BLOCK)
+       for case, (meta, extra, _, _) in DECODED_CASES.items()},
+    "offset_24x5": ((24,) * 5, 24 ** 5 - 123_457, 200_000),
+    "full_24x5": ((24,) * 5, 0, 3888 * pk.BLOCK),
+}
+
+
+@pytest.mark.parametrize("span", sorted(DECODE_SPANS))
+def test_division_free_decode_equals_the_reference_digits(span):
+    radices, start, width = DECODE_SPANS[span]
+    gidx = start + np.arange(width, dtype=np.int64)
+    got = _decode_magic(gidx, radices)
+    want = _reference_digits(gidx, radices)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+def test_division_free_quotient_is_exact_below_2_31():
+    rng = np.random.default_rng(17)
+    n = np.concatenate([rng.integers(0, 2 ** 31, 20000),
+                        [0, 1, 2 ** 31 - 1, 2 ** 24, 2 ** 24 - 1]])
+    for r in list(range(1, 65)) + [97, 576, 1000, 4096, 65535, 2 ** 20 + 7,
+                                   2 ** 30, 2 ** 31 - 1]:
+        q, rem = _div_radix(n, r)
+        assert np.array_equal(q, n // r) and np.array_equal(rem, n % r)
+
+
+def _ceil_div_inv(a, b):
+    """ceil_div: inv = floor((2^32 - 1) / b) once per divisor, q =
+    umulhi(a, inv) (floor(a / b) or one less), one correction step.
+    Returns (ceil, the first estimate q)."""
+    a = np.asarray(a, np.int64)
+    b = np.asarray(b, np.int64)
+    inv = (2 ** 32 - 1) // b
+    est = (a * inv) >> 32          # < 2^63 for a < 2^31
+    q = np.where(a - est * b >= b, est + 1, est)
+    return q + ((a - q * b) > 0), est
+
+
+def _paper_gemm_dims():
+    from repro.core.paper_workloads import PAPER_WORKLOADS
+    dims = set()
+    for name in PAPER_WORKLOADS:
+        gemms, _ = ref_statics(load(name), REF_C)
+        for m, k, n, _ in gemms:
+            dims.update((int(m), int(k), int(n)))
+    return np.asarray(sorted(dims), np.int64)
+
+
+def test_exact_ceil_division_over_the_24x5_divisors():
+    # d_m = t * h, d_n = v, d_k = c * lambda: every divisor the 24^5
+    # space allows is a product of two axis values in 1..24.
+    divisors = np.asarray(sorted({x * y for x in range(1, 25)
+                                  for y in range(1, 25)}), np.int64)
+    dims = _paper_gemm_dims()
+    assert dims.max() < 2 ** 24
+    sweep = np.random.default_rng(23).integers(0, 2 ** 24, 4096)
+    edges = np.asarray([0, 1, 2, 2 ** 23, 2 ** 24 - 1, 2 ** 24, 2 ** 24 + 1,
+                        2 ** 30, 2 ** 31 - 1], np.int64)
+    a = np.concatenate([dims, sweep, edges])[:, None]
+    b = divisors[None, :]
+    got, est = _ceil_div_inv(a, b)
+    assert np.array_equal(got, -(-a // b))
+    # one correction step suffices: the estimate is a // b or one less
+    assert set(np.unique(a // b - est)) <= {0, 1}
+
+
+def _sort_key(x):
+    """sort_key: monotone uint32 key of float32 values."""
+    u = np.asarray(x, np.float32).view(np.uint32).copy()
+    u[(u & 0x7fffffff) == 0] = 0
+    key = np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+    return np.where((u & 0x7fffffff) > 0x7f800000, np.uint32(0xffffffff),
+                    key)
+
+
+def _compact_front(objs, ok, carry_pts=None, batch=64):
+    """(n,) front mask of one block by the kernels' compacted design: only
+    the feasible lanes become rows (every lane, infeasible ones at +inf,
+    when some feasible objective 0 is not finite), sorted by (objective-0
+    key, lane); columns in batches of `batch`, each compared (unless its
+    DOM_CHUNK tile starts at a non-finite objective 0) with the earlier
+    rows of its batch and the listed rows of earlier batches — the rows no
+    earlier row dominated, less those equal to their sorted predecessor;
+    then the carried points; the flags scatter back by lane."""
+    ok = np.asarray(ok, bool)
+    o = [np.where(ok, np.asarray(x, np.float32), np.float32(np.inf))
+         for x in objs]
+    lanes = np.arange(ok.shape[0])
+    all_lanes = bool((ok & ~np.isfinite(o[0])).any())
+    rows = lanes if all_lanes else lanes[ok]
+    keys = ((_sort_key(o[0][rows]).astype(np.uint64) << np.uint64(32))
+            | rows.astype(np.uint64))
+    rows = rows[np.argsort(keys)]
+    so = np.stack([x[rows] for x in o])
+    front = np.zeros(ok.shape[0], bool)
+    listed = []
+    for j0 in range(0, len(rows), batch):
+        new = []
+        for j in range(j0, min(j0 + batch, len(rows))):
+            lane = rows[j]
+            if not ok[lane]:
+                continue
+            x = so[:, j:j + 1]
+            dominated = False
+            if np.isfinite(so[0, j & ~(pk.DOM_CHUNK - 1)]):
+                cand = so[:, listed + list(range(j0, j))]
+                dominated = bool(np.any(np.all(cand <= x, axis=0)
+                                        & np.any(cand < x, axis=0)))
+            keep = not dominated
+            if keep and carry_pts is not None:
+                c = np.asarray(carry_pts, np.float32).T
+                keep = not np.any(np.all(c <= x, axis=0)
+                                  & np.any(c < x, axis=0))
+            front[lane] = keep
+            if not dominated and not (j > 0 and np.array_equal(
+                    so[:, j], so[:, j - 1])):
+                new.append(j)
+        listed += new
+    return front
+
+
+def _reference_front(objs, ok, carry_pts=None):
+    """`repro`'s _block_front, then its carried-front prune."""
+    o = tuple(jnp.asarray(np.asarray(x, np.float32)) for x in objs)
+    okj = jnp.asarray(ok)
+    front = np.array(rk._block_front(o, okj))
+    if carry_pts is not None:
+        front &= ~np.asarray(rk._carry_dominated(
+            jnp.asarray(carry_pts),
+            tuple(jnp.where(okj, x, jnp.inf) for x in o)))
+    return front
+
+
+def _blocks(cols, valid, port_wl, cons, objectives):
+    """Per workload, per BLOCK-lane block: (objectives, feasible) from the
+    port's plain cost model, the kernels' float32 metrics."""
+    k, per_wl = pk._statics(port_wl, C)
+    out = []
+    for w, (wl, gm) in enumerate(per_wl):
+        area, power = pk._config_metrics_hw(k, wl, *cols)
+        energy, latency = pk._config_metrics_wl(k, wl, gm, power, *cols)
+        ok = (valid & (area < cons[w, 0]) & (power < cons[w, 1])
+              & (energy < cons[w, 2]) & (latency < cons[w, 3])).numpy()
+        vals = {"area": area, "power": power, "energy": energy,
+                "latency": latency, "edp": energy * latency}
+        objs = [vals[m].numpy() for m in objectives]
+        for b in range(0, ok.shape[0], pk.BLOCK):
+            out.append((w, [x[b:b + pk.BLOCK] for x in objs],
+                        ok[b:b + pk.BLOCK]))
+    return out
+
+
+def _padded_blocks(names, cfg, mask, cons, objectives):
+    _, port_wl = _statics(names)
+    cols, m = pk._pad_cols(_t(cfg), _t(mask))
+    return _blocks(tuple(cols[i] for i in range(5)), m[0] > 0.0, port_wl,
+                   _t(cons), objectives)
+
+
+FRONT_CASES = ["decoded:" + c for c in sorted(DECODED_CASES)] + [
+    "padded:overflow", "padded:carry_d3", "padded:obj0_tie"]
+
+
+@pytest.mark.parametrize("case", FRONT_CASES)
+def test_compact_then_sort_front_equals_the_reference(case):
+    kind, name = case.split(":")
+    carry = None
+    if kind == "decoded":
+        meta, extra, objectives, has_carry = DECODED_CASES[name]
+        n_blocks = -(-int(meta[1] - meta[0]) // pk.BLOCK) + extra
+        names = ["deit-s", "bert-l"]
+        _, port_wl = _statics(names)
+        radices = tuple(len(a) for a in AXES)
+        cols, _, valid = pk._decode_block_plain(
+            radices, _t(_axes_operand()), _t(meta), n_blocks, pk.BLOCK)
+        blocks = _blocks(cols, valid, port_wl, _t(_cons(2)), objectives)
+        if has_carry:
+            carry = _carry(port_wl, objectives, 9)
+    elif name == "obj0_tie":
+        cfg = np.asarray([[1, 1, 4, 12, 2], [1, 1, 12, 4, 2]], np.float32).T
+        blocks = _padded_blocks(["deit-t"], cfg, np.ones((1, 2), np.float32),
+                                _cons(1, OPEN_BOX), D3)
+    else:
+        names, cfg, mask, cons, objectives, carry = _padded_case(name)
+        blocks = _padded_blocks(names, cfg, mask, cons, objectives)
+    n_front = 0
+    for w, objs, ok in blocks:
+        cw = (None if carry is None else
+              carry[w * pk.CARRY_FRONT:(w + 1) * pk.CARRY_FRONT])
+        got = _compact_front(objs, ok, cw)
+        assert np.array_equal(got, _reference_front(objs, ok, cw))
+        assert not (got & ~ok).any()
+        n_front += int(got.sum())
+    assert n_front > 0
+    if name == "obj0_tie":
+        assert n_front == 2      # the tied, dominated earlier lane stays
+    if name == "overflow":
+        assert n_front > pk.BLOCK    # the duplicate block's 2048, and more
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_compact_front_handles_non_finite_feasible_objective_0(seed):
+    """The fallback of the compacted design: a block with a feasible lane
+    whose objective 0 is +inf sorts every lane (the tie with the +inf
+    infeasible rows and the DOM_CHUNK skip then depend on them) and still
+    equals the reference; without such a lane only feasible rows sort."""
+    rng = np.random.default_rng(seed)
+    n = pk.BLOCK
+    ok = rng.random(n) < 0.4
+    objs = [rng.integers(0, 6, n).astype(np.float32),   # ties, and whole
+            rng.integers(0, 20, n).astype(np.float32),  # equal rows
+            rng.integers(0, 4, n).astype(np.float32)]
+    assert np.array_equal(_compact_front(objs, ok), _reference_front(objs, ok))
+    odd = np.flatnonzero(ok)[rng.choice(int(ok.sum()), 30, replace=False)]
+    objs[0][odd] = np.inf
+    ok[:600] = False             # a DOM_CHUNK tile start among +inf rows
+    assert (ok & ~np.isfinite(objs[0])).any()
+    assert np.array_equal(_compact_front(objs, ok), _reference_front(objs, ok))
