@@ -51,6 +51,7 @@ _SIGNATURES = {
         "dse_search_padded_launch": [_P, _P, _I, _P, _P, _P, _I, _P, _I, _P],
         "dse_search_decoded_launch": [_P, _I, _P, _I, _I, _I, _I, _I, _P,
                                       _P, _P, _I, _P, _I, _P],
+        "dse_search_split": [],
         "dse_decode_rows_launch": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _I,
                                    _P],
         "dse_pareto_padded_launch": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _I,

@@ -16,31 +16,36 @@
 //                                                    _carry_dominated)
 //   dse_pareto_decoded_kernel <- dse_pareto_decoded (_dse_pareto_decode_kernel)
 //
-// All six share one cost model (hw_metrics: area/power; wl_metrics: the
-// per-GEMM dataflow half) and one mixed-radix decoder (decode_lane), as the
-// Pallas file shares _config_metrics_hw/_wl and _decode_block.
+// All six share one cost model (hw_prefix/hw_metrics: area/power;
+// wl_tail/wl_metrics: the per-GEMM dataflow half) and one mixed-radix
+// decoder (decode_digits, decode_lane), as the Pallas file shares
+// _config_metrics_hw/_wl and _decode_block.
 //
 // What bounds them: per config the model is ~55 scalar operations for the
 // area/power half and ~18 per GEMM (three int32 ceil-divisions, float32
-// products) for the dataflow half. The grid-operand kernels also read 20
-// bytes of config (plus 4 of mask) and dse_eval writes 16, which at 3.35
-// TB/s outweighs the arithmetic at 67 T op/s: they are bound by bytes.
-// dse_decode_rows writes 24 bytes per lane and does little else: bytes.
-// dse_search_decoded reads and writes almost nothing: operations. The two
-// frontier kernels add a pairwise dominance pass, f(f-1)/2 pairs of 2d
-// compares per block of f feasible lanes: operations. No matrix product
-// anywhere, so the tensor cores (wgmma) and TMA have nothing to do here.
-// The design keeps it simple: one thread per config lane (eight lanes per
-// thread in the frontier kernels); the GEMM list and the pre-folded
-// constants sit in shared memory (one small parameter block per launch);
-// lanes that fail the cheap area/power half skip the GEMM loop (exact:
-// feasibility needs both); each logical block (2048 lanes, 16384 decoded
-// for the search) is reduced inside one CUDA block. The card has no
-// integer divide instruction, so the model's integer divisions are
-// division-free and exact: the GEMM ceil-divisions by an integer
-// reciprocal taken once per lane and one correction (ceil_div), the
-// decoder's digits by a multiply and a shift with host-computed constants
-// (make_radix).
+// products) for the dataflow half; -fmad=false fuses none, so each is one
+// instruction, and the card issues at most one float32 instruction per
+// lane per clock. The grid-operand kernels also read 20 bytes of config
+// (plus 4 of mask) and dse_eval writes 16, which at 3.35 TB/s outweighs
+// the arithmetic: they are bound by bytes. dse_decode_rows writes 24 bytes
+// per lane and does little else: bytes. dse_search_decoded reads and
+// writes almost nothing: operations. The two frontier kernels add a
+// pairwise dominance pass, f(f-1)/2 pairs of 2d compares per block of f
+// feasible lanes: operations. No matrix product anywhere, so the tensor
+// cores (wgmma) and TMA have nothing to do here.
+// Every kernel reads the GEMM list and the pre-folded constants from shared
+// memory (one small parameter block per launch), and lanes that fail the
+// cheap area/power half skip the GEMM loop (exact: feasibility needs both).
+// Kernels 1 and 4-6 keep it simple: one thread per config lane (eight
+// lanes per thread in the frontier kernels); each logical block is reduced
+// inside one CUDA block. The two min-EDP search kernels split each block
+// across a thread-block cluster and queue the area/power survivors (their
+// section below says why). The card has no integer divide instruction, so the
+// model's integer divisions are division-free and exact: the GEMM
+// ceil-divisions by an integer reciprocal taken once per lane and one
+// correction (ceil_div), the decoder's digits by a multiply and a shift
+// with host-computed constants (make_radix), or by stepping the previous
+// lane's digits (next_digits).
 //
 // Float32 parity with the Pallas source: built with -fmad=false (no FMA
 // contraction) and IEEE division; every static scalar arrives pre-folded in
@@ -51,9 +56,9 @@
 // Every entry point has a plain C interface (loaded with ctypes) and returns
 // cudaGetLastError() after its launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cmath>
 
 namespace {
@@ -99,36 +104,82 @@ struct Cfg {
   float t, c, h, v, l;
 };
 
+// The terms of _config_metrics_hw that do not depend on lambda (or on the
+// workload): a thread that walks consecutive lanes recomputes them only
+// when a digit above lambda moves.
+struct UpperTerms {
+  float t, h, v;
+  float ch;                      // cores * (h + v)
+  float tl;                      // t * P_LASER
+  float a1, a2, a3, a4, a5;      // area terms, in the order of addition
+  float q1, q2, q3, q4, q5, q6;  // power terms
+};
+
+__device__ __forceinline__ UpperTerms upper_terms(const int* p, float t,
+                                                  float c, float h, float v) {
+  UpperTerms u;
+  const float cores = t * c;
+  const float ddots = (cores * h) * v;
+  const float adc_chains = (t * h) * v;
+  u.t = t;
+  u.h = h;
+  u.v = v;
+  u.ch = cores * (h + v);
+  u.tl = t * kf(p, P_LASER);
+  u.a1 = ddots * kf(p, A_DDOT);
+  u.a2 = cores * kf(p, A_CORE);
+  u.a3 = adc_chains * kf(p, A_ADC);
+  u.a4 = t * kf(p, A_TILE);
+  u.a5 = (kf(p, A_NET) * t) * t;
+  u.q1 = (ddots * 2.0f) * kf(p, P_PD);
+  u.q2 = adc_chains * kf(p, P_ADC);
+  u.q3 = ddots * kf(p, P_ACC);
+  u.q4 = cores * kf(p, P_CORE);
+  u.q5 = t * kf(p, P_TILE);
+  u.q6 = (kf(p, P_NET) * t) * t;
+  return u;
+}
+
+// _config_metrics_hw up to its per-workload SRAM term, from the upper terms
+// and lambda: the area and power sums in the reference's order; the
+// workload adds its SRAM term, then the chip term (hw_metrics).
+__device__ __forceinline__ void hw_prefix_lane(const int* p,
+                                               const UpperTerms& u, float l,
+                                               float& a_pre, float& q_pre) {
+  const float mod_channels = u.ch * l;
+  float a = mod_channels * kf(p, A_MOD);
+  a = a + u.a1;
+  a = a + u.a2;
+  a = a + u.a3;
+  a = a + u.t * (kf(p, A_COMB1) * l + kf(p, A_COMB0));
+  a = a + u.a4;
+  a = a + u.a5;
+  float q = mod_channels * kf(p, P_MOD);
+  q = q + u.q1;
+  q = q + u.q2;
+  q = q + u.q3;
+  q = q + u.q4;
+  q = q + u.t * (kf(p, P_COMB1) * l + kf(p, P_COMB0));
+  q = q + ((u.tl * l) * u.h) * u.v;
+  q = q + u.q5;
+  q = q + u.q6;
+  a_pre = a;
+  q_pre = q;
+}
+
+__device__ __forceinline__ void hw_prefix(const int* p, Cfg x, float& a_pre,
+                                          float& q_pre) {
+  hw_prefix_lane(p, upper_terms(p, x.t, x.c, x.h, x.v), x.l, a_pre, q_pre);
+}
+
 // _config_metrics_hw: (area, power) of one config for workload w.
 __device__ __forceinline__ void hw_metrics(const int* p, int w, Cfg x,
                                            float& area, float& power) {
   const int* r = wl_record(p, w);
-  float cores = x.t * x.c;
-  float mod_channels = (cores * (x.h + x.v)) * x.l;
-  float ddots = (cores * x.h) * x.v;
-  float adc_chains = (x.t * x.h) * x.v;
-  float a = mod_channels * kf(p, A_MOD);
-  a = a + ddots * kf(p, A_DDOT);
-  a = a + cores * kf(p, A_CORE);
-  a = a + adc_chains * kf(p, A_ADC);
-  a = a + x.t * (kf(p, A_COMB1) * x.l + kf(p, A_COMB0));
-  a = a + x.t * kf(p, A_TILE);
-  a = a + (kf(p, A_NET) * x.t) * x.t;
-  a = a + __int_as_float(r[W_A_SRAM]);
-  a = a + kf(p, A_CHIP);
-  float q = mod_channels * kf(p, P_MOD);
-  q = q + (ddots * 2.0f) * kf(p, P_PD);
-  q = q + adc_chains * kf(p, P_ADC);
-  q = q + ddots * kf(p, P_ACC);
-  q = q + cores * kf(p, P_CORE);
-  q = q + x.t * (kf(p, P_COMB1) * x.l + kf(p, P_COMB0));
-  q = q + (((x.t * kf(p, P_LASER)) * x.l) * x.h) * x.v;
-  q = q + x.t * kf(p, P_TILE);
-  q = q + (kf(p, P_NET) * x.t) * x.t;
-  q = q + __int_as_float(r[W_P_SRAM]);
-  q = q + kf(p, P_CHIP);
-  area = a;
-  power = q;
+  float a, q;
+  hw_prefix(p, x, a, q);
+  area = (a + __int_as_float(r[W_A_SRAM])) + kf(p, A_CHIP);
+  power = (q + __int_as_float(r[W_P_SRAM])) + kf(p, P_CHIP);
 }
 
 // ceil(a / b) for 0 <= a < 2^31 and b >= 1, exact, with no division in
@@ -157,26 +208,37 @@ __device__ __forceinline__ int ceil_div(int a, Divisor d) {
   return q + (rem > 0 ? 1 : 0);
 }
 
-// _config_metrics_wl: (energy, latency) of one config for workload w.
-__device__ __forceinline__ void wl_metrics(const int* p, int w, Cfg x,
-                                           float power, float& energy,
-                                           float& latency) {
+// The workload-independent inputs of _config_metrics_wl: the lane count
+// and the three GEMM tile divisors.
+struct WlShared {
+  float lanes;
+  Divisor m, n, k;
+};
+
+__device__ __forceinline__ WlShared wl_shared(Cfg x) {
+  return WlShared{(((x.t * x.h) + x.v) * x.c) * x.l,
+                  make_divisor(static_cast<int>(x.t * x.h)),
+                  make_divisor(static_cast<int>(x.v)),
+                  make_divisor(static_cast<int>(x.c * x.l))};
+}
+
+// _config_metrics_wl from its shared inputs: (energy, latency) of one
+// config for workload w.
+__device__ __forceinline__ void wl_tail(const int* p, int w,
+                                        const WlShared& s, float power,
+                                        float& energy, float& latency) {
   const int* r = wl_record(p, w);
-  float lanes = (((x.t * x.h) + x.v) * x.c) * x.l;
-  const Divisor d_m = make_divisor(static_cast<int>(x.t * x.h));
-  const Divisor d_n = make_divisor(static_cast<int>(x.v));
-  const Divisor d_k = make_divisor(static_cast<int>(x.c * x.l));
   float total = 0.0f;
   float sram_lane = 0.0f;
   for (int g = r[W_G0]; g < r[W_G1]; ++g) {
     const int* q = gemm_record(p, g);  // [m, k, n, count]
-    int cm = ceil_div(q[0], d_m);
-    int cn = ceil_div(q[2], d_n);
-    int ck = ceil_div(q[1], d_k);
+    int cm = ceil_div(q[0], s.m);
+    int cn = ceil_div(q[2], s.n);
+    int ck = ceil_div(q[1], s.k);
     float cyc = ((static_cast<float>(cm) * static_cast<float>(cn))
                  * static_cast<float>(ck)) * __int_as_float(q[3]);
     total = total + cyc;
-    sram_lane = sram_lane + cyc * lanes;
+    sram_lane = sram_lane + cyc * s.lanes;
   }
   float t_photonic = total / kf(p, F_CLK);
   float lat = fmaxf(t_photonic, __int_as_float(r[W_T_MEM]))
@@ -185,6 +247,13 @@ __device__ __forceinline__ void wl_metrics(const int* p, int w, Cfg x,
   energy = (power * lat + __int_as_float(r[W_E_DRAM]))
            + sram_bytes * kf(p, E_SRAM);
   latency = lat;
+}
+
+// _config_metrics_wl: (energy, latency) of one config for workload w.
+__device__ __forceinline__ void wl_metrics(const int* p, int w, Cfg x,
+                                           float power, float& energy,
+                                           float& latency) {
+  wl_tail(p, w, wl_shared(x), power, energy, latency);
 }
 
 __device__ __forceinline__ void load_params(const int* __restrict__ params,
@@ -230,107 +299,89 @@ __device__ __forceinline__ int div_radix(int n, Radix d, int& rem) {
   return q;
 }
 
-// _decode_block for one lane: mixed-radix digits of gidx in meshgrid axis
-// order (t, c, v, h, lambda), slab-validity test, clamped per-axis gather.
+// Mixed-radix digits of a global index in meshgrid axis order (t, c, v,
+// h, lambda), lambda fastest; d.t is the unbounded leading quotient.
+struct Digits {
+  int t, c, v, h, l;
+};
+
+__device__ __forceinline__ Digits decode_digits(const Decoder& dec,
+                                                int gidx) {
+  Digits d;
+  int i = div_radix(gidx, dec.l, d.l);
+  i = div_radix(i, dec.h, d.h);
+  i = div_radix(i, dec.v, d.v);
+  d.t = div_radix(i, dec.c, d.c);
+  return d;
+}
+
+// Steps d to the digits of gidx + 1, exactly and without a multiply:
+// lambda steps, and a digit that reaches its radix wraps to 0 and carries
+// into the next one. True when a digit above lambda moved.
+__device__ __forceinline__ bool next_digits(const Decoder& dec, Digits& d) {
+  if (++d.l < dec.l.r) return false;
+  d.l = 0;
+  d.h += 1;
+  bool carry = d.h == dec.h.r;
+  d.h = carry ? 0 : d.h;
+  d.v += carry;
+  carry = d.v == dec.v.r;
+  d.v = carry ? 0 : d.v;
+  d.c += carry;
+  carry = d.c == dec.c.r;
+  d.c = carry ? 0 : d.c;
+  d.t += carry;
+  return true;
+}
+
+// The span and slab digit ranges of a meta row, loaded side by side.
+struct Slab {
+  int end, lo_t, hi_t, lo_c, hi_c, lo_v, hi_v, lo_h, hi_h, lo_l, hi_l;
+};
+
+__device__ __forceinline__ Slab load_slab(const int* __restrict__ meta) {
+  return Slab{meta[1], meta[2], meta[3], meta[4], meta[5], meta[6],
+              meta[7], meta[8], meta[9], meta[10], meta[11]};
+}
+
+// _decode_block's validity: inside the span and the slab's digit ranges,
+// split into the digits above lambda and the rest.
+__device__ __forceinline__ bool upper_in_slab(const Slab& s, Digits d) {
+  return (d.t >= s.lo_t) & (d.t < s.hi_t) & (d.c >= s.lo_c) & (d.c < s.hi_c)
+         & (d.v >= s.lo_v) & (d.v < s.hi_v) & (d.h >= s.lo_h)
+         & (d.h < s.hi_h);
+}
+
+__device__ __forceinline__ bool lane_in_slab(const Slab& s, int gidx, int l) {
+  return (gidx < s.end) & (l >= s.lo_l) & (l < s.hi_l);
+}
+
+__device__ __forceinline__ bool in_slab(const Slab& s, int gidx, Digits d) {
+  return upper_in_slab(s, d) & lane_in_slab(s, gidx, d.l);
+}
+
+// _decode_block's clamped per-axis gather.
+__device__ __forceinline__ Cfg gather_cfg(const float* __restrict__ axes,
+                                          int max_radix, Digits d) {
+  const int top = max_radix - 1;
+  Cfg x;
+  x.t = axes[0 * max_radix + min(max(d.t, 0), top)];
+  x.c = axes[1 * max_radix + min(max(d.c, 0), top)];
+  x.h = axes[3 * max_radix + min(max(d.h, 0), top)];
+  x.v = axes[2 * max_radix + min(max(d.v, 0), top)];
+  x.l = axes[4 * max_radix + min(max(d.l, 0), top)];
+  return x;
+}
+
+// _decode_block for one lane: digits, slab-validity test, gather.
 __device__ __forceinline__ Cfg decode_lane(const float* __restrict__ axes,
                                            int max_radix,
                                            const int* __restrict__ meta,
                                            const Decoder& dec, int gidx,
                                            bool& valid) {
-  int d_l, d_h, d_v, d_c;
-  int i = div_radix(gidx, dec.l, d_l);
-  i = div_radix(i, dec.h, d_h);
-  i = div_radix(i, dec.v, d_v);
-  const int d_t = div_radix(i, dec.c, d_c);
-  valid = gidx < meta[1]
-          && d_t >= meta[2] && d_t < meta[3] && d_c >= meta[4] && d_c < meta[5]
-          && d_v >= meta[6] && d_v < meta[7] && d_h >= meta[8] && d_h < meta[9]
-          && d_l >= meta[10] && d_l < meta[11];
-  int top = max_radix - 1;
-  Cfg x;
-  x.t = axes[0 * max_radix + min(max(d_t, 0), top)];
-  x.c = axes[1 * max_radix + min(max(d_c, 0), top)];
-  x.h = axes[3 * max_radix + min(max(d_h, 0), top)];
-  x.v = axes[2 * max_radix + min(max(d_v, 0), top)];
-  x.l = axes[4 * max_radix + min(max(d_l, 0), top)];
-  return x;
-}
-
-// One lane's contribution to workload w's block reduction: min (edp, lane)
-// lexicographically (jnp.argmin's first hit) and the feasible count.
-__device__ __forceinline__ void lane_search(const int* p, int w, Cfg x,
-                                            bool valid,
-                                            const float* __restrict__ cons,
-                                            int lane, float& best,
-                                            int& best_lane, int& nf) {
-  if (!valid) return;
-  float area, power;
-  hw_metrics(p, w, x, area, power);
-  if (!(area < cons[4 * w + 0] && power < cons[4 * w + 1])) return;
-  float energy, latency;
-  wl_metrics(p, w, x, power, energy, latency);
-  if (!(energy < cons[4 * w + 2] && latency < cons[4 * w + 3])) return;
-  float edp = energy * latency;
-  ++nf;
-  if (edp < best || (edp == best && lane < best_lane)) {
-    best = edp;
-    best_lane = lane;
-  }
-}
-
-// Block-wide reduction of (best, best_lane, nf); thread 0 holds the result.
-__device__ __forceinline__ void block_reduce(float& best, int& best_lane,
-                                             int& nf) {
-  __shared__ float s_best[32];
-  __shared__ int s_lane[32];
-  __shared__ int s_nf[32];
-  const unsigned full = 0xffffffffu;
-  for (int off = 16; off > 0; off >>= 1) {
-    float b2 = __shfl_down_sync(full, best, off);
-    int l2 = __shfl_down_sync(full, best_lane, off);
-    nf += __shfl_down_sync(full, nf, off);
-    if (b2 < best || (b2 == best && l2 < best_lane)) {
-      best = b2;
-      best_lane = l2;
-    }
-  }
-  int warp = threadIdx.x >> 5;
-  int lane = threadIdx.x & 31;
-  if (lane == 0) {
-    s_best[warp] = best;
-    s_lane[warp] = best_lane;
-    s_nf[warp] = nf;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int n_warps = blockDim.x >> 5;
-    best = lane < n_warps ? s_best[lane] : INFINITY;
-    best_lane = lane < n_warps ? s_lane[lane] : INT_MAX;
-    nf = lane < n_warps ? s_nf[lane] : 0;
-    for (int off = 16; off > 0; off >>= 1) {
-      float b2 = __shfl_down_sync(full, best, off);
-      int l2 = __shfl_down_sync(full, best_lane, off);
-      nf += __shfl_down_sync(full, nf, off);
-      if (b2 < best || (b2 == best && l2 < best_lane)) {
-        best = b2;
-        best_lane = l2;
-      }
-    }
-  }
-  __syncthreads();  // the scratch is reused for the next workload
-}
-
-// The carry rule of _search_reduce: a carried-in best that is <= the block's
-// best (including exact ties and all-infeasible blocks) wins, as CARRY_IDX.
-__device__ __forceinline__ void emit(float* out, int n_blocks, int w,
-                                     float best, float idx, int nf,
-                                     const float* __restrict__ carry) {
-  float cw = carry[w];
-  bool carried = cw <= best;
-  int b = blockIdx.x;
-  out[(kSearchRows * w + 0) * n_blocks + b] = carried ? cw : best;
-  out[(kSearchRows * w + 1) * n_blocks + b] = carried ? kCarryIdx : idx;
-  out[(kSearchRows * w + 2) * n_blocks + b] = static_cast<float>(nf);
+  const Digits d = decode_digits(dec, gidx);
+  valid = in_slab(load_slab(meta), gidx, d);
+  return gather_cfg(axes, max_radix, d);
 }
 
 __global__ void dse_eval_kernel(const float* __restrict__ cfg,
@@ -350,66 +401,402 @@ __global__ void dse_eval_kernel(const float* __restrict__ cfg,
   out[3 * g + i] = latency;
 }
 
-__global__ void dse_search_padded_kernel(const float* __restrict__ cfg,
-                                         const float* __restrict__ mask,
-                                         int g,
-                                         const float* __restrict__ cons,
-                                         const float* __restrict__ carry,
-                                         const int* __restrict__ params,
-                                         int n_words, float* __restrict__ out,
-                                         int n_blocks) {
-  extern __shared__ int sp[];
-  load_params(params, n_words, sp);
-  const int base = blockIdx.x * kBlock;
-  for (int w = 0; w < sp[0]; ++w) {
-    float best = INFINITY;
-    int best_lane = INT_MAX;
-    int nf = 0;
-    for (int lane = threadIdx.x; lane < kBlock; lane += blockDim.x) {
-      int i = base + lane;
-      if (i >= g || !(mask[i] > 0.0f)) continue;  // padding lanes
-      Cfg x{cfg[i], cfg[g + i], cfg[2 * g + i], cfg[3 * g + i],
-            cfg[4 * g + i]};
-      lane_search(sp, w, x, true, cons, lane, best, best_lane, nf);
+
+// ---------------------------------------------------------------------------
+// Min-EDP search kernels (dse_search_padded, dse_search_decoded): per
+// logical block of kBlock grid lanes or kDecodeBlock decoded lanes and per
+// workload, the lexicographic minimum of (EDP, lane) over the feasible
+// lanes (jnp.argmin's first hit), their count, and the carry rule.
+//
+// What held a one-CTA-per-block design back (tools/stage_dse.py): 486 CTAs
+// at 24^5 (122 at 12^5) for 132 SMs, where the blocks rich in area/power
+// survivors set the time; the survivors' dataflow half ran inside the lane
+// loop, so a warp with one survivor ran its GEMM loop for all 32 lanes;
+// the slab test waited on one global load after another; and a launch of
+// W workloads decoded every lane W times.
+//
+// The design:
+//   * a logical block is a cluster of kSplit CTAs of kThreads threads (256
+//     grid lanes, one a thread, or 2048 decoded lanes, a run of kRun
+//     consecutive ones a thread), so eight times as many, smaller CTAs
+//     share out the SMs. Each CTA reduces its lanes; the cluster's leader
+//     (rank 0) gathers the kSplit partials through distributed shared
+//     memory, combines them, applies the carry rule and writes the block's
+//     rows. The reduction is a minimum over (EDP key, lane) and a sum, so
+//     the split cannot change the result;
+//   * pass 1 reads or decodes each lane once for up to kGroup workloads,
+//     prices the workload-independent area/power prefix once (a decoding
+//     thread steps its run's digits and recomputes the terms above lambda
+//     only when one of those digits moves) and each workload's tail, and
+//     queues the lanes that pass some workload's area/power bounds, with a
+//     mask of those workloads, in shared memory;
+//   * pass 2 prices the queued lanes' dataflow half with every thread on
+//     its own entry: the tile divisors once per lane, then each workload
+//     of its mask; each warp folds its feasible lanes' minimum key and
+//     count into the CTA's with one shared atomic each;
+//   * the meta row sits in registers; the folded constants come from the
+//     shared parameter block, as in the other kernels. Left to itself,
+//     ptxas keeps them in registers across the decoded kernel's unrolled
+//     run (57 a thread: four CTAs an SM, which ran slower at W = 1 on an
+//     H100), so that kernel asks for five CTAs an SM (48 registers).
+// The key of a feasible lane is (sort_key(EDP) << 32) | lane: sort_key is
+// monotone, so the smallest key holds the smallest EDP at its lowest lane.
+// A NaN EDP keys after +inf and never wins (as `<` never picks it); -0.0
+// keys as +0.0, so it ties with +0.0 as `==` does, and comes out as +0.0.
+// ---------------------------------------------------------------------------
+
+constexpr int kSplit = 8;   // CTAs (one cluster) per logical search block
+constexpr int kGroup = 32;  // workloads a pass over the lanes serves
+constexpr int kPadLanes = kBlock / kSplit;        // grid lanes per CTA
+constexpr int kDecLanes = kDecodeBlock / kSplit;  // decoded lanes per CTA
+constexpr int kRun = kDecLanes / kThreads;        // consecutive, per thread
+static_assert(kPadLanes == kThreads, "one grid lane a thread");
+// (sort_key(+inf) << 32) | 0xffffffff: no feasible lane.
+constexpr unsigned long long kNoKey = 0xff800000ffffffffull;
+
+// Monotone uint32 key of a float: ascending keys follow ascending values,
+// -0.0 keys as +0.0 and every NaN sorts after +inf.
+__device__ __forceinline__ unsigned sort_key(float v) {
+  unsigned u = __float_as_uint(v);
+  if ((u & 0x7fffffffu) == 0u) u = 0u;
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0xffffffffu;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The float of a key that sort_key made from a number (+0.0 for zeros).
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// The upper terms of the config at digits d, inside its slab: there every
+// digit is below its radix (<= max_radix) but the leading one, which a
+// span past the space can push past its axis, so only it needs
+// gather_cfg's clamp.
+__device__ __forceinline__ UpperTerms upper_at(const int* p,
+                                               const float* __restrict__ axes,
+                                               int max_radix, Digits d) {
+  return upper_terms(p, axes[min(d.t, max_radix - 1)],
+                     axes[max_radix + d.c], axes[3 * max_radix + d.h],
+                     axes[2 * max_radix + d.v]);
+}
+
+// One workload of a pass: its area/power tail terms, its four bounds and
+// its carried-in best EDP.
+struct GroupWl {
+  float a_sram, p_sram, ca, cp, ce, cl, carry;
+};
+
+template <int kLanes>
+struct SearchSmem {
+  unsigned short q_lane[kLanes];  // queued lanes (CTA-local)
+  unsigned q_mask[kLanes];        // and the workloads each passes
+  GroupWl wl[kGroup];
+  unsigned long long key[kGroup];  // the CTA's minimum key per workload
+  int nf[kGroup];                  // and its feasible count
+  unsigned long long part_key[kSplit][kGroup];  // the leader's: every
+  int part_nf[kSplit][kGroup];                  // CTA's partials
+  int n_queue;
+};
+
+// Set up a pass over workloads [w0, w0 + nw).
+template <int kLanes>
+__device__ __forceinline__ void start_group(SearchSmem<kLanes>& sm,
+                                            const int* p,
+                                            const float* __restrict__ cons,
+                                            const float* __restrict__ carry,
+                                            int w0, int nw) {
+  const int j = threadIdx.x;
+  if (j < nw) {
+    const int* r = wl_record(p, w0 + j);
+    const float* c = cons + 4 * (w0 + j);
+    sm.wl[j] = GroupWl{__int_as_float(r[W_A_SRAM]),
+                       __int_as_float(r[W_P_SRAM]), c[0], c[1], c[2], c[3],
+                       carry[w0 + j]};
+    sm.key[j] = kNoKey;
+    sm.nf[j] = 0;
+  }
+  if (j == 0) sm.n_queue = 0;
+  __syncthreads();
+}
+
+// Bit j set when a lane with prefix (a_pre, q_pre) passes workload j's
+// area and power bounds; w0 is the pass's first workload, in registers.
+__device__ __forceinline__ unsigned group_mask(const int* p,
+                                               const GroupWl& w0,
+                                               const GroupWl* wl, int nw,
+                                               float a_pre, float q_pre) {
+  unsigned mask = 0u;
+  float area = (a_pre + w0.a_sram) + kf(p, A_CHIP);
+  float power = (q_pre + w0.p_sram) + kf(p, P_CHIP);
+  if (area < w0.ca && power < w0.cp) mask = 1u;
+  for (int j = 1; j < nw; ++j) {
+    area = (a_pre + wl[j].a_sram) + kf(p, A_CHIP);
+    power = (q_pre + wl[j].p_sram) + kf(p, P_CHIP);
+    if (area < wl[j].ca && power < wl[j].cp) mask |= 1u << j;
+  }
+  return mask;
+}
+
+// Queue a lane whose mask is not 0; one shared atomic per warp. Every
+// thread of the warp calls it.
+template <int kLanes>
+__device__ __forceinline__ void enqueue(SearchSmem<kLanes>& sm, int lane,
+                                        unsigned mask) {
+  const unsigned full = 0xffffffffu;
+  const int wl = threadIdx.x & 31;
+  const unsigned bal = __ballot_sync(full, mask != 0u);
+  if (bal == 0u) return;
+  int slot = 0;
+  if (wl == 0) slot = atomicAdd(&sm.n_queue, __popc(bal));
+  slot = __shfl_sync(full, slot, 0);
+  if (mask != 0u) {
+    const int at = slot + __popc(bal & ((1u << wl) - 1u));
+    sm.q_lane[at] = static_cast<unsigned short>(lane);
+    sm.q_mask[at] = mask;
+  }
+}
+
+// Where pass 2 finds a queued lane's config: the grid operand, or the
+// decoder (lanes block-local, from the block's first index).
+struct PaddedSrc {
+  const float* cfg;
+  int g;
+  int base;
+  __device__ __forceinline__ Cfg at(int lane) const {
+    const int i = base + lane;
+    return Cfg{cfg[i], cfg[g + i], cfg[2 * g + i], cfg[3 * g + i],
+               cfg[4 * g + i]};
+  }
+};
+
+struct DecodedSrc {
+  const float* axes;
+  int max_radix;
+  const Decoder& dec;
+  int base;
+  __device__ __forceinline__ Cfg at(int lane) const {
+    return gather_cfg(axes, max_radix, decode_digits(dec, base + lane));
+  }
+};
+
+// The dataflow half of one lane per thread (every thread of the warp
+// calls it; mask 0: none): for each workload of its mask, the lane's
+// energy and latency from its power prefix q_pre and shared inputs ws;
+// each warp folds its feasible lanes' minimum key and count into the CTA's.
+template <int kLanes>
+__device__ __forceinline__ void fold_dataflow(
+    SearchSmem<kLanes>& sm, const int* p, int w0, int nw, int lane,
+    unsigned mask, float q_pre, const WlShared& ws) {
+  const unsigned full = 0xffffffffu;
+  for (int j = 0; j < nw; ++j) {
+    bool ok = false;
+    float edp = 0.0f;
+    if ((mask >> j) & 1u) {
+      const float power = (q_pre + sm.wl[j].p_sram) + kf(p, P_CHIP);
+      float energy, latency;
+      wl_tail(p, w0 + j, ws, power, energy, latency);
+      ok = energy < sm.wl[j].ce && latency < sm.wl[j].cl;
+      edp = energy * latency;
     }
-    block_reduce(best, best_lane, nf);
-    if (threadIdx.x == 0) {
-      // float(base) + float(lane): the Pallas kernel's float32 index.
-      float idx = static_cast<float>(base)
-                  + static_cast<float>(best_lane == INT_MAX ? 0 : best_lane);
-      emit(out, n_blocks, w, best, idx, nf, carry);
+    // The warp's minimum (key, lane): the least key, then the least lane
+    // holding it (two warp reductions instead of a 64-bit shuffle tree).
+    const unsigned hi = ok ? sort_key(edp) : 0xffffffffu;
+    const unsigned best = __reduce_min_sync(full, hi);
+    const unsigned at = __reduce_min_sync(
+        full, ok && hi == best ? static_cast<unsigned>(lane) : 0xffffffffu);
+    const unsigned bal = __ballot_sync(full, ok);
+    if ((threadIdx.x & 31) == 0 && bal != 0u) {
+      atomicMin(&sm.key[j],
+                (static_cast<unsigned long long>(best) << 32) | at);
+      atomicAdd(&sm.nf[j], __popc(bal));
     }
   }
 }
 
-__global__ void dse_search_decoded_kernel(const float* __restrict__ axes,
-                                          int max_radix,
-                                          const int* __restrict__ meta,
-                                          Decoder dec,
-                                          const float* __restrict__ cons,
-                                          const float* __restrict__ carry,
-                                          const int* __restrict__ params,
-                                          int n_words,
-                                          float* __restrict__ out,
-                                          int n_blocks) {
-  extern __shared__ int sp[];
-  load_params(params, n_words, sp);
-  const int base = meta[0] + blockIdx.x * kDecodeBlock;
-  for (int w = 0; w < sp[0]; ++w) {
-    float best = INFINITY;
-    int best_lane = INT_MAX;
+// Pass 2: the dataflow half of the queued lanes (lane0: the block-local
+// lane of the CTA's first).
+template <int kLanes, class Src>
+__device__ __forceinline__ void search_queued(SearchSmem<kLanes>& sm,
+                                              const Src& src, const int* p,
+                                              int w0, int nw, int lane0) {
+#if defined(DSE_STAGE_HW_ONLY) || defined(DSE_STAGE_DECODE_ONLY)
+  // Timing builds of tools/stage_dse.py (outputs wrong by design): no
+  // dataflow half.
+  const int n = 0 * sm.n_queue;
+#else
+  const int n = sm.n_queue;
+#endif
+  for (int e0 = 0; e0 < n; e0 += kThreads) {
+    const int e = e0 + static_cast<int>(threadIdx.x);
+    if (!__any_sync(0xffffffffu, e < n)) break;  // the warp's entries are done
+    unsigned mask = 0u;
+    int lane = 0;
+    float q_pre = 0.0f;
+    WlShared ws{};
+    if (e < n) {
+      lane = lane0 + sm.q_lane[e];
+      mask = sm.q_mask[e];
+      const Cfg x = src.at(lane);
+      float a_pre;
+      hw_prefix(p, x, a_pre, q_pre);
+      ws = wl_shared(x);
+    }
+    fold_dataflow(sm, p, w0, nw, lane, mask, q_pre, ws);
+  }
+}
+
+// The carry rule of _search_reduce: a carried-in best cw that is <= the
+// block's best (including exact ties and all-infeasible blocks) wins, as
+// CARRY_IDX.
+__device__ __forceinline__ void emit(float* out, int n_blocks, int b, int w,
+                                     float best, float idx, int nf,
+                                     float cw) {
+  bool carried = cw <= best;
+  out[(kSearchRows * w + 0) * n_blocks + b] = carried ? cw : best;
+  out[(kSearchRows * w + 1) * n_blocks + b] = carried ? kCarryIdx : idx;
+  out[(kSearchRows * w + 2) * n_blocks + b] = static_cast<float>(nf);
+}
+
+// The cluster's reduction of a pass: each CTA stores its minimum key and
+// count in the leader's (rank 0) shared memory; the leader combines them
+// and writes block blk's rows. base: the block's first index
+// (launch-local for the grid operand, whose float32 index is float(base) +
+// float(lane); global when decoded).
+template <bool kDecoded, int kLanes>
+__device__ __forceinline__ void finish_group(SearchSmem<kLanes>& sm, int w0,
+                                             int nw, int blk, int base,
+                                             float* __restrict__ out,
+                                             int n_blocks) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const int j = threadIdx.x;
+  // Every CTA of the cluster runs and is done with its atomics, and the
+  // leader is done with the previous pass's partials.
+  cluster.sync();
+  if (j < nw) {
+    SearchSmem<kLanes>* lead = cluster.map_shared_rank(&sm, 0);
+    lead->part_key[rank][j] = sm.key[j];
+    lead->part_nf[rank][j] = sm.nf[j];
+  }
+  cluster.sync();  // the leader's memory stays until every share is in
+  if (rank == 0 && j < nw) {
+    unsigned long long key = kNoKey;
     int nf = 0;
-    for (int lane = threadIdx.x; lane < kDecodeBlock; lane += blockDim.x) {
-      bool valid;
-      Cfg x = decode_lane(axes, max_radix, meta, dec, base + lane, valid);
-      lane_search(sp, w, x, valid, cons, lane, best, best_lane, nf);
+    for (int r = 0; r < kSplit; ++r) {
+      key = sm.part_key[r][j] < key ? sm.part_key[r][j] : key;
+      nf += sm.part_nf[r][j];
     }
-    block_reduce(best, best_lane, nf);
-    if (threadIdx.x == 0) {
-      float idx = static_cast<float>(
-          base + (best_lane == INT_MAX ? 0 : best_lane));
-      emit(out, n_blocks, w, best, idx, nf, carry);
+    const unsigned lane = static_cast<unsigned>(key & 0xffffffffu);
+    const int l = lane == 0xffffffffu ? 0 : static_cast<int>(lane);
+    const float idx = kDecoded
+                          ? static_cast<float>(base + l)
+                          : static_cast<float>(base) + static_cast<float>(l);
+    emit(out, n_blocks, blk, w0 + j,
+         key_value(static_cast<unsigned>(key >> 32)), idx, nf,
+         sm.wl[j].carry);
+  }
+}
+
+__global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
+dse_search_padded_kernel(const float* __restrict__ cfg,
+                         const float* __restrict__ mask, int g,
+                         const float* __restrict__ cons,
+                         const float* __restrict__ carry,
+                         const int* __restrict__ params, int n_words,
+                         float* __restrict__ out, int n_blocks) {
+  __shared__ SearchSmem<kPadLanes> sm;
+  extern __shared__ int sp[];
+  const int blk = blockIdx.x / kSplit;
+  const int lane0 =
+      static_cast<int>(cooperative_groups::this_cluster().block_rank())
+      * kPadLanes;
+  const PaddedSrc src{cfg, g, blk * kBlock};
+  const int lane = lane0 + static_cast<int>(threadIdx.x);  // block-local
+  bool valid = false;  // past g: padding lanes
+  Cfg x{1.0f, 1.0f, 1.0f, 1.0f, 1.0f};
+  if (src.base + lane < g) {  // the config and the mask loads side by side
+    valid = mask[src.base + lane] > 0.0f;
+    x = src.at(lane);
+  }
+  load_params(params, n_words, sp);
+  const int n_wl = sp[0];
+  for (int w0 = 0; w0 < n_wl; w0 += kGroup) {
+    const int nw = min(kGroup, n_wl - w0);
+    start_group(sm, sp, cons, carry, w0, nw);
+    unsigned m = 0u;
+    if (valid) {
+#if defined(DSE_STAGE_DECODE_ONLY)
+      // Timing build of tools/stage_dse.py (outputs wrong by design): the
+      // lanes are read, nothing is priced or queued.
+      m = ((((x.t + x.c) + x.h) + x.v) + x.l < 0.0f) ? 1u : 0u;
+#else
+      float a_pre, q_pre;
+      hw_prefix(sp, x, a_pre, q_pre);
+      m = group_mask(sp, sm.wl[0], sm.wl, nw, a_pre, q_pre);
+#endif
     }
+    enqueue(sm, threadIdx.x, m);
+    __syncthreads();
+    search_queued(sm, src, sp, w0, nw, lane0);
+    finish_group<false>(sm, w0, nw, blk, src.base, out, n_blocks);
+  }
+}
+
+__global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads, 5)
+dse_search_decoded_kernel(const float* __restrict__ axes, int max_radix,
+                          const int* __restrict__ meta,
+                          const __grid_constant__ Decoder dec,
+                          const float* __restrict__ cons,
+                          const float* __restrict__ carry,
+                          const int* __restrict__ params, int n_words,
+                          float* __restrict__ out, int n_blocks) {
+  __shared__ SearchSmem<kDecLanes> sm;
+  extern __shared__ int sp[];
+  const Slab slab = load_slab(meta);
+  const int blk = blockIdx.x / kSplit;
+  const int lane0 =
+      static_cast<int>(cooperative_groups::this_cluster().block_rank())
+      * kDecLanes;
+  const DecodedSrc src{axes, max_radix, dec, meta[0] + blk * kDecodeBlock};
+  // This thread's run: CTA-local lanes [first, first + kRun).
+  const int first = static_cast<int>(threadIdx.x) * kRun;
+  const int gidx0 = src.base + lane0 + first;
+  const Digits d0 = decode_digits(dec, gidx0);
+  const float* ax_l = axes + 4 * max_radix;
+  load_params(params, n_words, sp);
+  const int n_wl = sp[0];
+  for (int w0 = 0; w0 < n_wl; w0 += kGroup) {
+    const int nw = min(kGroup, n_wl - w0);
+    start_group(sm, sp, cons, carry, w0, nw);
+    const GroupWl g0 = sm.wl[0];
+    Digits d = d0;
+    UpperTerms u = upper_at(sp, axes, max_radix, d);
+    bool upper_ok = upper_in_slab(slab, d);
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) {
+      if (r > 0 && next_digits(dec, d)) {  // a digit above lambda moved
+        u = upper_at(sp, axes, max_radix, d);
+        upper_ok = upper_in_slab(slab, d);
+      }
+      unsigned m = 0u;
+      if (upper_ok & lane_in_slab(slab, gidx0 + r, d.l)) {
+        const float l = ax_l[d.l];
+#if defined(DSE_STAGE_DECODE_ONLY)
+        // Timing build of tools/stage_dse.py (outputs wrong by design):
+        // the lanes are decoded, nothing is priced or queued.
+        m = (((u.t + u.h) + u.v) + l < 0.0f) ? 1u : 0u;
+#else
+        float a_pre, q_pre;
+        hw_prefix_lane(sp, u, l, a_pre, q_pre);
+        m = group_mask(sp, g0, sm.wl, nw, a_pre, q_pre);
+#endif
+      }
+      enqueue(sm, first + r, m);
+    }
+    __syncthreads();
+    search_queued(sm, src, sp, w0, nw, lane0);
+    finish_group<true>(sm, w0, nw, blk, src.base, out, n_blocks);
   }
 }
 
@@ -481,15 +868,6 @@ __global__ void dse_decode_rows_kernel(const float* __restrict__ axes,
 // first.
 // Blocks with no feasible lane skip steps 2-5.
 // ---------------------------------------------------------------------------
-
-// Monotone uint32 key of a float: ascending keys follow ascending values,
-// -0.0 keys as +0.0 and every NaN sorts after +inf.
-__device__ __forceinline__ unsigned sort_key(float v) {
-  unsigned u = __float_as_uint(v);
-  if ((u & 0x7fffffffu) == 0u) u = 0u;
-  if ((u & 0x7fffffffu) > 0x7f800000u) return 0xffffffffu;
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
 
 // One metric by its code in kernels/dse_eval.py:PARETO_METRICS.
 __device__ __forceinline__ float pick_metric(int code, float area,
@@ -880,11 +1258,19 @@ int dse_eval_launch(const float* cfg, float* out, int g, const int* params,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A search kernel's static shared memory and a parameter block near its
+// limit (MAX_PARAM_WORDS) pass the 48 KB a block gets without opting in, so
+// the launchers opt in to the block's size.
 int dse_search_padded_launch(const float* cfg, const float* mask, int g,
                              const float* cons, const float* carry,
                              const int* params, int n_words, float* out,
                              int n_blocks, void* stream) {
-  dse_search_padded_kernel<<<n_blocks, kThreads, n_words * sizeof(int),
+  const int smem = n_words * static_cast<int>(sizeof(int));
+  cudaError_t err = cudaFuncSetAttribute(
+      dse_search_padded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dse_search_padded_kernel<<<n_blocks * kSplit, kThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
       cfg, mask, g, cons, carry, params, n_words, out, n_blocks);
   return static_cast<int>(cudaGetLastError());
@@ -896,12 +1282,20 @@ int dse_search_decoded_launch(const float* axes, int max_radix,
                               const float* carry, const int* params,
                               int n_words, float* out, int n_blocks,
                               void* stream) {
-  dse_search_decoded_kernel<<<n_blocks, kThreads, n_words * sizeof(int),
+  const int smem = n_words * static_cast<int>(sizeof(int));
+  cudaError_t err = cudaFuncSetAttribute(
+      dse_search_decoded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dse_search_decoded_kernel<<<n_blocks * kSplit, kThreads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
       axes, max_radix, meta, make_decoder(r_c, r_v, r_h, r_l), cons, carry,
       params, n_words, out, n_blocks);
   return static_cast<int>(cudaGetLastError());
 }
+
+// CTAs (one cluster) per logical block of the two search kernels.
+int dse_search_split() { return kSplit; }
 
 int dse_decode_rows_launch(const float* axes, int max_radix, const int* meta,
                            int r_t, int r_c, int r_v, int r_h, int r_l,

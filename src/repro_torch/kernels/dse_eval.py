@@ -93,9 +93,9 @@ LAUNCHES = {"dse_eval_padded": 0, "dse_search_padded": 0,
 #   + 4 words per GEMM ([m, k, n] int32, count float).
 N_CONST = 23
 WL_WORDS = 7
-# The parameter block is dynamic shared memory; with the search kernels'
-# static reduction scratch (384 bytes) it must stay within the 48 KB a block
-# gets without opting in to more.
+# The parameter block is dse_eval's dynamic shared memory: it must stay
+# within the 48 KB a block gets without opting in to more (the frontier and
+# search kernels opt in to it beside their own shared storage).
 MAX_PARAM_WORDS = 12 * 1024 - 128
 
 

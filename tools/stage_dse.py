@@ -5,29 +5,41 @@ builds of itself (and, optionally, another commit's), timed in turns.
     python3 tools/stage_dse.py [--base DIR] [--rounds 5]
 
 On one CUDA card. It compiles `src/repro_torch/kernels/csrc/dse_eval.cu`
-as it is and twice more with a stage of the frontier kernels cut out by
-the source's own stage macros:
+as it is and four more times with a stage cut out by the source's own
+stage macros:
 
-  * `no-dominance` (`-DDSE_STAGE_NO_DOMINANCE`): step 4 (the dominance
-    test) removed, every feasible lane counts as front;
-  * `price-only` (`-DDSE_STAGE_PRICE_ONLY`): every block takes the
+  * `no-dominance` (`-DDSE_STAGE_NO_DOMINANCE`): the frontier kernels'
+    step 4 (the dominance test) removed, every feasible lane counts as
+    front;
+  * `price-only` (`-DDSE_STAGE_PRICE_ONLY`): every frontier block takes the
     no-feasible-lane exit after step 1, so only the pricing of the lanes
     remains;
+  * `decode-only` (`-DDSE_STAGE_DECODE_ONLY`): the search kernels read or
+    decode their lanes and price nothing;
+  * `hw-half` (`-DDSE_STAGE_HW_ONLY`): the search kernels price the
+    area/power half and queue its survivors, and skip their dataflow half;
 
 and, with `--base DIR` (an unpacked copy of another commit, `git archive
-<commit> | tar -x -C DIR`), that commit's `dse_eval.cu`. The cut builds'
-outputs are wrong by design; the source build is held `torch.equal` to
-the base build (when given) on every case. Each build's library is loaded
-with ctypes and put in turn in the repo's library cache, where the
-wrappers find it, and every case is timed with CUDA events (a spin kernel
-ahead of each window), the builds in turns, `--rounds` times; the medians
-are printed. The operands are `chip_smoke.py`'s (`dse_inputs`): kernels
-1-2 and 5 on the 12^5 grid (deit-b; kernel 5 also on a block of 2048
-duplicate rows), kernels 3, 4 and 6 on the whole 24^5 space, kernel 6 on
-one 24^5 slab. Pricing's share of a frontier kernel is its `price-only`
-time; the sort and the re-pricing of the sorted rows are `no-dominance`
-less `price-only`; the dominance test is the source build less
-`no-dominance`.
+<commit> | tar -x -C DIR`), that commit's `dse_eval.cu`. The cut builds' outputs are wrong by design; the source build is held
+`torch.equal` to the base build (when given) on every case. It prints
+ptxas's registers and the SASS instruction counts (`chip_smoke.
+sass_counts`: shared, global and constant loads, conversions, software
+divisions) of the two search kernels in every build. Each build's library
+is loaded with ctypes and put in turn in the repo's library cache, where
+the wrappers find it, and every case is timed with CUDA events (a spin
+kernel ahead of each window), the builds in turns, `--rounds` times; the
+medians are printed. The operands are `chip_smoke.py`'s (`dse_inputs`):
+kernels 1-2 and 5 on the 12^5 grid (deit-b; kernel 2 also with the five
+paper workloads in one launch, kernel 5 also on a block of 2048 duplicate
+rows), kernels 3, 4 and 6 on the whole 24^5 space (kernel 3 also with the
+five workloads, the factorized `search_workloads` launch), kernels 3 and 6
+on one 24^5 slab. Pricing's share of a frontier kernel is its
+`price-only` time; the sort and the re-pricing of the sorted rows are
+`no-dominance` less `price-only`; the dominance test is the source build
+less `no-dominance`. A search kernel's decode (or config reads) is its
+`decode-only` time, less the launch's fixed part; its area/power half is
+`hw-half` less `decode-only`; its dataflow half is the source build less
+`hw-half`.
 """
 import argparse
 import contextlib
@@ -44,7 +56,12 @@ sys.path.insert(0, str(ROOT))
 
 #: The cut-down builds: extra nvcc flags on the same source.
 STAGES = {"source": (), "no-dominance": ("-DDSE_STAGE_NO_DOMINANCE",),
-          "price-only": ("-DDSE_STAGE_PRICE_ONLY",)}
+          "price-only": ("-DDSE_STAGE_PRICE_ONLY",),
+          "decode-only": ("-DDSE_STAGE_DECODE_ONLY",),
+          "hw-half": ("-DDSE_STAGE_HW_ONLY",)}
+
+#: Kernels whose SASS instruction counts are printed for every build.
+SASS_KERNELS = ("dse_search_decoded_kernel", "dse_search_padded_kernel")
 
 
 def main() -> None:
@@ -56,7 +73,7 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         sys.exit("stage_dse: no CUDA device")
-    from chip_smoke import dse_inputs
+    from chip_smoke import dse_inputs, sass_counts
     from repro_torch.core.photonic_model import CONSTANTS
     from repro_torch.kernels import _build, dse_eval as dse
 
@@ -79,12 +96,23 @@ def main() -> None:
         log, _ = proc.communicate()
         if proc.returncode:
             sys.exit(f"stage_dse: {name} did not build\n{log}")
+        kernel = None
+        for line in log.splitlines():  # ptxas's registers of each kernel
+            if "Compiling entry" in line:
+                kernel = next((k for k in SASS_KERNELS if k in line), None)
+            elif kernel is not None and "registers" in line:
+                print(f"ptxas {name} {kernel}: "
+                      f"{line.split(':', 1)[1].strip()}")
+                kernel = None
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in _build._SIGNATURES["dse_eval"].items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
+        for kernel, c in (sass_counts(so, SASS_KERNELS) or {}).items():
+            print(f"sass {name} {kernel}: "
+                  + ", ".join(f"{k} {v}" for k, v in c.items()))
 
     dev = torch.device("cuda", 0)
     x = dse_inputs(dev)
@@ -100,10 +128,21 @@ def main() -> None:
         "k2 12^5": lambda: dse.dse_search_padded(
             cols, mask, cons_row, carry, workloads=workloads,
             constants=CONSTANTS),
+        "k2 W5": lambda: dse.dse_search_padded(
+            cols, mask, x.cons5, x.carry5, workloads=x.workloads5,
+            constants=CONSTANTS),
         "k3 24^5": lambda: dse.dse_search_decoded(
             axes, meta, cons_row, carry, radices=radices,
             n_blocks=math.ceil(n / dse.DECODE_BLOCK), workloads=workloads,
             constants=CONSTANTS),
+        "k3 W5": lambda: dse.dse_search_decoded(
+            axes, meta, x.cons5, x.carry5, radices=radices,
+            n_blocks=math.ceil(n / dse.DECODE_BLOCK),
+            workloads=x.workloads5, constants=CONSTANTS),
+        "k3 slab": lambda: dse.dse_search_decoded(
+            axes, x.meta_s, cons_row, carry, radices=radices,
+            n_blocks=math.ceil((x.b1 - x.b0) / dse.DECODE_BLOCK),
+            workloads=workloads, constants=CONSTANTS),
         "k4 24^5": lambda: dse.dse_decode_rows(
             axes, meta, radices=radices, n_blocks=math.ceil(n / dse.BLOCK)),
         "k5 12^5": lambda: dse.dse_pareto_padded(
