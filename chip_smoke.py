@@ -14,8 +14,10 @@ From the root of a checkout, with one CUDA card visible. It
   2. holds each of the six DSE kernels against its plain PyTorch version on
      the card, at the main path's shapes (the paper's 12^5 grid for the
      grid-operand kernels, the 24^5 product space and one slab of it for the
-     decoded ones; the search kernels also with the five paper workloads in
-     one launch; the frontier kernels also with a carried front, with a
+     decoded ones; kernel 1 also over the whole 24^5 space and at the
+     running front the Pareto BnB prices, with the wall time of one
+     `ops.dse_eval_grid` call there; the search kernels also with the five
+     paper workloads in one launch; the frontier kernels also with a carried front, with a
      block of 2048 duplicate rows that overflows MAX_FRONT, and at a clock
      slow enough that EDP overflows to +inf on feasible lanes, which makes
      a block sort all its lanes), with `torch.equal`, and times both with
@@ -33,6 +35,15 @@ From the root of a checkout, with one CUDA card visible. It
      the golden frontiers and the numpy engine, then `search(...,
      factorized=True, prune="bound")` on the 24^5 space per paper workload,
      frontier and counters checked against the numpy engine;
+  4b. drives the `torch` engine (plain torch float32 on the card, the
+     reference's `jax` engine): `search_workloads` over the five paper
+     workloads on the 12^5 grid in both objectives against the golden
+     record and the numpy engine, one streamed and one factorized query,
+     and the 24^5 `prune="bound"` query for deit-b in both objectives
+     (every counter, the winner and the frontier equal numpy's); holds its
+     float32 metrics on a 24^5 slab equal to its CPU run bit for bit,
+     fails if any hand-written kernel launched in the phase, and prints
+     warm wall times beside numpy's and cuda's;
   5. holds the two LM kernels against their plain versions on the card:
      `ddot_gemm_quantized` (the photonic 4-bit GEMM, int8 tensor cores)
      `torch.equal` at the qwen2.5-3b LM head (4 x 2048 x 151,936, B
@@ -242,9 +253,11 @@ def sass_counts(library, kernels):
             hit = next((k for k in kernels if k in fn), None)
             cur = None
             if hit is not None:
-                inst = re.search(r"ILi(\d+)E", fn)
+                inst = re.search(r"I((?:L[bi]\d+E)+)E", fn)
+                args = (",".join(re.findall(r"L[bi](\d+)E", inst.group(1)))
+                        if inst else "")
                 cur = counts.setdefault(
-                    hit + (f"<{inst.group(1)}>" if inst else ""),
+                    hit + (f"<{args}>" if args else ""),
                     {"instr": 0, **{c: 0 for c in SASS_CLASSES}})
             continue
         m = op.search(line) if cur is not None else None
@@ -263,12 +276,16 @@ def dse_inputs(dev):
     `tools/stage_dse.py` times stage by stage), on device `dev`: deit-b
     under the default constraints; the paper's 12^5 grid, and a block of
     2048 copies of the golden deit-b winner followed by 300 grid rows; the
-    whole 24^5 product space and one slab of it. Needs `src` on sys.path."""
+    whole 24^5 product space (also as (5, 24^5) config columns) and one
+    slab of it; bert-b's 24^5 frontier (the numpy engine's Pareto BnB, 166
+    rows), the running front kernel 1 prices in that search. Needs `src`
+    on sys.path."""
     from types import SimpleNamespace
 
     import numpy as np
     import torch
-    from repro_torch.core import Constraints, FactorizedSpace, config_grid
+    from repro_torch.core import (Constraints, FactorizedSpace, config_grid,
+                                  search)
     from repro_torch.core.factorized import slab_bounding_span
     from repro_torch.core.paper_workloads import PAPER_WORKLOADS, load
     from repro_torch.core.performance_model import workload_statics
@@ -299,6 +316,17 @@ def dse_inputs(dev):
     axes, radices = ops._axes_operand(space24, dev)
     slab = ((0, 3), (0, 4), (4, 20), (2, 18), (8, 16))
     b0, b1 = slab_bounding_span(radices, slab)
+    meta = torch.from_numpy(
+        ops._meta_rows(radices, [0], space24.size)[0]).to(dev)
+    cols24 = torch.stack(dse._decode_block_plain(radices, axes, meta, 1,
+                                                 space24.size)[0])
+    # The running front the Pareto BnB prices between frontier launches
+    # (`search._cuda_front_points`): bert-b's 24^5 frontier, 166 rows.
+    wl_front = load("bert-b")
+    front = search(wl_front, cons, engine="numpy", factorized=True,
+                   space=space24, prune="bound", objective="pareto",
+                   device=dev).front
+    gemms_f, wl_scalars_f = workload_statics(wl_front, CONSTANTS)
     cons_row = torch.tensor([[cons.area_mm2, cons.power_w, cons.energy_j,
                               cons.latency_s]], dtype=torch.float32,
                             device=dev)
@@ -315,8 +343,10 @@ def dse_inputs(dev):
         grid12=grid12, cols=cols_of(grid12), mask=ones(len(grid12)),
         dup=dup, cols_dup=cols_of(dup), mask_dup=ones(len(dup)),
         space24=space24, axes=axes, radices=radices, n24=space24.size,
-        meta=torch.from_numpy(
-            ops._meta_rows(radices, [0], space24.size)[0]).to(dev),
+        cols24=cols24, wl_front=wl_front, front=front,
+        cols_front=cols_of(front), gemms_front=gemms_f,
+        wl_scalars_front=wl_scalars_f,
+        meta=meta,
         slab=slab, b0=b0, b1=b1,
         meta_s=torch.from_numpy(
             ops._meta_rows(radices, [b0], b1, slab)[0]).to(dev))
@@ -508,6 +538,28 @@ def main() -> None:
                                           constants=CONSTANTS),
         n_bytes=(5 + 4) * 4 * g, n_ops=g * (HW_OPS + wl_ops),
         shape=f"(5, {g}) deit-b")
+    # Kernel 1's other launch paths at a grid's size: the columns in a
+    # seeded random order (quads whose lanes differ above lambda are priced
+    # one lane at a time), and one row short (G % 4 != 0: one lane a
+    # thread).
+    perm = torch.randperm(g, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(17))
+    cols_p = cols[:, perm].contiguous()
+    quads_p = cols_p[:4].reshape(4, g // 4, 4)
+    mixed = int((quads_p != quads_p[:, :, :1]).any(0).any(1).sum())
+    for cols_v, what in ((cols_p, f"columns permuted, {mixed} of {g // 4} "
+                                  f"quads mixed above lambda"),
+                         (cols[:, :g - 1].contiguous(), "one row short")):
+        variant(
+            "dse_eval_padded",
+            lambda c=cols_v: dse.dse_eval_padded(
+                c, gemms=gemms, wl_scalars=wl_scalars, constants=CONSTANTS),
+            lambda c=cols_v: dse.dse_eval_padded_plain(
+                c, gemms=gemms, wl_scalars=wl_scalars, constants=CONSTANTS),
+            n_bytes=(5 + 4) * 4 * cols_v.shape[1],
+            n_ops=cols_v.shape[1] * (HW_OPS + wl_ops),
+            shape=f"(5, {cols_v.shape[1]}) deit-b, {what}")
+    del cols_p, quads_p
     workloads = inp.workloads
     record(
         "dse_search_padded",
@@ -559,14 +611,52 @@ def main() -> None:
                                           n_blocks=nr),
         n_bytes=6 * 4 * nr * dse.BLOCK, n_ops=nr * dse.BLOCK * DECODE_OPS,
         shape=f"24^5 span [0, {n24})")
-    cfg24 = decoded[:5, :n24].contiguous()
+    cfg24 = inp.cols24
+    _check(torch.equal(cfg24, decoded[:5, :n24]),
+           "the 24^5 config columns differ from dse_decode_rows' rows")
     del decoded
+    # Kernel 1 at its other shapes: the whole 24^5 space (the throughput
+    # shape) and the running front the Pareto BnB prices between frontier
+    # launches (search._cuda_front_points; bert-b's 24^5 front, one CTA).
+    variant(
+        "dse_eval_padded",
+        lambda: dse.dse_eval_padded(cfg24, gemms=gemms,
+                                    wl_scalars=wl_scalars,
+                                    constants=CONSTANTS),
+        lambda: dse.dse_eval_padded_plain(cfg24, gemms=gemms,
+                                          wl_scalars=wl_scalars,
+                                          constants=CONSTANTS),
+        n_bytes=(5 + 4) * 4 * n24, n_ops=n24 * (HW_OPS + wl_ops),
+        shape=f"(5, {n24}) deit-b, the 24^5 space")
+    cols_f, front = inp.cols_front, inp.front
+    g_f = len(front)
+    kf = dict(gemms=inp.gemms_front, wl_scalars=inp.wl_scalars_front,
+              constants=CONSTANTS)
+    variant(
+        "dse_eval_padded",
+        lambda: dse.dse_eval_padded(cols_f, **kf),
+        lambda: dse.dse_eval_padded_plain(cols_f, **kf),
+        n_bytes=(5 + 4) * 4 * g_f,
+        n_ops=g_f * (HW_OPS + WL_FIXED_OPS
+                     + WL_PER_GEMM_OPS * len(inp.gemms_front)),
+        shape=f"(5, {g_f}) bert-b's 24^5 Pareto BnB front")
+    # The host round trip the Pareto BnB pays a batch: rows in, metrics out.
+    walls = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        ops.dse_eval_grid(front, inp.wl_front, CONSTANTS, device=dev)
+        walls.append(time.perf_counter() - t0)
+    front_wall_ms = statistics.median(walls[1:]) * 1e3
+    rows["dse_eval_padded"]["variants"][-1]["dse_eval_grid_wall_ms"] = \
+        front_wall_ms
+    print(f"ops.dse_eval_grid ({g_f}, 5) rows, bert-b: {front_wall_ms:.4f} "
+          f"ms wall a call (copies in and out, launch, sync; median of 20)")
     pass24 = hw_pass(dse.dse_eval_padded(
         cfg24, gemms=gemms, wl_scalars=wl_scalars, constants=CONSTANTS))
     pass24_5 = [hw_pass(dse.dse_eval_padded(
         cfg24, gemms=gm, wl_scalars=sc, constants=CONSTANTS))
         for gm, sc in workloads5]
-    del cfg24
+    del cfg24, inp.cols24
     nb = math.ceil(n24 / dse.DECODE_BLOCK)
 
     def walk_ops(meta_, n_lanes, n_wl):
@@ -1053,6 +1143,128 @@ def main() -> None:
               f"pruned {r.pruned_fraction:.6f} n_bounds {r.n_bounds} "
               f"n_overflow {r.n_overflow}; cuda {t_cold:.4f} s cold, "
               f"{t_warm:.4f} s warm; numpy {t_np:.4f} s")
+
+    # -- the torch engine: the cost model, masking, argmin and frontier scan
+    # in plain torch float32 on the card, no hand-written kernel ----------
+    from repro_torch.core.search import _torch_space_metrics
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def edp_keys(r):
+        return (r.best_cfg, r.edp, r.n_feasible)
+
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    torch_walls = {}
+    for objective in ("edp", "pareto"):
+        def batch(engine):
+            return search_workloads(wls, cons, engine=engine,
+                                    objective=objective, device=dev)
+        got, t_cold = timed(lambda: batch("torch"))
+        again, t_warm = timed(lambda: batch("torch"))
+        want, t_np = timed(lambda: batch("numpy"))
+        for n in names:
+            gold = golden["workloads"][n]
+            if objective == "edp":
+                _check([int(x) for x in got[n].best_cfg.as_array()]
+                       == gold["best"] and got[n].edp == gold["edp"]
+                       and got[n].n_feasible == gold["n_feasible"]
+                       and edp_keys(got[n]) == edp_keys(want[n])
+                       == edp_keys(again[n]),
+                       f"torch 12^5 {n}: winner or n_feasible differs from "
+                       f"the golden record or the numpy engine")
+            else:
+                _check(golden_front(got[n], n)
+                       and same_front(got[n], want[n], ("n_feasible",))
+                       and same_front(again[n], got[n]),
+                       f"torch 12^5 pareto {n}: the frontier differs from "
+                       f"the golden record or the numpy engine")
+        torch_walls[f"search_workloads 12^5 {objective}"] = (t_cold, t_warm,
+                                                             t_np)
+        print(f"torch search_workloads 12^5 {objective} (5 workloads, "
+              f"flat): golden and numpy agree; torch {t_cold:.4f} s cold, "
+              f"{t_warm:.4f} s warm; numpy {t_np:.4f} s")
+    # one streamed and one factorized query, against the numpy engine
+    for label, kw, n in (
+            ("streamed 12^5 chunk_size=50000", dict(chunk_size=50_000),
+             "deit-b"),
+            ("factorized 12^5 pareto", dict(factorized=True, space=space12,
+                                            objective="pareto"), "bert-b")):
+        got, t_t = timed(lambda: search(wls[n], cons, engine="torch",
+                                        device=dev, **kw))
+        want = search(wls[n], cons, engine="numpy", device=dev, **kw)
+        _check((golden_front(got, n) and same_front(got, want,
+                                                    ("n_feasible",)))
+               if "pareto" in label else
+               (edp_keys(got) == edp_keys(want)
+                and [int(x) for x in got.best_cfg.as_array()]
+                == golden["workloads"][n]["best"]),
+               f"torch {label} {n}: differs from the numpy engine")
+        print(f"torch {label} {n}: golden and numpy agree; {t_t:.4f} s")
+    # the production form at 24^5: every counter and the frontier equal
+    # numpy's exactly
+    bnb_keys = ("n_feasible", "n_workload_evals", "n_pruned", "n_bounds")
+    for objective in ("edp", "pareto"):
+        def tbnb(engine):
+            return search(wls["deit-b"], cons, engine=engine,
+                          factorized=True, space=space24, prune="bound",
+                          objective=objective, device=dev)
+        got, t_cold = timed(lambda: tbnb("torch"))
+        again, t_warm = timed(lambda: tbnb("torch"))
+        want, t_np = timed(lambda: tbnb("numpy"))
+        for r in (got, again):
+            _check(all(getattr(r, k) == getattr(want, k) for k in bnb_keys)
+                   and (edp_keys(r) == edp_keys(want) if objective == "edp"
+                        else same_front(r, want)),
+                   f"torch 24^5 prune=bound {objective} deit-b: "
+                   f"{[getattr(r, k) for k in bnb_keys]} vs numpy "
+                   f"{[getattr(want, k) for k in bnb_keys]}")
+        torch_walls[f"24^5 prune=bound {objective} deit-b"] = (t_cold, t_warm,
+                                                               t_np)
+        print(f"torch 24^5 prune=bound {objective} deit-b: counters "
+              f"{[getattr(got, k) for k in bnb_keys]} and "
+              f"{'winner' if objective == 'edp' else f'{got.size} rows'} "
+              f"equal numpy's; torch {t_cold:.4f} s cold, {t_warm:.4f} s "
+              f"warm; numpy {t_np:.4f} s")
+    # The float32 metric arrays on the card equal the engine's CPU arrays
+    # bit for bit (held against the reference in tests/test_torch_engine.py)
+    idx = torch.from_numpy(slab_indices(radices, slab))
+    m_dev = _torch_space_metrics(space24, wls["deit-b"], CONSTANTS, dev,
+                                 idx.to(dev))
+    m_cpu = _torch_space_metrics(space24, wls["deit-b"], CONSTANTS,
+                                 torch.device("cpu"), idx)
+    for k, v in m_cpu.items():
+        _check(torch.equal(m_dev[k].cpu(), v),
+               f"torch engine float32 {k} on the card differs from the CPU "
+               f"on the 24^5 slab")
+    counts = {k: n for c in counters for k, n in c.items()}
+    _check(not any(counts.values()),
+           f"the torch engine launched a hand-written kernel: {counts}")
+    print(f"torch engine: float32 metrics of the {len(idx)} slab members "
+          f"equal on the card and the CPU bit for bit; no kernel launched "
+          f"in the phase ({counts})")
+    # the cuda engine's warm wall times for the same queries, same call
+    for objective in ("edp", "pareto"):
+        search_workloads(wls, cons, engine="cuda", objective=objective,
+                         device=dev)
+        _, t_cuda = timed(lambda: search_workloads(
+            wls, cons, engine="cuda", objective=objective, device=dev))
+        t_cold, t_warm, t_np = torch_walls[f"search_workloads 12^5 "
+                                           f"{objective}"]
+        print(f"warm wall, search_workloads 12^5 {objective}: torch "
+              f"{t_warm:.4f} s, numpy {t_np:.4f} s, cuda {t_cuda:.4f} s")
+        _, t_cuda = timed(lambda: search(
+            wls["deit-b"], cons, engine="cuda", factorized=True,
+            space=space24, prune="bound", objective=objective, device=dev))
+        t_cold, t_warm, t_np = torch_walls[f"24^5 prune=bound {objective} "
+                                           f"deit-b"]
+        print(f"warm wall, 24^5 prune=bound {objective} deit-b: torch "
+              f"{t_warm:.4f} s, numpy {t_np:.4f} s, cuda {t_cuda:.4f} s")
 
     # -- kernel 7: the photonic DDot GEMM, at the serving path's shapes ----
     gen = torch.Generator(device=dev)

@@ -29,9 +29,11 @@ import math
 from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .arch_params import config_grid
-from .performance_model import cycle_factor_tables
+from .performance_model import (_ceil_div, cycle_factor_tables,
+                                workload_tail_tensors)
 from .photonic_model import CONSTANTS, DeviceConstants, eval_hw
 
 # Meshgrid axis order of the product space (see config_grid): N_t slowest,
@@ -210,6 +212,56 @@ def evaluate_space(axes, gemm_array, elec_ops, weight_bytes, act_io_bytes,
     if idx is None:
         out = {key: np.reshape(np.broadcast_to(v, radices), (-1,))
                for key, v in out.items()}
+    return out
+
+
+def evaluate_space_tensors(axes, gemm_t, elec_ops, weight_bytes,
+                           act_io_bytes, sram_mb,
+                           c: DeviceConstants = CONSTANTS, idx=None):
+    """Float32 factorized metrics on `gemm_t`'s device (the torch engine):
+    `evaluate_space(..., xp=jnp, col_dtype=np.float32)` of the reference.
+
+    gemm_t is the (W, 4) int32 `performance_model.gemm_tensor`; idx None
+    evaluates the whole space by the broadcast combine, an integer tensor
+    those flat indices by decode and table gathers. Returns the
+    `evaluate_grid` dict of float32 tensors, each element the value the
+    per-config float32 model gives that config.
+    """
+    dev = gemm_t.device
+    radices = tuple(len(a) for a in axes)
+    t, c_, v, h, lam = (torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+                        for a in axes)
+    m, k, n = gemm_t[:, 0], gemm_t[:, 1], gemm_t[:, 2]
+    f_m = _ceil_div(m[:, None], (t[:, None] * h[None, :]).reshape(1, -1))
+    f_n = _ceil_div(n[:, None], v[None, :])
+    f_k = _ceil_div(k[:, None], (c_[:, None] * lam[None, :]).reshape(1, -1))
+    w = f_m.shape[0]
+    f_m = f_m.reshape(w, len(t), len(h)) * 1.0
+    f_n = f_n * 1.0
+    f_k = f_k.reshape(w, len(c_), len(lam)) * 1.0
+    count = gemm_t[:, 3] * 1.0
+    t, c_, v, h, lam = (x.float() for x in (t, c_, v, h, lam))
+    if idx is None:
+        cols = (t[:, None, None, None, None], c_[None, :, None, None, None],
+                h[None, None, None, :, None], v[None, None, :, None, None],
+                lam[None, None, None, None, :])
+        a_b = f_m.permute(1, 2, 0)[:, None, None, :, None, :]
+        b_b = f_n.permute(1, 0)[None, None, :, None, None, :]
+        c_b = f_k.permute(1, 2, 0)[None, :, None, None, :, :]
+        cyc = a_b * b_b * c_b * count
+    else:
+        d_t, d_c, d_v, d_h, d_l = decode_digits(idx.long(), radices)
+        cols = t[d_t], c_[d_c], h[d_h], v[d_v], lam[d_l]
+        cyc = (f_m[:, d_t, d_h] * f_n[:, d_v] * f_k[:, d_c, d_l]
+               * count[:, None]).T
+    area, power = eval_hw(*cols, sram_mb, c)
+    energy, latency, util = workload_tail_tensors(
+        cols, cyc, power, gemm_t, elec_ops, weight_bytes, act_io_bytes, c)
+    out = {"area": area, "power": power, "energy": energy,
+           "latency": latency, "util": util, "edp": energy * latency}
+    if idx is None:
+        out = {key: torch.broadcast_to(x, radices).reshape(-1)
+               for key, x in out.items()}
     return out
 
 

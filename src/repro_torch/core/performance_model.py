@@ -1,10 +1,13 @@
 """Latency/energy model of a workload on a PTA config (eval_wload in Alg. 2).
 
-The port's copy of `repro.core.performance_model`, host side only: the
-ceil-divisions run in int64 numpy, every float product in float64, in the
+The port of `repro.core.performance_model`. On the host (numpy) the
+ceil-divisions run in int64, every float product in float64, in the
 reference's order, so the float64 results are bit-identical to it. The
-float32 device form of the same model lives in `kernels/dse_eval.py` (the
-CUDA kernels and their plain PyTorch versions).
+torch engine's float32 form, `eval_wload_tensors`, is the reference's
+`eval_wload_arrays(..., xp=jnp)`: int32 ceil-divisions, float32 products
+and sums in the same order, on the tensors' device. The kernels' float32
+form lives in `kernels/dse_eval.py` (the CUDA kernels and their plain
+PyTorch versions).
 
   cycles  = ceil(M / (N_t*N_h)) * ceil(N / N_v) * ceil(K / (N_c*N_lambda))
   latency = max(photonic GEMM time, off-chip streaming time) + electronic time
@@ -12,7 +15,10 @@ CUDA kernels and their plain PyTorch versions).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
 
 from .photonic_model import CONSTANTS, DeviceConstants, eval_hw, sram_mb_for_workload
 from .workload import Workload
@@ -113,6 +119,90 @@ def eval_wload_arrays(n_t, n_c, n_h, n_v, n_l, gemm_array, elec_ops,
               + c.e_dram_per_byte * (weight_bytes + act_io_bytes)
               + c.e_sram_per_byte * sram_bytes)
     return energy, latency, util
+
+
+# ---------------------------------------------------------------------------
+# The float32 model on torch tensors (the torch engine). The reference's jax
+# engine runs `eval_wload_arrays` / `eval_hw` with xp=jnp and x64 off:
+# int32 ceil-divisions, float32 everywhere else, Python-float constants
+# folded in float64 and rounded once where they meet an array (JAX's weak
+# typing; a torch op with a Python scalar rounds it the same way). Two
+# things differ from a literal translation: a sum over the GEMM axis adds
+# one GEMM at a time from zero, as XLA's reduce does (`torch.sum`
+# reassociates), and every division takes a tensor divisor (PyTorch's CUDA
+# division by a Python scalar multiplies by its reciprocal, and
+# `scalar / tensor` does too on every device).
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def gemm_tensor(gemms: tuple, device: torch.device) -> torch.Tensor:
+    """(W, 4) int32 [m, k, n, count] of a `workload_statics` GEMM list on
+    `device`, as the jax engine bakes it (int64, narrowed to int32)."""
+    return torch.from_numpy(
+        np.asarray(gemms, np.int64).astype(np.int32)).to(device)
+
+
+def scalar_tensor(x, device) -> torch.Tensor:
+    """A float32 0-d tensor of x on `device` (a divisor, or a bound)."""
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def gemm_sum(terms: torch.Tensor) -> torch.Tensor:
+    """Sum over the last (GEMM) axis, one term at a time from zero."""
+    total = torch.zeros(terms.shape[:-1], dtype=terms.dtype,
+                        device=terms.device)
+    for w in range(terms.shape[-1]):
+        total = total + terms[..., w]
+    return total
+
+
+def workload_tail_tensors(cols, cyc, power, gemm_t, elec_ops, weight_bytes,
+                          act_io_bytes, c: DeviceConstants = CONSTANTS):
+    """(energy, latency, util) from config columns, per-GEMM cycles (GEMM
+    axis last, broadcasting against the columns) and chip power: the
+    float32 tail that `eval_wload_arrays` and `factorized.evaluate_space`
+    share."""
+    n_t, n_c, n_h, n_v, n_l = cols
+    dev = cyc.device
+    m, k, n = (gemm_t[:, i] * 1.0 for i in range(3))
+    count = gemm_t[:, 3] * 1.0
+    total_cycles = gemm_sum(cyc)
+    macs = gemm_sum(m * k * n * count)
+    peak_macs = n_t * n_h * n_v * n_c * n_l
+    util = torch.div(macs, torch.maximum(total_cycles * peak_macs,
+                                         scalar_tensor(1.0, dev)))
+    t_photonic = torch.div(total_cycles, scalar_tensor(c.f_clk_hz, dev))
+    t_mem = (weight_bytes + act_io_bytes) / c.dram_bw_bytes
+    t_elec = elec_ops / c.elec_ops_per_s
+    latency = torch.maximum(t_photonic, scalar_tensor(t_mem, dev)) + t_elec
+    lanes = (n_t * n_h + n_v) * n_c * n_l
+    sram_bytes = torch.div(gemm_sum(cyc * lanes[..., None]) * c.act_bits,
+                           scalar_tensor(8.0, dev))
+    energy = (power * latency
+              + c.e_dram_per_byte * (weight_bytes + act_io_bytes)
+              + c.e_sram_per_byte * sram_bytes)
+    return energy, latency, util
+
+
+def eval_wload_tensors(n_t, n_c, n_h, n_v, n_l, gemm_t, elec_ops,
+                       weight_bytes, act_io_bytes, sram_mb,
+                       c: DeviceConstants = CONSTANTS):
+    """(energy_J, latency_s, utilization) float32 tensors of (G,) float32
+    config columns on one device — `eval_wload_arrays` with xp=jnp.
+
+    gemm_t: the (W, 4) int32 `gemm_tensor` on the columns' device; the
+    workload scalars are Python floats.
+    """
+    cols = (n_t, n_c, n_h, n_v, n_l)
+    t, c_, h, v, lam = (x[..., None] for x in cols)              # (G, 1)
+    m, k, n = gemm_t[:, 0], gemm_t[:, 1], gemm_t[:, 2]           # (W,)
+    cm = _ceil_div(m, (t * h).to(torch.int32)) * 1.0
+    cn = _ceil_div(n, v.to(torch.int32)) * 1.0
+    ck = _ceil_div(k, (c_ * lam).to(torch.int32)) * 1.0
+    cyc = cm * cn * ck * (gemm_t[:, 3] * 1.0)                    # (G, W)
+    _, power = eval_hw(*cols, sram_mb, c)
+    return workload_tail_tensors(cols, cyc, power, gemm_t, elec_ops,
+                                 weight_bytes, act_io_bytes, c)
 
 
 def eval_wload(cfg, wl: Workload, c: DeviceConstants = CONSTANTS):

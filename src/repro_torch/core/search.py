@@ -9,11 +9,15 @@ mode. The paper-level entry points:
                           already violate).
   * `exhaustive_search` — the paper's baseline: the full 1..N_z grid.
 
-The engine layer (`search` / `search_workloads`) has three interchangeable
+The engine layer (`search` / `search_workloads`) has four interchangeable
 backends over the same cost model, all returning identical `SearchResult`s:
 
   * `python` — the paper-faithful Alg. 2 sequential loop (the oracle);
   * `numpy`  — the whole grid as one broadcasted float64 computation;
+  * `torch`  — the same model in plain eager torch float32 on the search's
+               device, with masking, argmin and a sort-and-scan frontier
+               pass there (the reference's `jax` engine; it launches none
+               of the hand-written kernels);
   * `cuda`   — the fused CUDA search kernels (`kernels/dse_eval.py`):
                feasibility, EDP and a per-block argmin inside the kernel,
                so only a (3W, n_blocks) reduction leaves the device.
@@ -24,12 +28,13 @@ torch float32 on the search's device) before the workload evaluation;
 streams the grid (or the factorized index space) with a running argmin
 carried across chunks — into the kernels on cuda. `objective="pareto"`
 returns the whole non-dominated feasible set (`ParetoResult`) instead: the
-python oracle grows it incrementally, numpy masks it exactly in float64 and
+python oracle grows it incrementally, numpy masks it exactly in float64,
+torch sorts and scans its float32 points against a bounded buffer, and
 cuda reduces each block to its local front in the frontier kernels, after
 which every engine refines its candidates through the float64 reference
 model, so the frontiers come back byte-identical. `factorized=True`
-evaluates a product space from per-axis tables (numpy) or decodes the
-candidates on device (cuda), and `prune="bound"` runs the significance-
+evaluates a product space from per-axis tables (numpy, torch) or decodes
+the candidates on device (cuda), and `prune="bound"` runs the significance-
 ordered branch-and-bound over slabs of that space. Whichever backend picks
 the winner, its reported metrics are recomputed through the float64
 reference model (`eval_full`).
@@ -38,9 +43,9 @@ Every entry point takes `device=`: "cuda" (the default) launches the
 kernels and runs the prefilter on the card, and raises when no card is
 present; "cpu" runs the kernels' plain PyTorch versions. What the JAX
 package has beyond these slices — `shard>1`, `runtime=`, `keep_ledger=`,
-`workers=`, `calibration=`, `robust=` and the `torch` engine (the `jax`
-engine's counterpart) — raises NotImplementedError naming the ROADMAP item
-that ports it.
+`workers=`, `calibration=` and `robust=` — raises NotImplementedError
+naming the ROADMAP item that ports it; `engine="jax"` raises a ValueError
+that names `torch`, its counterpart.
 """
 from __future__ import annotations
 
@@ -54,9 +59,12 @@ import torch
 
 from .._device import resolve_device
 from .arch_params import Constraints, PTAConfig, config_grid
-from .factorized import FactorizedSpace, factorized_evaluate_grid
+from .factorized import (FactorizedSpace, evaluate_space_tensors,
+                         factorized_evaluate_grid)
 from .pareto import DEFAULT_OBJECTIVES, pareto_mask
-from .performance_model import calc_edp, eval_full, eval_wload_arrays
+from .performance_model import (calc_edp, eval_full, eval_wload_arrays,
+                                eval_wload_tensors, gemm_tensor,
+                                scalar_tensor, workload_statics)
 from .photonic_model import (CONSTANTS, DeviceConstants, area_breakdown,
                              eval_hw, power_breakdown, sram_mb_for_workload)
 from .significance import SignificanceScore, observe_significance, significant_params
@@ -68,7 +76,6 @@ REPORT_METRICS = ("area", "power", "energy", "latency", "util", "edp")
 # What the JAX package supports beyond this slice, with the ROADMAP.md
 # Queue 1 item that ports it.
 _LATER = {
-    "engine": (6, "the torch engine"),
     "shard": (8, "sharding across CUDA devices"),
     "calibration": (9, "calibration and robust search"),
     "robust": (9, "calibration and robust search"),
@@ -272,7 +279,7 @@ def dxpta_search(wl: Workload, constraints: Constraints = Constraints(),
     sets' product space). The default `python` engine is the paper-faithful
     sequential loop, including the EDP_svd=1000 initial cap; `collect=True`
     requires it. `factorized=True` hands the candidate sets to the
-    factorized product-space evaluation (numpy/cuda engines).
+    factorized product-space evaluation (numpy/torch/cuda engines).
     """
     dev = resolve_device(device)
     if collect and engine != "python":
@@ -479,8 +486,67 @@ def _cuda_engine(grid, wl, constraints, c, hierarchical, device):
                         time.perf_counter() - t0)
 
 
+def _constraint_vec(constraints, device) -> torch.Tensor:
+    """The (4,) float32 [area, power, energy, latency] bounds on `device`."""
+    return torch.tensor([constraints.area_mm2, constraints.power_w,
+                         constraints.energy_j, constraints.latency_s],
+                        dtype=torch.float32, device=device)
+
+
+def _torch_grid_metrics(cols, wl, c):
+    """Float32 metric tensors of (5, G) float32 config columns: the jax
+    engine's `eval_wload_arrays` and `eval_hw` (xp=jnp), on the columns'
+    device."""
+    gemms, scalars = workload_statics(wl, c)
+    n = tuple(cols[i] for i in range(5))
+    energy, latency, util = eval_wload_tensors(
+        *n, gemm_tensor(gemms, cols.device), *scalars[:3], scalars[3], c)
+    area, power = eval_hw(*n, scalars[3], c)
+    return {"area": area, "power": power, "energy": energy,
+            "latency": latency, "util": util, "edp": energy * latency}
+
+
+def _torch_feasible(m, valid, cons):
+    """Feasibility mask of float32 metric tensors under (4,) bounds."""
+    ok = ((m["area"] < cons[0]) & (m["power"] < cons[1])
+          & (m["energy"] < cons[2]) & (m["latency"] < cons[3]))
+    return ok if valid is None else valid & ok
+
+
+def _torch_argmin(m, ok):
+    """(index, its float32 EDP, n_feasible): the first lane of the least
+    feasible EDP (jnp.argmin's first hit; +inf everywhere when none)."""
+    edp = torch.where(ok, m["edp"], scalar_tensor(np.inf, ok.device))
+    i = torch.argmin(edp)
+    i, nf = torch.stack([i, ok.sum()]).tolist()
+    return i, float(edp[i]), nf
+
+
+def _torch_search_fn(sub, wl, constraints, c, device):
+    """(argmin index, its float32 EDP, n_feasible) of one workload over the
+    candidate rows, in plain torch float32 on `device` (the jax engine's
+    fused argmin)."""
+    cols = torch.from_numpy(np.ascontiguousarray(np.asarray(sub).T,
+                                                 np.float32)).to(device)
+    m = _torch_grid_metrics(cols, wl, c)
+    return _torch_argmin(m, _torch_feasible(
+        m, None, _constraint_vec(constraints, device)))
+
+
+def _torch_engine(grid, wl, constraints, c, hierarchical, device):
+    t0 = time.perf_counter()
+    sub, n_wl = _prefiltered(grid, wl, constraints, c, hierarchical, device)
+    if len(sub) == 0:
+        return _make_result(None, 0, wl, c, len(grid), 0,
+                            time.perf_counter() - t0)
+    i, _, nf = _torch_search_fn(sub, wl, constraints, c, device)
+    row = sub[i] if nf > 0 else None
+    return _make_result(row, nf, wl, c, len(grid), n_wl,
+                        time.perf_counter() - t0)
+
+
 ENGINES = {"python": _python_engine, "numpy": _numpy_engine,
-           "cuda": _cuda_engine}
+           "torch": _torch_engine, "cuda": _cuda_engine}
 
 
 # ---------------------------------------------------------------------------
@@ -616,8 +682,115 @@ def _pareto_cuda(grid, wl, constraints, c, hierarchical, device,
     return r
 
 
+# Sorted points per scan step and running-frontier buffer bound of the torch
+# sort-and-scan dominance pass (the jax engine's JAX_PARETO_CHUNK and
+# JAX_PARETO_MAX_FRONT). An overflowing buffer only grows the candidate
+# superset (never drops a true frontier point) — the host refinement
+# restores exactness — so the bound is a performance knob, not a limit.
+TORCH_PARETO_CHUNK = 2048
+TORCH_PARETO_MAX_FRONT = 256
+
+
+def _dominated_by(a, p):
+    """(len(p), len(a)) mask: [i, j] when row a[j] is <= p[i] in every
+    objective and < in one (jnp.all / jnp.any over the objectives)."""
+    le = torch.ones((p.shape[0], a.shape[0]), dtype=torch.bool,
+                    device=p.device)
+    lt = torch.zeros_like(le)
+    for k in range(p.shape[1]):
+        le &= a[None, :, k] <= p[:, None, k]
+        lt |= a[None, :, k] < p[:, None, k]
+    return le & lt
+
+
+def _pareto_scan_mask(objs) -> np.ndarray:
+    """Sort-and-scan dominance pass over already-masked objective vectors,
+    step for step the jax engine's.
+
+    objs: equal-length float32 tensors on one device (length a
+    TORCH_PARETO_CHUNK multiple), infeasible and padding rows already +inf.
+    The rows are lex-sorted (stable sorts, least significant objective
+    first: ties keep their input order, as jnp.lexsort's), so a dominator
+    precedes what it dominates, then scanned in chunks against a bounded
+    running-frontier buffer (survivors join it in order, the rows past
+    TORCH_PARETO_MAX_FRONT drop out) and the earlier rows of their own
+    chunk. A row whose first objective is not finite sorts after every
+    finite one and can neither survive nor join the buffer, so the scan
+    stops at the chunk that holds the last finite row. Returns the (n,)
+    boolean candidate mask in input order.
+    """
+    n = objs[0].shape[0]
+    dev = objs[0].device
+    order = torch.arange(n, device=dev)
+    for o in reversed(objs):
+        order = order[torch.sort(o[order], stable=True).indices]
+    pts = torch.stack([o[order] for o in objs], dim=1)
+    n_live = int(torch.isfinite(pts[:, 0]).sum())
+    cs, cap = TORCH_PARETO_CHUNK, TORCH_PARETO_MAX_FRONT
+    inf = scalar_tensor(np.inf, dev)
+    earlier = torch.ones((cs, cs), dtype=torch.bool, device=dev).tril(-1)
+    pos = torch.arange(cap + cs, device=dev)
+    buf = torch.full((cap, len(objs)), np.inf, dtype=torch.float32,
+                     device=dev)
+    surv = torch.zeros(n, dtype=torch.bool, device=dev)
+    for s in range(0, n_live, cs):
+        p = pts[s:s + cs]
+        ok = (torch.isfinite(p[:, 0]) & ~_dominated_by(buf, p).any(dim=1)
+              & ~(_dominated_by(p, p) & earlier).any(dim=1))
+        pool = torch.cat([buf, torch.where(ok[:, None], p, inf)])
+        key = torch.where(torch.isfinite(pool[:, 0]), pos, pos.numel())
+        buf = pool[torch.argsort(key, stable=True)[:cap]]
+        surv[s:s + cs] = ok
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    mask[order] = surv
+    return mask.cpu().numpy()
+
+
+def _padded_candidate_cols(sub, multiple: int, device):
+    """((5, n_pad) float32 cols, (n_pad,) bool validity) on `device`, the
+    candidate axis padded to a `multiple` multiple with all-ones configs
+    (valid model inputs, no division by zero), masked invalid."""
+    n = len(sub)
+    pad = (-n) % multiple
+    cols = np.ones((5, n + pad), np.float32)
+    cols[:, :n] = np.asarray(sub).T
+    valid = np.zeros(n + pad, bool)
+    valid[:n] = True
+    return (torch.from_numpy(cols).to(device),
+            torch.from_numpy(valid).to(device))
+
+
+def _torch_front_mask(m, ok, objectives):
+    """Candidate mask of the feasible lanes' frontier: each objective +inf
+    where infeasible, then the scan."""
+    inf = scalar_tensor(np.inf, ok.device)
+    return _pareto_scan_mask([torch.where(ok, m[k], inf)
+                              for k in objectives])
+
+
+def _torch_pareto_fn(sub, wl, constraints, c, device, objectives):
+    """(candidate mask over `sub`, n_feasible): the jax engine's fused
+    frontier-candidate pass in plain torch float32 on `device`."""
+    cols, valid = _padded_candidate_cols(sub, TORCH_PARETO_CHUNK, device)
+    m = _torch_grid_metrics(cols, wl, c)
+    ok = _torch_feasible(m, valid, _constraint_vec(constraints, device))
+    return _torch_front_mask(m, ok, objectives)[:len(sub)], int(ok.sum())
+
+
+def _pareto_torch(grid, wl, constraints, c, hierarchical, device,
+                  objectives):
+    t0 = time.perf_counter()
+    sub, n_wl = _prefiltered(grid, wl, constraints, c, hierarchical, device)
+    if len(sub) == 0:
+        return _pareto_result(sub, 0, wl, constraints, c, objectives,
+                              len(grid), 0, t0)
+    mask, nf = _torch_pareto_fn(sub, wl, constraints, c, device, objectives)
+    return _pareto_result(sub[mask], nf, wl, constraints, c, objectives,
+                          len(grid), n_wl, t0)
+
+
 PARETO_ENGINES = {"python": _pareto_python, "numpy": _pareto_numpy,
-                  "cuda": _pareto_cuda}
+                  "torch": _pareto_torch, "cuda": _pareto_cuda}
 
 
 # ---------------------------------------------------------------------------
@@ -674,7 +847,18 @@ def _edp_chunk_cuda(chunk, wl, constraints, c, hierarchical, device,
     return (sub[i] if i >= 0 else None), e, nf, n_wl
 
 
-EDP_CHUNK_ENGINES = {"python": _edp_chunk_python, "numpy": _edp_chunk_numpy}
+def _edp_chunk_torch(chunk, wl, constraints, c, hierarchical, device):
+    sub, n_wl = _prefiltered(chunk, wl, constraints, c, hierarchical, device)
+    if len(sub) == 0:
+        return None, float("inf"), 0, n_wl
+    i, e, nf = _torch_search_fn(sub, wl, constraints, c, device)
+    if nf == 0:
+        return None, float("inf"), 0, n_wl
+    return sub[i], e, nf, n_wl
+
+
+EDP_CHUNK_ENGINES = {"python": _edp_chunk_python, "numpy": _edp_chunk_numpy,
+                     "torch": _edp_chunk_torch}
 
 
 def _search_streamed(grid, wl, constraints, engine, hierarchical, c, device,
@@ -746,8 +930,18 @@ def _pareto_chunk_cuda(chunk, wl, constraints, c, hierarchical, device,
     return sub[idx], nf, n_wl, n_over
 
 
+def _pareto_chunk_torch(chunk, wl, constraints, c, hierarchical, device,
+                        objectives):
+    sub, n_wl = _prefiltered(chunk, wl, constraints, c, hierarchical, device)
+    if len(sub) == 0:
+        return np.zeros((0, 5), np.int64), 0, n_wl
+    mask, nf = _torch_pareto_fn(sub, wl, constraints, c, device, objectives)
+    return sub[mask], nf, n_wl
+
+
 PARETO_CHUNK_ENGINES = {"python": _pareto_chunk_python,
-                        "numpy": _pareto_chunk_numpy}
+                        "numpy": _pareto_chunk_numpy,
+                        "torch": _pareto_chunk_torch}
 
 
 def _empty_run_state():
@@ -822,7 +1016,7 @@ def _pareto_streamed(grid, wl, constraints, engine, hierarchical, c, device,
 # Factorized product-space evaluation (factorized=True)
 # ---------------------------------------------------------------------------
 
-FACTORIZED_ENGINES = ("numpy", "cuda")
+FACTORIZED_ENGINES = ("numpy", "torch", "cuda")
 
 
 def _factorized_space(space, grid, n_z, engine, hierarchical
@@ -918,6 +1112,9 @@ def _search_factorized(fspace, wl, constraints, engine, c, device,
             (gi,), (e,), (cf,) = dse_search_multi_factorized(
                 fspace, s, n, [wl], [constraints], c, device,
                 carry_edp=None if carry is None else [carry])
+        elif engine == "torch":
+            gi, e, cf = _edp_span_torch_factorized(fspace, wl, constraints,
+                                                   c, device, s, n)
         else:
             gi, e, cf = _edp_span_numpy_factorized(fspace, wl, constraints,
                                                    c, s, n)
@@ -963,6 +1160,109 @@ def _pareto_span_numpy_factorized(fspace, wl, constraints, c, start, n,
                                 lambda i: start + i)
 
 
+def _torch_space_metrics(fspace, wl, c, device, idx=None):
+    """Float32 factorized metric tensors on `device` (the jax engines'
+    `evaluate_space(..., xp=jnp, col_dtype=np.float32)`): the whole space,
+    or the flat indices of the int64 tensor `idx`."""
+    gemms, scalars = workload_statics(wl, c)
+    return evaluate_space_tensors(fspace.axes, gemm_tensor(gemms, device),
+                                  *scalars[:3], scalars[3], c, idx=idx)
+
+
+def _torch_factorized_full_fn(fspace, wl, constraints, c, device,
+                              objectives):
+    """The whole product space by the broadcast combine: (argmin, EDP,
+    n_feasible) for objectives=None, else (candidate mask, n_feasible)."""
+    m = _torch_space_metrics(fspace, wl, c, device)
+    ok = _torch_feasible(m, None, _constraint_vec(constraints, device))
+    if objectives is None:
+        return _torch_argmin(m, ok)
+    pad = (-fspace.size) % TORCH_PARETO_CHUNK
+    if pad:
+        m = {k: torch.cat([m[k], torch.full((pad,), np.inf,
+                                            dtype=torch.float32,
+                                            device=device)])
+             for k in objectives}
+        ok = torch.cat([ok, torch.zeros(pad, dtype=torch.bool,
+                                        device=device)])
+    return (_torch_front_mask(m, ok, objectives)[:fspace.size],
+            int(ok.sum()))
+
+
+def _padded_idx_operands(idx_arr, multiple: int, device):
+    """((n_pad,) int64 flat indices, (n_pad,) validity) on `device`, padded
+    to a `multiple` multiple by repeating the last index (always
+    decodable), the padding masked invalid. Eager torch compiles nothing
+    per shape, so the jax engine's power-of-two bucketing has no
+    counterpart."""
+    idx_arr = np.asarray(idx_arr, np.int64)
+    n = len(idx_arr)
+    n_pad = max(1, -(-n // multiple)) * multiple
+    out = np.full(n_pad, idx_arr[-1] if n else 0, np.int64)
+    out[:n] = idx_arr
+    valid = np.zeros(n_pad, bool)
+    valid[:n] = True
+    return (torch.from_numpy(out).to(device),
+            torch.from_numpy(valid).to(device))
+
+
+def _torch_factorized_span_fn(fspace, wl, constraints, c, device, idx,
+                              valid, objectives):
+    """An index vector by decode and table gathers: (argmin, EDP,
+    n_feasible) for objectives=None, else (candidate mask, n_feasible)."""
+    m = _torch_space_metrics(fspace, wl, c, device, idx)
+    ok = _torch_feasible(m, valid, _constraint_vec(constraints, device))
+    if objectives is None:
+        return _torch_argmin(m, ok)
+    return _torch_front_mask(m, ok, objectives), int(ok.sum())
+
+
+def _torch_factorized_idx_argmin(fspace, wl, constraints, c, device,
+                                 idx_arr):
+    """(best gidx or -1, its float32 EDP, n_feasible) over an explicit
+    ascending flat-index vector."""
+    idx, valid = _padded_idx_operands(idx_arr, 1, device)
+    i, e, nf = _torch_factorized_span_fn(fspace, wl, constraints, c, device,
+                                         idx, valid, None)
+    if nf == 0:
+        return -1, float("inf"), 0
+    return int(idx[i]), e, nf
+
+
+def _edp_span_torch_factorized(fspace, wl, constraints, c, device, start,
+                               n):
+    """(best gidx or -1, its float32 EDP, n_feasible) over an index span."""
+    if (start, n) == (0, fspace.size):
+        i, e, nf = _torch_factorized_full_fn(fspace, wl, constraints, c,
+                                             device, None)
+        return (i if nf > 0 else -1), e, nf
+    return _torch_factorized_idx_argmin(
+        fspace, wl, constraints, c, device,
+        np.arange(start, start + n, dtype=np.int64))
+
+
+def _torch_factorized_idx_mask(fspace, wl, constraints, c, device, idx_arr,
+                               objectives):
+    """(candidate gidx array, n_feasible) over an explicit ascending
+    flat-index vector; padding lanes are invalid, so never candidates."""
+    idx, valid = _padded_idx_operands(idx_arr, TORCH_PARETO_CHUNK, device)
+    mask, nf = _torch_factorized_span_fn(fspace, wl, constraints, c, device,
+                                         idx, valid, objectives)
+    return idx.cpu().numpy()[mask], nf
+
+
+def _pareto_span_torch_factorized(fspace, wl, constraints, c, device, start,
+                                  n, objectives):
+    """(candidate gidx array, n_feasible) over an index span."""
+    if (start, n) == (0, fspace.size):
+        mask, nf = _torch_factorized_full_fn(fspace, wl, constraints, c,
+                                             device, objectives)
+        return np.nonzero(mask)[0], nf
+    return _torch_factorized_idx_mask(
+        fspace, wl, constraints, c, device,
+        np.arange(start, start + n, dtype=np.int64), objectives)
+
+
 def _pareto_factorized(fspace, wl, constraints, engine, c, device,
                        objectives, chunk_size) -> ParetoResult:
     """Factorized frontier search (one-shot is the single-span case): a
@@ -980,6 +1280,10 @@ def _pareto_factorized(fspace, wl, constraints, engine, c, device,
             (idx, cf, co), = dse_pareto_multi_factorized(
                 fspace, s, n, [wl], [constraints], c, device,
                 objectives=objectives, carry_points=carry_points)
+        elif engine == "torch":
+            idx, cf = _pareto_span_torch_factorized(
+                fspace, wl, constraints, c, device, s, n, objectives)
+            co = 0
         else:
             idx, cf = _pareto_span_numpy_factorized(
                 fspace, wl, constraints, c, s, n, objectives)
@@ -1197,6 +1501,9 @@ def _bnb_eval_edp(engine, fspace, wl, constraints, c, device, ranges_list,
                 rows, [wl], [constraints], c, device)
             gi, e, f = (int(part[bi]) if bi >= 0 else -1), float(be), \
                 int(bn)
+        elif engine == "torch":
+            gi, e, f = _torch_factorized_idx_argmin(fspace, wl, constraints,
+                                                    c, device, part)
         else:
             gi, e, f = _edp_idx_numpy(fspace, wl, constraints, c, part)
         nf += f
@@ -1240,6 +1547,9 @@ def _bnb_eval_pareto(engine, fspace, wl, constraints, c, device,
                 objectives=objectives, carry_points=carry_points)
             cand = part[local]
             n_over += o
+        elif engine == "torch":
+            cand, f = _torch_factorized_idx_mask(fspace, wl, constraints, c,
+                                                 device, part, objectives)
         else:
             cand, f = _pareto_idx_numpy(fspace, wl, constraints, c, part,
                                         objectives)
@@ -1458,8 +1768,11 @@ def _workloads_cuda_factorized(wls, names, cons_for, fspace, c, device,
 def _check_later_args(engine, shard, runtime, keep_ledger, workers,
                       calibration, robust):
     """Refuse what the JAX package supports beyond these slices."""
-    if engine in ("torch", "jax"):
-        raise _not_ported("engine", engine)
+    if engine == "jax":
+        raise ValueError("engine='jax' is the reference's jit-compiled "
+                         "engine; repro_torch's counterpart is "
+                         "engine='torch' (plain torch float32 on the "
+                         "search's device)")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; pick from "
                          f"{sorted(ENGINES)}")
@@ -1512,7 +1825,7 @@ def _check_prune_arg(prune, factorized):
     if not factorized:
         raise ValueError("prune='bound' prices slabs of a product space "
                          "via the factorized axis tables; it requires "
-                         "factorized=True (numpy/cuda engines)")
+                         "factorized=True (numpy/torch/cuda engines)")
 
 
 def _check_grid(grid) -> np.ndarray:
@@ -1550,9 +1863,9 @@ def search(wl: Workload, constraints: Constraints = Constraints(), *,
     """Unified search over a config grid.
 
     Args:
-      engine: one of ENGINES (python, numpy, cuda). All return identical
-        results. Caveat: the cuda engine (and the hierarchical prefilter)
-        test feasibility in float32, so a config within one float32 ulp of
+      engine: one of ENGINES (python, numpy, torch, cuda). All return
+        identical results. Caveat: the torch and cuda engines (and the
+        hierarchical prefilter) test feasibility in float32, so a config within one float32 ulp of
         a constraint bound can classify differently than under the float64
         python/numpy engines — real design points never ride that edge.
       grid: (G, 5) candidate configs; defaults to the full 1..n_z grid.
@@ -1566,12 +1879,13 @@ def search(wl: Workload, constraints: Constraints = Constraints(), *,
         its own way, then every proposal is refined through the float64
         reference model, so identical frontiers come back byte-identical.
       pareto_metrics: objectives minimized in "pareto" mode, a subset of
-        REPORT_METRICS (the cuda kernels model all but "util").
+        REPORT_METRICS (the cuda kernels model all but "util"; torch
+        models all six).
       chunk_size: stream the grid (or index space) in chunks of this many
         candidates with a running argmin / frontier carried across chunks.
       factorized: evaluate a *product space* (`space=`, default the full
-        1..n_z space) from axis factor tables (numpy) or decoded on device
-        (cuda); hierarchical and an explicit `grid` are rejected.
+        1..n_z space) from axis factor tables (numpy, torch) or decoded on
+        device (cuda); hierarchical and an explicit `grid` are rejected.
       prune: "bound" runs the branch-and-bound driver over the factorized
         space; winners and frontiers stay byte-identical to the unpruned
         sweep, with the skipped volume in `n_pruned`. Requires

@@ -7,13 +7,14 @@ from .ops import (cuda_grid_search, ddot_matmul, decode_rows_device,
                   dse_search_multi, dse_search_multi_factorized,
                   dse_search_spans_factorized, flash_attention,
                   photonic_matmul)
-from .ref import (ddot_matmul_ref, dse_eval_ref, dse_search_ref,
-                  flash_attention_ref, quantize4)
+from .ref import (ddot_matmul_ref, dse_eval_ref, dse_pareto_ref,
+                  dse_search_ref, flash_attention_ref, quantize4)
 
 __all__ = ["cuda_grid_search", "ddot_matmul", "ddot_matmul_ref",
            "decode_rows_device", "dse_eval_grid", "dse_eval_ref",
            "dse_pareto_multi", "dse_pareto_multi_factorized",
-           "dse_pareto_spans_factorized", "dse_search_grid", "dse_search_multi",
+           "dse_pareto_ref", "dse_pareto_spans_factorized", "dse_search_grid",
+           "dse_search_multi",
            "dse_search_multi_factorized", "dse_search_spans_factorized",
            "dse_search_ref", "flash_attention", "flash_attention_ref",
            "photonic_matmul", "quantize4"]

@@ -27,17 +27,19 @@
 // instruction, and the card issues at most one float32 instruction per
 // lane per clock. The grid-operand kernels also read 20 bytes of config
 // (plus 4 of mask) and dse_eval writes 16, which at 3.35 TB/s outweighs
-// the arithmetic: they are bound by bytes. dse_decode_rows writes 24 bytes
+// the arithmetic on paper: they are bound by bytes (kernel 1 measured
+// otherwise: its section). dse_decode_rows writes 24 bytes
 // per lane and does little else: bytes. dse_search_decoded reads and
 // writes almost nothing: operations. The two frontier kernels add a
 // pairwise dominance pass, f(f-1)/2 pairs of 2d compares per block of f
 // feasible lanes: operations. No matrix product anywhere, so the tensor
 // cores (wgmma) and TMA have nothing to do here.
 // Every kernel reads the GEMM list and the pre-folded constants from shared
-// memory (one small parameter block per launch), and lanes that fail the
-// cheap area/power half skip the GEMM loop (exact: feasibility needs both).
-// Kernels 1 and 4-6 keep it simple: one thread per config lane (eight
-// lanes per thread in the frontier kernels); each logical block is reduced
+// memory (one small parameter block per launch); in the search and
+// frontier kernels, lanes that fail the cheap area/power half skip the GEMM
+// loop (exact: feasibility needs both). Kernel 1 prices a quad of lanes a thread, sharing what the quad's lanes
+// share (its section below says why); kernel 4 takes one thread per lane,
+// the frontier kernels eight lanes per thread, each logical block reduced
 // inside one CUDA block. The two min-EDP search kernels split each block
 // across a thread-block cluster and queue the area/power survivors (their
 // section below says why). The card has no integer divide instruction, so the
@@ -60,6 +62,7 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
@@ -222,6 +225,35 @@ __device__ __forceinline__ WlShared wl_shared(Cfg x) {
                   make_divisor(static_cast<int>(x.c * x.l))};
 }
 
+// One GEMM's term of _config_metrics_wl: its cycles (three ceil-divisions,
+// then ((f32(cm) * f32(cn)) * f32(ck)) * count) added to the running total
+// and to the SRAM lane sum, in list order.
+__device__ __forceinline__ void gemm_step(const int* q, const WlShared& s,
+                                          float& total, float& sram_lane) {
+  int cm = ceil_div(q[0], s.m);  // q: [m, k, n, count]
+  int cn = ceil_div(q[2], s.n);
+  int ck = ceil_div(q[1], s.k);
+  float cyc = ((static_cast<float>(cm) * static_cast<float>(cn))
+               * static_cast<float>(ck)) * __int_as_float(q[3]);
+  total = total + cyc;
+  sram_lane = sram_lane + cyc * s.lanes;
+}
+
+// _config_metrics_wl's epilogue: (energy, latency) from the summed cycles
+// and SRAM lane sum of workload record r.
+__device__ __forceinline__ void wl_epilogue(const int* p, const int* r,
+                                            float power, float total,
+                                            float sram_lane, float& energy,
+                                            float& latency) {
+  float t_photonic = total / kf(p, F_CLK);
+  float lat = fmaxf(t_photonic, __int_as_float(r[W_T_MEM]))
+              + __int_as_float(r[W_T_ELEC]);
+  float sram_bytes = sram_lane * kf(p, SRAM_SCALE);
+  energy = (power * lat + __int_as_float(r[W_E_DRAM]))
+           + sram_bytes * kf(p, E_SRAM);
+  latency = lat;
+}
+
 // _config_metrics_wl from its shared inputs: (energy, latency) of one
 // config for workload w.
 __device__ __forceinline__ void wl_tail(const int* p, int w,
@@ -231,22 +263,9 @@ __device__ __forceinline__ void wl_tail(const int* p, int w,
   float total = 0.0f;
   float sram_lane = 0.0f;
   for (int g = r[W_G0]; g < r[W_G1]; ++g) {
-    const int* q = gemm_record(p, g);  // [m, k, n, count]
-    int cm = ceil_div(q[0], s.m);
-    int cn = ceil_div(q[2], s.n);
-    int ck = ceil_div(q[1], s.k);
-    float cyc = ((static_cast<float>(cm) * static_cast<float>(cn))
-                 * static_cast<float>(ck)) * __int_as_float(q[3]);
-    total = total + cyc;
-    sram_lane = sram_lane + cyc * s.lanes;
+    gemm_step(gemm_record(p, g), s, total, sram_lane);
   }
-  float t_photonic = total / kf(p, F_CLK);
-  float lat = fmaxf(t_photonic, __int_as_float(r[W_T_MEM]))
-              + __int_as_float(r[W_T_ELEC]);
-  float sram_bytes = sram_lane * kf(p, SRAM_SCALE);
-  energy = (power * lat + __int_as_float(r[W_E_DRAM]))
-           + sram_bytes * kf(p, E_SRAM);
-  latency = lat;
+  wl_epilogue(p, r, power, total, sram_lane, energy, latency);
 }
 
 // _config_metrics_wl: (energy, latency) of one config for workload w.
@@ -384,23 +403,230 @@ __device__ __forceinline__ Cfg decode_lane(const float* __restrict__ axes,
   return gather_cfg(axes, max_radix, d);
 }
 
-__global__ void dse_eval_kernel(const float* __restrict__ cfg,
-                                float* __restrict__ out, int g,
-                                const int* __restrict__ params, int n_words) {
-  extern __shared__ int sp[];
-  load_params(params, n_words, sp);
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= g) return;
+// ---------------------------------------------------------------------------
+// Kernel 1, dse_eval_padded: (area, power, energy, latency) of every config
+// lane of a (5, G) column operand, for one workload.
+//
+// What bounds it: 36 bytes a lane (five config floats in, four metrics
+// out) against the cost model's instructions, most of them in the GEMM
+// loop. What held the parent's one-lane-a-thread design back
+// (tools/stage_dse.py on an H100): a launch that only reads and writes its
+// lanes took 0.0037 ms at 12^5 and 0.098 ms at 24^5 (1.14x the byte
+// bound), the area/power half added nothing measurable, and the GEMM loop
+// (three ceil-divisions and three int-to-float conversions a GEMM, every
+// lane on its own) added 0.0044 and 0.075 ms: the kernel was bound by
+// instruction issue, at 2.0x its byte bound at 24^5. Tensor cores and TMA
+// have nothing to do here: there is no matrix product, and a thread's share
+// of a column is 16 bytes.
+//
+// The design (tools/stage_dse.py times each choice against a design
+// build):
+//   * a thread prices a quad of consecutive lanes, read and written with
+//     one 16-byte access a row. A launch whose G is not a multiple of 4 or
+//     whose columns are not 16-byte aligned keeps one lane a thread;
+//   * where the quad's lanes hold the same (n_t, n_c, n_h, n_v) bits, as
+//     the consecutive lanes of a product grid do (lambda varies fastest),
+//     the terms above lambda, the M and N tile divisors and, per GEMM, the
+//     M and N factors and their product are computed once for the quad
+//     (the parent's one-lane-a-thread design is timed by
+//     `tools/stage_dse.py --base`). These are the same operations on the
+//     same values, so each lane's result is the one-lane kernel's. A quad
+//     whose lanes differ prices them one at a time with the one-lane code,
+//     reread from the cache;
+//   * a factor is recomputed only when its dimension differs from the
+//     previous GEMM's (k1-no-reuse recomputes all): the paper workloads
+//     repeat them, deit-b's eight GEMMs hold four distinct M, four K and
+//     six N;
+//   * a launch too small to give every SM a CTA one lane a thread (the
+//     Pareto BnB prices its running front, 15-200 rows, this way) keeps
+//     one lane a thread: a quad a thread would only lengthen the one
+//     CTA's chain;
+//   * a CTA per 256 quads. A grid capped at the CTAs the SMs hold at once,
+//     striding over the quads so that each CTA loads the parameter block
+//     once, timed no better on an H100.
+// ---------------------------------------------------------------------------
+
+constexpr int kQuad = 4;
+
+// The quad of lanes [i0, i0 + kQuad) of the (5, g) columns, one 16-byte
+// load a row (g % kQuad == 0, 16-byte aligned columns).
+__device__ __forceinline__ void load_quad(const float* __restrict__ cfg,
+                                          int g, int i0, Cfg (&x)[kQuad]) {
+  float4 r[5];
+#pragma unroll
+  for (int row = 0; row < 5; ++row) {
+    r[row] = reinterpret_cast<const float4*>(cfg + row * g)[i0 / kQuad];
+  }
+  x[0] = Cfg{r[0].x, r[1].x, r[2].x, r[3].x, r[4].x};
+  x[1] = Cfg{r[0].y, r[1].y, r[2].y, r[3].y, r[4].y};
+  x[2] = Cfg{r[0].z, r[1].z, r[2].z, r[3].z, r[4].z};
+  x[3] = Cfg{r[0].w, r[1].w, r[2].w, r[3].w, r[4].w};
+}
+
+__device__ __forceinline__ void store_quad(float* __restrict__ out, int g,
+                                           int i0,
+                                           const float (&o)[4][kQuad]) {
+#pragma unroll
+  for (int row = 0; row < 4; ++row) {
+    reinterpret_cast<float4*>(out + row * g)[i0 / kQuad] =
+        make_float4(o[row][0], o[row][1], o[row][2], o[row][3]);
+  }
+}
+
+__device__ __forceinline__ bool same_upper(Cfg a, Cfg b) {
+  return (__float_as_int(a.t) == __float_as_int(b.t))
+         & (__float_as_int(a.c) == __float_as_int(b.c))
+         & (__float_as_int(a.h) == __float_as_int(b.h))
+         & (__float_as_int(a.v) == __float_as_int(b.v));
+}
+
+// One lane i of the (5, g) columns, priced and stored as the one-lane
+// kernel of the parent design did.
+__device__ __forceinline__ void eval_lane(const int* p,
+                                          const float* __restrict__ cfg,
+                                          float* __restrict__ out, int g,
+                                          int i) {
   Cfg x{cfg[i], cfg[g + i], cfg[2 * g + i], cfg[3 * g + i], cfg[4 * g + i]};
   float area, power, energy, latency;
-  hw_metrics(sp, 0, x, area, power);
-  wl_metrics(sp, 0, x, power, energy, latency);
+#if defined(DSE_STAGE_IO_ONLY)
+  area = x.t;
+  power = x.c;
+  energy = x.h;
+  latency = x.v + x.l;
+#elif defined(DSE_STAGE_HW_ONLY)
+  hw_metrics(p, 0, x, area, power);
+  energy = x.h;
+  latency = x.v + x.l;
+#else
+  hw_metrics(p, 0, x, area, power);
+  wl_metrics(p, 0, x, power, energy, latency);
+#endif
   out[i] = area;
   out[g + i] = power;
   out[2 * g + i] = energy;
   out[3 * g + i] = latency;
 }
 
+// _config_metrics_hw and _config_metrics_wl of a quad whose lanes share
+// (n_t, n_c, n_h, n_v): o[row][j] is lane j's [area, power, energy,
+// latency][row]. Every value is the one-lane kernel's, op for op.
+__device__ __forceinline__ void price_quad(const int* p,
+                                           const Cfg (&x)[kQuad],
+                                           float (&o)[4][kQuad]) {
+  const int* r = wl_record(p, 0);
+#if defined(DSE_STAGE_IO_ONLY)
+  // Timing build of tools/stage_dse.py (outputs wrong by design): the
+  // lanes are read and written, nothing is priced.
+#pragma unroll
+  for (int j = 0; j < kQuad; ++j) {
+    o[0][j] = x[j].t;
+    o[1][j] = x[j].c;
+    o[2][j] = x[j].h;
+    o[3][j] = x[j].v + x[j].l;
+  }
+#else
+  const UpperTerms u = upper_terms(p, x[0].t, x[0].c, x[0].h, x[0].v);
+  const float th = x[0].t * x[0].h;
+  const float thvc = (th + x[0].v) * x[0].c;
+  float total[kQuad], sram_lane[kQuad], lanes[kQuad];
+  Divisor dk[kQuad];
+#pragma unroll
+  for (int j = 0; j < kQuad; ++j) {
+    float a, q;
+    hw_prefix_lane(p, u, x[j].l, a, q);
+    o[0][j] = (a + __int_as_float(r[W_A_SRAM])) + kf(p, A_CHIP);
+    o[1][j] = (q + __int_as_float(r[W_P_SRAM])) + kf(p, P_CHIP);
+    dk[j] = make_divisor(static_cast<int>(x[0].c * x[j].l));
+    lanes[j] = thvc * x[j].l;
+    total[j] = 0.0f;
+    sram_lane[j] = 0.0f;
+  }
+#if defined(DSE_STAGE_HW_ONLY)
+  // Timing build of tools/stage_dse.py (outputs wrong by design): the
+  // area/power half only.
+#pragma unroll
+  for (int j = 0; j < kQuad; ++j) {
+    o[2][j] = x[j].h;
+    o[3][j] = x[j].v + x[j].l;
+  }
+#else
+  const Divisor dm = make_divisor(static_cast<int>(th));
+  const Divisor dn = make_divisor(static_cast<int>(x[0].v));
+  // Each factor is recomputed only when its dimension differs from the
+  // previous GEMM's.
+  int pm = -1, pn = -1, pk = -1;
+  float fm = 0.0f, fn = 0.0f, fk[kQuad];
+  for (int gi = r[W_G0]; gi < r[W_G1]; ++gi) {
+    const int* q = gemm_record(p, gi);  // [m, k, n, count]
+#if defined(DSE_EVAL_NO_REUSE)
+    // Design build of tools/stage_dse.py: every factor of every GEMM.
+    pm = pn = pk = -1;
+#endif
+    if (q[0] != pm) {
+      pm = q[0];
+      fm = static_cast<float>(ceil_div(pm, dm));
+    }
+    if (q[2] != pn) {
+      pn = q[2];
+      fn = static_cast<float>(ceil_div(pn, dn));
+    }
+    if (q[1] != pk) {
+      pk = q[1];
+#pragma unroll
+      for (int j = 0; j < kQuad; ++j) {
+        fk[j] = static_cast<float>(ceil_div(pk, dk[j]));
+      }
+    }
+    const float mn = fm * fn;
+    const float cnt = __int_as_float(q[3]);
+#pragma unroll
+    for (int j = 0; j < kQuad; ++j) {
+      const float cyc = (mn * fk[j]) * cnt;
+      total[j] = total[j] + cyc;
+      sram_lane[j] = sram_lane[j] + cyc * lanes[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kQuad; ++j) {
+    wl_epilogue(p, r, o[1][j], total[j], sram_lane[j], o[2][j], o[3][j]);
+  }
+#endif
+#endif
+}
+
+// One lane a thread (no quads), or a quad a thread. The quad instance is
+// held to four CTAs an SM (64 registers): left to itself ptxas gives it
+// 74-75, three CTAs an SM, which ran the 24^5 space about 10 % slower on an
+// H100. The one-lane instance is held to the parent design's 32 registers
+// (eight CTAs an SM): under the quads' bound ptxas gave it 44, and it ran
+// the 24^5 space 10 % slower than the parent's build.
+template <bool kQuads>
+__global__ void __launch_bounds__(kThreads, kQuads ? 4 : 8) dse_eval_kernel(
+    const float* __restrict__ cfg, float* __restrict__ out, int g,
+    const int* __restrict__ params, int n_words) {
+  extern __shared__ int sp[];
+  load_params(params, n_words, sp);
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if constexpr (!kQuads) {
+    if (k < g) eval_lane(sp, cfg, out, g, k);
+  } else {
+    const int i0 = k * kQuad;
+    if (i0 >= g) return;
+    Cfg x[kQuad];
+    load_quad(cfg, g, i0, x);
+    bool shared = true;
+#pragma unroll
+    for (int j = 1; j < kQuad; ++j) shared &= same_upper(x[0], x[j]);
+    if (!shared) {  // one lane at a time, reread from the cache
+#pragma unroll 1
+      for (int i = i0; i < i0 + kQuad; ++i) eval_lane(sp, cfg, out, g, i);
+      return;
+    }
+    float o[4][kQuad];
+    price_quad(sp, x, o);
+    store_quad(out, g, i0, o);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Min-EDP search kernels (dse_search_padded, dse_search_decoded): per
@@ -1249,11 +1475,22 @@ extern "C" {
 
 int dse_eval_launch(const float* cfg, float* out, int g, const int* params,
                     int n_words, void* stream) {
-  int grid = (g + kThreads - 1) / kThreads;
-  if (grid > 0) {
-    dse_eval_kernel<<<grid, kThreads, n_words * sizeof(int),
-                      static_cast<cudaStream_t>(stream)>>>(cfg, out, g,
-                                                           params, n_words);
+  if (g <= 0) return static_cast<int>(cudaGetLastError());
+  const int smem = n_words * static_cast<int>(sizeof(int));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int dev = 0;
+  int n_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  const bool quads = g >= kThreads * n_sm && g % kQuad == 0
+                     && reinterpret_cast<uintptr_t>(cfg) % 16 == 0
+                     && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (quads) {
+    dse_eval_kernel<true><<<(g / kQuad + kThreads - 1) / kThreads, kThreads,
+                            smem, st>>>(cfg, out, g, params, n_words);
+  } else {  // one lane a thread
+    dse_eval_kernel<false><<<(g + kThreads - 1) / kThreads, kThreads, smem,
+                             st>>>(cfg, out, g, params, n_words);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,6 +34,23 @@ def dse_search_ref(grid: np.ndarray, wl: Workload, constraints,
     return int(np.argmin(edp)), n_feasible
 
 
+def dse_pareto_ref(grid: np.ndarray, wl: Workload, constraints,
+                   objectives=("area", "power", "edp"),
+                   c: DeviceConstants = CONSTANTS):
+    """Oracle for the frontier path (kernels.ops.dse_pareto_multi after the
+    host refinement): lex-sorted (front_rows, n_feasible) via the core
+    float64 model and the exact pareto_mask reduction."""
+    from ..core.pareto import pareto_mask
+
+    m = evaluate_grid(grid, wl, c)
+    ok = np.asarray(constraints.satisfied(m["area"], m["power"], m["energy"],
+                                          m["latency"]))
+    pts = np.stack([np.asarray(m[k], np.float64)[ok] for k in objectives],
+                   axis=1)
+    front = np.asarray(grid)[ok][pareto_mask(pts)].astype(np.int64)
+    return front[np.lexsort(front.T[::-1])], int(ok.sum())
+
+
 QMAX = 7.0
 NEG_INF = -1e30
 

@@ -225,7 +225,7 @@ def test_kernel_wrappers_match_reference_oracles():
 @pytest.mark.parametrize("kw", [
     dict(shard=2), dict(runtime="policy"),
     dict(keep_ledger=True), dict(workers=2), dict(calibration="nominal"),
-    dict(robust="worst_case"), dict(engine="torch"), dict(engine="jax")],
+    dict(robust="worst_case")],
     ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
 def test_later_slices_raise_not_implemented(kw):
     pw = from_reference(load("deit-t"))
@@ -234,6 +234,23 @@ def test_later_slices_raise_not_implemented(kw):
         P.search(pw, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.search_workloads([pw], device="cpu", **kw)
+
+
+@pytest.mark.parametrize("engine", ["torch", "jax"],
+                         ids=lambda e: f"engine={e}")
+def test_torch_engine_runs_and_jax_names_it(engine):
+    """`torch` is ported and equals numpy; `jax`, the reference's name for
+    it, is refused with a ValueError that names `torch`."""
+    wl, pw = _pair("deit-t")
+    if engine == "jax":
+        with pytest.raises(ValueError, match="engine='torch'"):
+            P.search(pw, engine="jax", device="cpu")
+        with pytest.raises(ValueError, match="engine='torch'"):
+            P.search_workloads([pw], engine="jax", device="cpu")
+        return
+    for kw in (dict(grid=GRID), dict(factorized=True, space=SPACE)):
+        _same(R.search(wl, engine="numpy", **kw),
+              P.search(pw, engine="torch", device="cpu", **kw), kw)
 
 
 def test_argument_validation_matches_reference():

@@ -5,8 +5,7 @@ builds of itself (and, optionally, another commit's), timed in turns.
     python3 tools/stage_dse.py [--base DIR] [--rounds 5]
 
 On one CUDA card. It compiles `src/repro_torch/kernels/csrc/dse_eval.cu`
-as it is and four more times with a stage cut out by the source's own
-stage macros:
+as it is and with a stage cut out by the source's own stage macros:
 
   * `no-dominance` (`-DDSE_STAGE_NO_DOMINANCE`): the frontier kernels'
     step 4 (the dominance test) removed, every feasible lane counts as
@@ -18,28 +17,41 @@ stage macros:
     decode their lanes and price nothing;
   * `hw-half` (`-DDSE_STAGE_HW_ONLY`): the search kernels price the
     area/power half and queue its survivors, and skip their dataflow half;
+    kernel 1 prices its area/power half only;
+  * `io-only` (`-DDSE_STAGE_IO_ONLY`): kernel 1 reads its configs and
+    writes its four rows, pricing nothing;
+
+and as a design build of kernel 1, with one choice of its design
+undone: `k1-no-reuse` (`-DDSE_EVAL_NO_REUSE`: every GEMM's factors
+computed, none reused from the previous GEMM; the parent's one lane a
+thread is timed by `--base`);
 
 and, with `--base DIR` (an unpacked copy of another commit, `git archive
 <commit> | tar -x -C DIR`), that commit's `dse_eval.cu`. The cut builds' outputs are wrong by design; the source build is held
 `torch.equal` to the base build (when given) on every case. It prints
 ptxas's registers and the SASS instruction counts (`chip_smoke.
 sass_counts`: shared, global and constant loads, conversions, software
-divisions) of the two search kernels in every build. Each build's library
-is loaded with ctypes and put in turn in the repo's library cache, where
+divisions) of kernel 1's instances and the two search kernels in every
+build. Each build's library is loaded with ctypes and put in turn in the repo's library cache, where
 the wrappers find it, and every case is timed with CUDA events (a spin
 kernel ahead of each window), the builds in turns, `--rounds` times; the
 medians are printed. The operands are `chip_smoke.py`'s (`dse_inputs`):
-kernels 1-2 and 5 on the 12^5 grid (deit-b; kernel 2 also with the five
-paper workloads in one launch, kernel 5 also on a block of 2048 duplicate
-rows), kernels 3, 4 and 6 on the whole 24^5 space (kernel 3 also with the
-five workloads, the factorized `search_workloads` launch), kernels 3 and 6
+kernels 1-2 and 5 on the 12^5 grid (deit-b; kernel 1 also on its columns
+in a seeded random order, `k1 perm`, and one row short, `k1 short`, over
+the whole 24^5 space and at bert-b's 24^5 Pareto BnB front, 166 rows;
+kernel 2 also
+with the five paper workloads in one launch, kernel 5 also on a block of
+2048 duplicate rows), kernels 3, 4 and 6 on the whole 24^5 space
+(kernel 3 also with the five workloads, the factorized `search_workloads` launch), kernels 3 and 6
 on one 24^5 slab. Pricing's share of a frontier kernel is its
 `price-only` time; the sort and the re-pricing of the sorted rows are
 `no-dominance` less `price-only`; the dominance test is the source build
 less `no-dominance`. A search kernel's decode (or config reads) is its
 `decode-only` time, less the launch's fixed part; its area/power half is
 `hw-half` less `decode-only`; its dataflow half is the source build less
-`hw-half`.
+`hw-half`. Kernel 1's reads and writes are its `io-only` time, its
+area/power half `hw-half` less `io-only`, its GEMM loop the source build
+less `hw-half`.
 """
 import argparse
 import contextlib
@@ -57,11 +69,14 @@ sys.path.insert(0, str(ROOT))
 #: The cut-down builds: extra nvcc flags on the same source.
 STAGES = {"source": (), "no-dominance": ("-DDSE_STAGE_NO_DOMINANCE",),
           "price-only": ("-DDSE_STAGE_PRICE_ONLY",),
+          "io-only": ("-DDSE_STAGE_IO_ONLY",),
+          "k1-no-reuse": ("-DDSE_EVAL_NO_REUSE",),
           "decode-only": ("-DDSE_STAGE_DECODE_ONLY",),
           "hw-half": ("-DDSE_STAGE_HW_ONLY",)}
 
 #: Kernels whose SASS instruction counts are printed for every build.
-SASS_KERNELS = ("dse_search_decoded_kernel", "dse_search_padded_kernel")
+SASS_KERNELS = ("dse_search_decoded_kernel", "dse_search_padded_kernel",
+                "dse_eval_kernel")
 
 
 def main() -> None:
@@ -122,9 +137,27 @@ def main() -> None:
     no_carry = torch.full((dse.CARRY_FRONT, 3), float("inf"), device=dev)
     pk = dict(workloads=workloads, objectives=("area", "power", "edp"),
               has_carry=False, constants=CONSTANTS)
+    # the 12^5 columns in a seeded random order: quads whose lanes differ
+    cols_perm = cols[:, torch.randperm(
+        cols.shape[1], device=dev,
+        generator=torch.Generator(device=dev).manual_seed(17))].contiguous()
+    # one row short (G % 4 != 0): one lane a thread at a grid's size
+    cols_short = cols[:, :-1].contiguous()
     cases = {
         "k1 12^5": lambda: dse.dse_eval_padded(
             cols, gemms=gemms, wl_scalars=wl_scalars, constants=CONSTANTS),
+        "k1 perm": lambda: dse.dse_eval_padded(
+            cols_perm, gemms=gemms, wl_scalars=wl_scalars,
+            constants=CONSTANTS),
+        "k1 short": lambda: dse.dse_eval_padded(
+            cols_short, gemms=gemms, wl_scalars=wl_scalars,
+            constants=CONSTANTS),
+        "k1 24^5": lambda: dse.dse_eval_padded(
+            x.cols24, gemms=gemms, wl_scalars=wl_scalars,
+            constants=CONSTANTS),
+        "k1 front": lambda: dse.dse_eval_padded(
+            x.cols_front, gemms=x.gemms_front,
+            wl_scalars=x.wl_scalars_front, constants=CONSTANTS),
         "k2 12^5": lambda: dse.dse_search_padded(
             cols, mask, cons_row, carry, workloads=workloads,
             constants=CONSTANTS),
