@@ -44,6 +44,22 @@ From the root of a checkout, with one CUDA card visible. It
      float32 metrics on a 24^5 slab equal to its CPU run bit for bit,
      fails if any hand-written kernel launched in the phase, and prints
      warm wall times beside numpy's and cuda's;
+  4c. drives the resident DSE service (`repro_torch.serve.SearchService`,
+     cuda engine, 24^5 space; `service_phase`): the five paper workloads
+     cold (min-EDP), two tightened boxes each warm, a memo repeat and one
+     submit/drain batch of the five under a looser box; deit-b and bert-b
+     Pareto cold then warm; a robust node45 worst-case query; the resilient
+     runtime (a service checkpoint root resumed by a restarted service, a
+     24^5 BnB killed at a checkpoint and resumed byte-identically, an
+     injected launch failure retried to the same answer; launch failures
+     past the retries and a NaN block each failing the search, as on a
+     card no unit falls back to another engine or to the host); the `dse`
+     launcher in-process. Answers equal the
+     numpy engine's, the service's stats a numpy service's; every query
+     without an injected fault shows no retry, fallback or quarantine, and
+     every cold query launched kernels 3 and 2 (min-EDP) or 6, 5 and 1
+     (Pareto). It prints each query's wall time beside the card's name and
+     power limit;
   5. holds the two LM kernels against their plain versions on the card:
      `ddot_gemm_quantized` (the photonic 4-bit GEMM, int8 tensor cores)
      `torch.equal` at the qwen2.5-3b LM head (4 x 2048 x 151,936, B
@@ -351,6 +367,319 @@ def dse_inputs(dev):
         meta_s=torch.from_numpy(
             ops._meta_rows(radices, [b0], b1, slab)[0]).to(dev))
 
+
+def service_phase(dev, n_z, hw, drive_service, float32_ties):
+    """Phase 4c: the resident DSE service on the card (`repro_torch.serve`).
+
+    `SearchService(engine="cuda")` over the n_z^5 space answers the five
+    paper workloads cold under the paper box (min-EDP), two tightened boxes
+    per workload warm, a repeat from the memo and one submit/drain batch of
+    the five under a looser box (cold, one batched call); deit-b and bert-b
+    cold then warm in Pareto mode; a robust node45 worst-case query; then
+    the resilient runtime on the card (a service checkpoint root resumed by
+    a restarted service, a BnB killed at a checkpoint and resumed, an
+    injected launch failure retried; launch failures past the retries and
+    an injected NaN block, each of which must fail the search with
+    LaunchExhausted or NanDetected, since on a card the runtime falls back
+    to no other engine and re-prices nothing on the host) and the `dse`
+    launcher in-process.
+
+    Every answer (winner and float64 metrics, or frontier) equals the numpy
+    engine's `search(..., factorized=True, prune="bound")` under the same
+    box and a numpy-engine service's answer to the same query, and so do
+    its BnB counters — except `n_feasible` where a config sits within a
+    float32 ulp of a bound of the box, which the float32 engines classify
+    as the kernels compute it (the documented caveat of `search`; it also
+    separates a cold cuda search from numpy's). So every counter must also
+    equal a torch-engine service's (the same float32 cost model, in plain
+    torch), and the services' `stats` must be equal. `drive_service(label,
+    fn, needs)` runs one entry-point call with the launch counts set to 0
+    just before it, fails unless each kernel in `needs` launched, adds the
+    counts to the "service" path and returns (result, wall seconds,
+    counts); `float32_ties(got, want, wl)` is phase 4's frontier rule. `hw`
+    is the card's name and power limit."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core import (Constraints, FactorizedSpace,
+                                  RuntimePolicy, SearchRuntime, search)
+    from repro_torch.core.calibration import load_calibration_preset
+    from repro_torch.core.paper_workloads import PAPER_WORKLOADS, load
+    from repro_torch.core.runtime import (KillSearch, LaunchExhausted,
+                                          NanDetected)
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import SearchService
+    from repro_torch.testing import FaultSpec, inject
+
+    space = FactorizedSpace.full(n_z)
+    names = sorted(PAPER_WORKLOADS)
+    wls = {n: load(n) for n in names}
+    edp_search = ("dse_search_decoded", "dse_search_padded")
+    pareto_search = ("dse_pareto_decoded", "dse_pareto_padded",
+                     "dse_eval_padded")
+    work = ("n_evaluated", "n_feasible", "n_workload_evals", "n_pruned",
+            "n_bounds")
+    work64 = tuple(k for k in work if k != "n_feasible")
+    health = ("n_retries", "n_fallbacks", "n_quarantined")
+
+    def numpy_search(wl, cons, **kw):
+        return search(wl, cons, engine="numpy", factorized=True, space=space,
+                      prune="bound", device=dev, **kw)
+
+    def same_edp(got, want, keys=()):
+        return ((got.best_cfg, got.edp, got.area_mm2, got.power_w,
+                 got.energy_j, got.latency_s)
+                == (want.best_cfg, want.edp, want.area_mm2, want.power_w,
+                    want.energy_j, want.latency_s)
+                and all(getattr(got, k) == getattr(want, k) for k in keys))
+
+    def same_counts(got, want, keys):
+        return all(getattr(got, k) == getattr(want, k) for k in keys)
+
+    def healthy(r, label):
+        _check(all(getattr(r, k) == 0 for k in health),
+               f"service {label}: no fault was injected, yet "
+               f"{[(k, getattr(r, k)) for k in health]}")
+
+    svc = SearchService(space=space, engine="cuda", device=dev)
+    ref_svc = SearchService(space=space, engine="numpy", device=dev)
+    f32_svc = SearchService(space=space, engine="torch", device=dev)
+    walls = []
+
+    def check(label, kind, got, want, want32, twin, wl):
+        """One answer against numpy's search (`twin`) and the numpy and
+        torch services' answers to the same query."""
+        edges = [r.n_feasible for r in ((want, twin) if kind == "cold"
+                                        else (want,))
+                 if r.n_feasible != got.n_feasible]
+        if hasattr(got, "front"):
+            for ref_front in (want, twin):
+                held = float32_ties(got, ref_front, wl)
+                _check(np.array_equal(got.front, ref_front.front[held])
+                       and all(np.array_equal(got.metrics[k],
+                                              ref_front.metrics[k][held])
+                               for k in ref_front.metrics),
+                       f"service {label} {kind}: frontier differs from "
+                       f"the numpy engine's")
+            answer = f"{got.size} frontier rows (numpy {twin.size})"
+        else:
+            _check(same_edp(got, twin) and same_edp(got, want)
+                   and same_edp(got, want32),
+                   f"service {label} {kind}: {got.best_cfg} {got.edp!r} vs "
+                   f"numpy {twin.best_cfg} {twin.edp!r}")
+            answer = f"{got.best_cfg} edp {got.edp!r}"
+        _check(same_counts(got, want32, work)
+               and same_counts(got, want, work64)
+               and (kind != "cold" or same_counts(got, twin, work64)),
+               f"service {label} {kind}: counters "
+               f"{[getattr(got, k) for k in work]}, numpy service "
+               f"{[getattr(want, k) for k in work]}, torch service "
+               f"{[getattr(want32, k) for k in work]}")
+        print(f"service {label}: {answer}; counters equal the numpy and "
+              f"torch services'"
+              + (f" (numpy n_feasible {edges[0]} against {got.n_feasible}: "
+                 f"configs within a float32 ulp of a bound)" if edges
+                 else ""))
+
+    def ask(label, kind, wl, box, objective="edp", needs=()):
+        got, wall, counts = drive_service(
+            f"{label} ({kind})",
+            lambda: svc.query(wl, box, objective=objective), needs)
+        walls.append((label, kind, wall))
+        healthy(got, label)
+        print(f"service {label}: {kind} {wall:.4f} s ({hw}); launches "
+              f"{ {k: n for k, n in counts.items() if n} }")
+        want = ref_svc.query(wl, box, objective=objective)
+        want32 = f32_svc.query(wl, box, objective=objective)
+        check(label, kind, got, want, want32,
+              numpy_search(wl, box, objective=objective), wl)
+        return got, want
+
+    def same_stats():
+        _check(svc.stats == ref_svc.stats == f32_svc.stats,
+               f"service stats {svc.stats} differ from the numpy "
+               f"service's {ref_svc.stats} or the torch service's "
+               f"{f32_svc.stats}")
+
+    # -- min-EDP: cold, warm, memo, batched --------------------------------
+    cold_box = Constraints()
+    boxes = (Constraints(power_w=4.5),
+             Constraints(power_w=4.0, area_mm2=45.0))
+    for n in names:
+        ask(f"{n} paper box", "cold", wls[n], cold_box, needs=edp_search)
+    for n in names:
+        for box in boxes:
+            label = (f"{n} power_w={box.power_w:g}"
+                     + (f" area_mm2={box.area_mm2:g}"
+                        if box.area_mm2 != cold_box.area_mm2 else ""))
+            ask(label, "warm", wls[n], box)
+    before = dict(svc.stats)
+    got, want = ask("deit-b paper box again", "memo", wls["deit-b"],
+                    cold_box)
+    _check(svc.stats["memo_hits"] == before["memo_hits"] + 1
+           and got is svc.query(wls["deit-b"], cold_box)
+           and ref_svc.query(wls["deit-b"], cold_box) is want
+           and f32_svc.query(wls["deit-b"], cold_box) is not None,
+           "service memo: the repeat was not answered from the memo")
+    loose = Constraints(power_w=6.0)
+    for s_ in (svc, ref_svc, f32_svc):
+        for n in names:
+            s_.submit(wls[n], loose)
+    batch, wall, counts = drive_service("drain of 5 under power_w=6",
+                                        svc.drain, edp_search)
+    walls.append(("5 workloads power_w=6 (submit/drain)", "cold batch",
+                  wall))
+    print(f"service drain of 5 under power_w=6: cold batch {wall:.4f} s "
+          f"({hw}); launches { {k: n for k, n in counts.items() if n} }")
+    for n, got, want, want32 in zip(names, batch, ref_svc.drain(),
+                                    f32_svc.drain()):
+        healthy(got, f"{n} power_w=6")
+        check(f"{n} power_w=6 (drain)", "cold", got, want, want32,
+              numpy_search(wls[n], loose), wls[n])
+    same_stats()
+    _check((svc.stats["cold"], svc.stats["warm"], svc.stats["memo_hits"],
+            svc.stats["batched_calls"]) == (10, 10, 2, 1),
+           f"service stats {svc.stats}")
+    print(f"service min-EDP: stats equal the numpy and torch services' "
+          f"({svc.stats})")
+
+    # -- Pareto: cold then warm --------------------------------------------
+    for n in ("deit-b", "bert-b"):
+        ask(f"{n} pareto paper box", "cold", wls[n], cold_box,
+            objective="pareto", needs=pareto_search)
+        ask(f"{n} pareto power_w=4.5", "warm", wls[n],
+            Constraints(power_w=4.5), objective="pareto")
+    same_stats()
+
+    # -- robust: node45 worst case, cold on cuda ---------------------------
+    node45 = load_calibration_preset("node45")
+    robust = dict(calibration=node45, robust="worst_case")
+    rsvc = SearchService(space=space, engine="cuda", device=dev, **robust)
+    got, wall, counts = drive_service(
+        "deit-b robust node45", lambda: rsvc.query(wls["deit-b"], cold_box),
+        edp_search)
+    walls.append(("deit-b robust node45 paper box", "cold", wall))
+    healthy(got, "robust")
+    want = numpy_search(wls["deit-b"], cold_box, **robust)
+    want32 = SearchService(space=space, engine="torch", device=dev,
+                           **robust).query(wls["deit-b"], cold_box)
+    plain = numpy_search(wls["deit-b"], cold_box)
+    # (infeasible under the worst corner below 24^5: no band on either)
+    band_ok = (got.band is None) == (want.band is None) and (
+        want.band is None
+        or all(getattr(got.band, side)[k] == getattr(want.band, side)[k]
+               for side in ("worst", "nominal", "best")
+               for k in want.band.worst))
+    _check(same_edp(got, want, work64) and same_counts(got, want32, work)
+           and band_ok,
+           f"service robust: {got.best_cfg} {got.edp!r} vs numpy "
+           f"{want.best_cfg} {want.edp!r} (band equal: {band_ok})")
+    band = ("no band (infeasible)" if got.band is None else
+            f"band edp [{got.band.best['edp']!r}, "
+            f"{got.band.worst['edp']!r}]")
+    print(f"service deit-b robust node45 worst case: cold {wall:.4f} s "
+          f"({hw}); {got.best_cfg} edp {got.edp!r} (nominal winner "
+          f"{plain.best_cfg}), {band}, equal numpy's; launches "
+          f"{ {k: n for k, n in counts.items() if n} }")
+
+    # -- the resilient runtime on the card ---------------------------------
+    wl = wls["deit-b"]
+    ref = numpy_search(wl, cold_box)
+    with tempfile.TemporaryDirectory() as root:
+        first = SearchService(space=space, engine="cuda", device=dev,
+                              checkpoint_root=root)
+        r1, wall, _ = drive_service(
+            "deit-b under a checkpoint root",
+            lambda: first.query(wl, cold_box), edp_search)
+        healthy(r1, "checkpointed")
+        again = SearchService(space=space, engine="cuda", device=dev,
+                              checkpoint_root=root)
+        r2, wall2, _ = drive_service(
+            "deit-b restarted service", lambda: again.query(wl, cold_box),
+            ())
+        _check(same_edp(r1, ref, work) and same_edp(r2, ref, work)
+               and r1.n_checkpoints > 0 and r2.resumed_step > 0,
+               f"service checkpoint root: {r1.n_checkpoints} checkpoints, "
+               f"resumed at {r2.resumed_step}, answers equal numpy: "
+               f"{same_edp(r1, ref, work)}, {same_edp(r2, ref, work)}")
+        print(f"service checkpoint root: cold {wall:.4f} s with "
+              f"{r1.n_checkpoints} checkpoints; a restarted service resumed "
+              f"at unit {r2.resumed_step} in {wall2:.4f} s ({hw}), same "
+              f"answer")
+
+        def bnb(rt):
+            return search(wl, cold_box, engine="cuda", factorized=True,
+                          space=space, prune="bound", device=dev, runtime=rt)
+
+        clean = bnb(SearchRuntime(RuntimePolicy(
+            checkpoint_dir=f"{root}/clean", sleep=lambda s: None)))
+        healthy(clean, "uninterrupted runtime")
+        killed_at = max(0, clean.n_checkpoints - 2)
+        pol = RuntimePolicy(checkpoint_dir=f"{root}/killed",
+                            sleep=lambda s: None)
+        rt = SearchRuntime(pol)
+        killed = False
+        with inject(rt, [FaultSpec("checkpoint", "kill", at=killed_at)]):
+            try:
+                bnb(rt)
+            except KillSearch:  # the fault this phase injected
+                killed = True
+        resumed = bnb(SearchRuntime(pol))
+        _check(killed and resumed.resumed_step == killed_at + 1
+               and same_edp(resumed, clean,
+                            work + health + ("n_checkpoints",))
+               and same_edp(clean, ref, work),
+               f"kill/resume: killed {killed}, resumed at "
+               f"{resumed.resumed_step}, byte-identical "
+               f"{same_edp(resumed, clean, work)}")
+        print(f"runtime: {n_z}^5 BnB killed at checkpoint {killed_at} of "
+              f"{clean.n_checkpoints}, resumed at unit "
+              f"{resumed.resumed_step}, winner and every counter equal the "
+              f"uninterrupted run")
+
+    def faulty(specs):
+        rt = SearchRuntime(RuntimePolicy(sleep=lambda s: None))
+        with inject(rt, specs):
+            return search(wl, cold_box, engine="cuda", factorized=True,
+                          space=space, prune="bound", device=dev, runtime=rt)
+
+    got = faulty([FaultSpec("launch", "raise", at=0)])
+    have = tuple(getattr(got, k) for k in health)
+    _check(have == (1, 0, 0) and same_edp(got, ref, work),
+           f"runtime, one injected launch failure: counters {have}, want "
+           f"(1, 0, 0); answer equal {same_edp(got, ref, work)}")
+    print(f"runtime: injected [('raise', 0)] -> n_retries/n_fallbacks/"
+          f"n_quarantined {have}, same answer")
+    for specs, fault, on_cpu in (
+            ([FaultSpec("launch", "raise", at=i) for i in range(3)],
+             LaunchExhausted, (3, 1, 0)),
+            ([FaultSpec("launch", "nan", at=0)], NanDetected, (0, 0, 1))):
+        label = [(s_.kind, s_.at) for s_ in specs]
+        if dev.type == "cpu":  # a rehearsal: the reference's chain holds
+            got = faulty(specs)
+            have = tuple(getattr(got, k) for k in health)
+            _check(have == on_cpu and same_edp(got, ref, work),
+                   f"runtime {label} on the cpu: counters {have}")
+            continue
+        try:
+            faulty(specs)
+            failed = None
+        except fault as e:  # the failure this phase injected
+            failed = e
+        _check(failed is not None, f"runtime {label}: the search answered; "
+                                   f"on the card it must raise "
+                                   f"{fault.__name__}")
+        print(f"runtime: injected {label} -> {fault.__name__} ({failed}); "
+              f"no fallback, no host re-pricing")
+
+    # -- the dse launcher, in-process --------------------------------------
+    _, wall, counts = drive_service(
+        "launch.serve dse", lambda: launch.main(
+            ["dse", "--workload", "all", "--n-z", str(n_z), "--device",
+             str(dev), "--scenario", "power_w=4.5", "--scenario",
+             "power_w=4.5"]), edp_search)
+    print(f"launch.serve dse (5 workloads x 3 boxes): {wall:.4f} s ({hw})")
+    return walls
 
 def main() -> None:
     import numpy as np
@@ -1266,6 +1595,31 @@ def main() -> None:
         print(f"warm wall, 24^5 prune=bound {objective} deit-b: torch "
               f"{t_warm:.4f} s, numpy {t_np:.4f} s, cuda {t_cuda:.4f} s")
 
+    # -- the resident service on the card (phase 4c) ----------------------
+    def drive_service(label, fn, needs):
+        """`drive` for the service phase: the counts of every call add up
+        under the one path "service"."""
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: n for c in counters for k, n in c.items()}
+        for name in needs:
+            _check(counts[name] > 0, f"service {label}: never launched "
+                                     f"{name}")
+        for name, n in counts.items():
+            if n:
+                rows[name]["launches"] += n
+                by_path = rows[name]["launches_by_path"]
+                by_path["service"] = by_path.get("service", 0) + n
+        return out, wall, counts
+
+    service_walls = service_phase(dev, 24, smi.stdout.strip(), drive_service,
+                                  float32_ties)
+
     # -- kernel 7: the photonic DDot GEMM, at the serving path's shapes ----
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1507,6 +1861,8 @@ def main() -> None:
     print(f"flash_attention entry point (1, 512, 16/2 heads, 128) f32: "
           f"within tolerance, {t_fa * 1e3:.3f} ms with its layout copies")
 
+    print(f"service wall times ({smi.stdout.strip()}): " + "; ".join(
+        f"{label} {kind} {wall:.4f} s" for label, kind, wall in service_walls))
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

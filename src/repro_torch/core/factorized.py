@@ -3,8 +3,9 @@
 The port's copy of `repro.core.factorized` (host side, numpy): the
 product-space description (`FactorizedSpace`), its mixed-radix decode, the
 float64 axis-table combine that is the numpy factorized engine, and the
-slab utilities and admissible interval bounds of the branch-and-bound
-search. The hot term of the cost model factors over low-rank slices of the
+slab utilities, admissible interval bounds and slab ledger
+(`SlabLedger`, `LedgerRecorder`) of the branch-and-bound search. The hot
+term of the cost model factors over low-rank slices of the
 space:
 
   gemm_cycles = ceil(M / (N_t*N_h)) * ceil(N / N_v) * ceil(K / (N_c*N_l))
@@ -639,3 +640,160 @@ def cached_bound_evaluator(fspace: FactorizedSpace, wl, c) -> \
     of rebuilding them per call. Bounded LRU keeps a process that rotates
     through many workloads from accumulating tables without limit."""
     return SlabBoundEvaluator.from_workload(fspace, wl, c)
+
+
+# ---------------------------------------------------------------------------
+# Slab ledger: the branch-and-bound run's pruning decisions, kept around
+# ---------------------------------------------------------------------------
+#
+# A bound-guided search partitions the product space into slabs it *pruned*
+# (their interval lower bounds proved no winner / frontier member can live
+# there) and slabs it *evaluated*. The drivers normally discard that
+# partition once the counters are summed; retaining it — together with the
+# pruned slabs' stored lower bounds — is what makes a later
+# *constraint-delta* query incremental: a new constraint box re-prices the
+# pruned slabs against their stored bounds (one vectorized compare) and only
+# the slabs whose bounds straddle the new box are ever descended again
+# (repro_torch.serve.SearchService is the consumer).
+
+@dataclasses.dataclass
+class SlabLedger:
+    """Serializable record of one bound-guided search's slab partition.
+
+    `pruned` holds the (P, 5, 2) digit ranges of every slab discarded by a
+    bound (constraint, incumbent-EDP or frontier-dominance), with the
+    admissible float64 lower bounds it was priced at in `bounds`
+    ({metric: (P,)}, every `core.search.REPORT_METRICS` key). `evaluated`
+    holds the (E, 5, 2) ranges of every leaf slab whose points reached an
+    engine. Together they tile the space exactly: `accounted() ==
+    prod(radices)` (asserted at capture time).
+
+    Soundness for re-pricing: the stored bounds are lower bounds for every
+    point of the slab, so a slab with ``bounds[m] >= new_limit`` stays dead
+    under any constraint box whose `m`-limit is at or below `new_limit`,
+    and a slab with ``bounds["edp"] > inc`` cannot beat a known-feasible
+    incumbent EDP `inc` — the exact arguments the live search makes,
+    replayed against persisted prices.
+    """
+
+    axes: Tuple[Tuple[int, ...], ...]      # identity of the priced space
+    pruned: np.ndarray                     # (P, 5, 2) int64 digit ranges
+    bounds: Dict[str, np.ndarray]          # {metric: (P,) float64}
+    evaluated: np.ndarray                  # (E, 5, 2) int64 digit ranges
+
+    def accounted(self) -> int:
+        """Total points covered by the pruned + evaluated slabs."""
+        total = 0
+        for arr in (self.pruned, self.evaluated):
+            if len(arr):
+                total += int(np.prod(arr[:, :, 1] - arr[:, :, 0],
+                                     axis=1).sum())
+        return total
+
+    def pruned_sizes(self) -> np.ndarray:
+        """(P,) point counts of the pruned slabs (re-pricing bookkeeping)."""
+        if not len(self.pruned):
+            return np.zeros(0, np.int64)
+        return np.prod(self.pruned[:, :, 1] - self.pruned[:, :, 0], axis=1)
+
+    def evaluated_indices(self) -> np.ndarray:
+        """Sorted flat indices of every point the search evaluated."""
+        radices = tuple(len(a) for a in self.axes)
+        return slab_indices_batch(radices, list(self.evaluated))
+
+    def to_arrays(self) -> Dict[str, np.ndarray]:
+        """Flat {name: ndarray} tree (np.savez / checkpoint-layer ready)."""
+        out = {"axes": np.asarray(
+                   [list(a) + [0] * (max(map(len, self.axes)) - len(a))
+                    for a in self.axes], np.int64),
+               "axis_lens": np.asarray([len(a) for a in self.axes],
+                                       np.int64),
+               "pruned": np.asarray(self.pruned, np.int64).reshape(-1, 5, 2),
+               "evaluated": np.asarray(self.evaluated,
+                                       np.int64).reshape(-1, 5, 2)}
+        for k, v in self.bounds.items():
+            out[f"lb_{k}"] = np.asarray(v, np.float64)
+        return out
+
+    @staticmethod
+    def from_arrays(tree: Mapping) -> "SlabLedger":
+        """Inverse of `to_arrays` (exact round-trip)."""
+        lens = np.asarray(tree["axis_lens"], np.int64)
+        axes = tuple(tuple(int(v) for v in row[:n])
+                     for row, n in zip(np.asarray(tree["axes"]), lens))
+        bounds = {k[3:]: np.asarray(v, np.float64)
+                  for k, v in tree.items() if k.startswith("lb_")}
+        return SlabLedger(
+            axes=axes,
+            pruned=np.asarray(tree["pruned"], np.int64).reshape(-1, 5, 2),
+            bounds=bounds,
+            evaluated=np.asarray(tree["evaluated"],
+                                 np.int64).reshape(-1, 5, 2))
+
+    def nbytes(self) -> int:
+        """Serialized byte size of this ledger — the exact `save()` npz
+        round-trip, which is the unit `repro_torch.serve.SearchService`'s
+        `max_ledger_bytes=` budget accounts base entries in."""
+        import io
+        buf = io.BytesIO()
+        np.savez_compressed(buf, **self.to_arrays())
+        return buf.getbuffer().nbytes
+
+    def save(self, path: str) -> None:
+        """Persist as a compressed .npz archive."""
+        np.savez_compressed(path, **self.to_arrays())
+
+    @staticmethod
+    def load(path: str) -> "SlabLedger":
+        """Load a ledger persisted by `save`."""
+        with np.load(path) as z:
+            return SlabLedger.from_arrays({k: z[k] for k in z.files})
+
+
+class LedgerRecorder:
+    """Collects a bound-guided run's pruning decisions into a `SlabLedger`.
+
+    The BnB drivers call `prune(ranges, lbs)` for every batch of slabs a
+    bound discards and `evaluate(ranges)` for every batch an engine
+    evaluates; `build()` concatenates the batches and checks that the two
+    sets tile the space exactly (a driver bug that dropped or
+    double-counted a slab would make every later delta query silently
+    wrong, so the invariant is enforced, not assumed).
+    """
+
+    METRIC_KEYS = ("area", "power", "energy", "latency", "util", "edp")
+
+    def __init__(self):
+        self._pruned: list = []
+        self._lbs: list = []
+        self._eval: list = []
+
+    def prune(self, ranges: np.ndarray, lbs: Mapping) -> None:
+        """Record pruned slabs ((B, 5, 2) ranges + their bound arrays)."""
+        if len(ranges):
+            self._pruned.append(np.asarray(ranges, np.int64))
+            self._lbs.append({k: np.asarray(lbs[k], np.float64)
+                              for k in self.METRIC_KEYS})
+
+    def evaluate(self, ranges: np.ndarray) -> None:
+        """Record evaluated leaf slabs ((B, 5, 2) ranges)."""
+        if len(ranges):
+            self._eval.append(np.asarray(ranges, np.int64))
+
+    def build(self, fspace: FactorizedSpace) -> SlabLedger:
+        """Assemble the ledger and verify it tiles `fspace` exactly."""
+        pruned = (np.concatenate(self._pruned) if self._pruned
+                  else np.zeros((0, 5, 2), np.int64))
+        bounds = {k: (np.concatenate([d[k] for d in self._lbs])
+                      if self._lbs else np.zeros(0))
+                  for k in self.METRIC_KEYS}
+        evaluated = (np.concatenate(self._eval) if self._eval
+                     else np.zeros((0, 5, 2), np.int64))
+        ledger = SlabLedger(axes=fspace.axes, pruned=pruned, bounds=bounds,
+                            evaluated=evaluated)
+        if ledger.accounted() != fspace.size:
+            raise AssertionError(
+                f"slab ledger accounts for {ledger.accounted()} of "
+                f"{fspace.size} points — a driver dropped or double-"
+                f"counted a slab")
+        return ledger

@@ -93,14 +93,6 @@ def merge_fronts(pts_a: np.ndarray, pts_b: np.ndarray) -> np.ndarray:
     return pareto_mask(np.vstack([pts_a, pts_b]))
 
 
-def _refuse_robust(calibration, robust):
-    if calibration is not None or robust is not None:
-        from .search import _not_ported
-        raise _not_ported("calibration" if calibration is not None
-                          else "robust",
-                          calibration if calibration is not None else robust)
-
-
 def pareto_front(grid: np.ndarray, wl: Workload,
                  metrics: Sequence[str] = DEFAULT_OBJECTIVES,
                  constraints: Optional[Constraints] = None, *,
@@ -113,12 +105,12 @@ def pareto_front(grid: np.ndarray, wl: Workload,
     runs on any engine and — with `hierarchical=True` — reuses the
     area/power prefilter's survivor set. `constraints=None` gives the
     frontier over *all* grid points, feasibility ignored. `calibration=` /
-    `robust=` are not ported yet (ROADMAP Queue 1 item 9) and raise
-    NotImplementedError.
+    `robust="worst_case"` forward to `search` for a variation-aware frontier
+    (dominance on worst-case metrics); the returned metrics are then the
+    worst-case ones.
     """
     from .search import search  # deferred: search imports pareto_mask
 
-    _refuse_robust(calibration, robust)
     if constraints is None:
         unconstrained = float("inf")
         constraints = Constraints(area_mm2=unconstrained,
@@ -127,7 +119,8 @@ def pareto_front(grid: np.ndarray, wl: Workload,
                                   latency_ms=unconstrained)
     r = search(wl, constraints, engine=engine, grid=grid,
                hierarchical=hierarchical, c=c, device=device,
-               objective="pareto", pareto_metrics=tuple(metrics))
+               objective="pareto", pareto_metrics=tuple(metrics),
+               calibration=calibration, robust=robust)
     return r.front, {k: r.metrics[k] for k in metrics}
 
 
@@ -151,16 +144,27 @@ def pareto_search_refined(wl: Workload,
     value while the others keep their frontier values. The returned
     `ParetoResult` is the exact frontier of the union of both passes'
     frontiers; `n_evaluated`, `n_workload_evals` and `n_feasible` sum both
-    passes. `calibration=` / `robust=` raise NotImplementedError (ROADMAP
-    Queue 1 item 9).
+    passes. `calibration=` / `robust="worst_case"` run both passes and the
+    final merge at the calibration's certified worst corner (exactly as in
+    `search`), and the result carries its uncertainty band; calibrations
+    with uncertified varying fields are rejected (the two-pass refinement
+    has no vertex-sweep fallback).
     """
     import time
 
-    from .search import (ParetoResult, _pareto_from_rows, _space_to_grid,
-                         build_search_space, search)
+    from .search import (ParetoResult, _measure_band, _pareto_from_rows,
+                         _resolve_robust, _space_to_grid, build_search_space,
+                         search)
 
-    _refuse_robust(calibration, robust)
     t0 = time.perf_counter()
+    c, cal, fallback = _resolve_robust(calibration, robust, c, engine)
+    if fallback:
+        raise ValueError(
+            "this calibration has uncertified varying fields "
+            f"({cal.unresolved()}): pareto_search_refined supports only "
+            "certified worst-corner robust search — certify the field "
+            "directions (core.calibration.MONOTONE) or use "
+            "search(objective='pareto')")
     significance = significance or observe_significance()
     coarse_grid = _space_to_grid(build_search_space(n_z, step, significance))
     coarse = search(wl, constraints, engine=engine, grid=coarse_grid,
@@ -184,7 +188,10 @@ def pareto_search_refined(wl: Workload,
                        axis=0)
     front, met, _ = _pareto_from_rows(merged, wl, constraints, c,
                                       tuple(metrics))
-    return ParetoResult(front=front, metrics=met, objectives=tuple(metrics),
-                        n_evaluated=n_evaluated, n_feasible=n_feasible,
-                        n_workload_evals=n_wl,
-                        wall_time_s=time.perf_counter() - t0)
+    res = ParetoResult(front=front, metrics=met, objectives=tuple(metrics),
+                       n_evaluated=n_evaluated, n_feasible=n_feasible,
+                       n_workload_evals=n_wl,
+                       wall_time_s=time.perf_counter() - t0)
+    if cal is not None:
+        res.band = _measure_band(res, cal, wl)
+    return res

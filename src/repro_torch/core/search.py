@@ -39,18 +39,30 @@ ordered branch-and-bound over slabs of that space. Whichever backend picks
 the winner, its reported metrics are recomputed through the float64
 reference model (`eval_full`).
 
+`calibration=` / `robust="worst_case"` carry calibration uncertainty
+(core.calibration) through any path: a robust search is an ordinary search
+at the calibration's certified worst corner, so its constants reach the
+cuda kernels through the same host-folded float32 parameters as any other
+`DeviceConstants`. `runtime=` attaches the resilient control plane
+(core.runtime): checkpoint/resume per evaluation unit, bounded retries
+and, on the CPU only, cuda -> torch -> numpy degradation and NaN
+quarantine, all without changing a result (on a card an exhausted or
+NaN-poisoned unit fails the search). `keep_ledger=True` keeps a bound-guided run's slab
+partition (`core.factorized.SlabLedger`), the warm-start substrate of
+`repro_torch.serve.SearchService`.
+
 Every entry point takes `device=`: "cuda" (the default) launches the
 kernels and runs the prefilter on the card, and raises when no card is
 present; "cpu" runs the kernels' plain PyTorch versions. What the JAX
-package has beyond these slices — `shard>1`, `runtime=`, `keep_ledger=`,
-`workers=`, `calibration=` and `robust=` — raises NotImplementedError
-naming the ROADMAP item that ports it; `engine="jax"` raises a ValueError
-that names `torch`, its counterpart.
+package has beyond these slices — `shard>1` and `workers=` — raises
+NotImplementedError naming the ROADMAP item that ports it; `engine="jax"`
+raises a ValueError that names `torch`, its counterpart.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 import time
 from typing import Dict, Mapping, Optional, Sequence, Union
 
@@ -59,6 +71,7 @@ import torch
 
 from .._device import resolve_device
 from .arch_params import Constraints, PTAConfig, config_grid
+from .calibration import RobustBand, as_calibration
 from .factorized import (FactorizedSpace, evaluate_space_tensors,
                          factorized_evaluate_grid)
 from .pareto import DEFAULT_OBJECTIVES, pareto_mask
@@ -67,6 +80,9 @@ from .performance_model import (calc_edp, eval_full, eval_wload_arrays,
                                 scalar_tensor, workload_statics)
 from .photonic_model import (CONSTANTS, DeviceConstants, area_breakdown,
                              eval_hw, power_breakdown, sram_mb_for_workload)
+from .runtime import (SearchRuntime, decode_best_indexed, decode_best_row,
+                      decode_front, encode_best_indexed, encode_best_row,
+                      encode_front, fingerprint as _fingerprint)
 from .significance import SignificanceScore, observe_significance, significant_params
 from .workload import Workload
 
@@ -77,10 +93,6 @@ REPORT_METRICS = ("area", "power", "energy", "latency", "util", "edp")
 # Queue 1 item that ports it.
 _LATER = {
     "shard": (8, "sharding across CUDA devices"),
-    "calibration": (9, "calibration and robust search"),
-    "robust": (9, "calibration and robust search"),
-    "runtime": (10, "the resilient runtime"),
-    "keep_ledger": (11, "serve (slab ledgers)"),
     "workers": (13, "the slab scheduler"),
 }
 
@@ -99,7 +111,7 @@ class SearchResult:
     `best_cfg` is the winning config (None when nothing satisfied the
     constraints) and the metric fields its float64 reference-model
     evaluation. The counters record how much work the search did and,
-    under `prune="bound"`, how much it skipped.
+    under `prune="bound"` / `runtime=`, how much it skipped or survived.
     """
 
     best_cfg: Optional[PTAConfig]
@@ -116,8 +128,32 @@ class SearchResult:
     # admissible slab bounds and slab bound evaluations performed.
     n_pruned: int = 0
     n_bounds: int = 0
+    # Resilient-runtime counters (search(..., runtime=)): transient launch
+    # retries, engine degradations and NaN-quarantined units re-evaluated
+    # on the host (both on the CPU only), committed snapshots, and the unit cursor this run resumed
+    # from (0 = cold start). Zero when no runtime is attached.
+    n_retries: int = 0
+    n_fallbacks: int = 0
+    n_quarantined: int = 0
+    n_checkpoints: int = 0
+    resumed_step: int = 0
     # Optional (collect=True): per-candidate metric arrays for Fig. 9 scatter.
     history: Optional[Dict[str, np.ndarray]] = None
+
+    # Slab ledger (prune="bound", keep_ledger=True): the run's pruned and
+    # evaluated slab partition with stored bounds, the warm-start substrate
+    # of repro_torch.serve. Excluded from equality: two searches that agree
+    # on everything above are the same result whether or not one kept it.
+    ledger: Optional[object] = dataclasses.field(default=None, repr=False,
+                                                 compare=False)
+
+    # Robust search (calibration=): the winner's uncertainty band — float64
+    # reference metrics at the calibration's worst, nominal and best
+    # corners (a core.calibration.RobustBand). None on uncalibrated
+    # searches and infeasible results; excluded from equality like the
+    # ledger.
+    band: Optional[RobustBand] = dataclasses.field(default=None, repr=False,
+                                                   compare=False)
 
     @property
     def feasible(self) -> bool:
@@ -152,10 +188,24 @@ class ParetoResult:
     # Bound-guided search counters, as on SearchResult.
     n_pruned: int = 0
     n_bounds: int = 0
+    # Resilient-runtime counters, as on SearchResult.
+    n_retries: int = 0
+    n_fallbacks: int = 0
+    n_quarantined: int = 0
+    n_checkpoints: int = 0
+    resumed_step: int = 0
     # cuda frontier-kernel blocks whose local front overflowed MAX_FRONT and
     # were refined on the host from the whole block (exact, just slower).
-    # Always 0 on the python/numpy engines.
+    # Always 0 on the python/numpy/torch engines.
     n_overflow: int = 0
+    # Slab ledger, as on SearchResult (keep_ledger=True only).
+    ledger: Optional[object] = dataclasses.field(default=None, repr=False,
+                                                 compare=False)
+    # Robust-search uncertainty band, as on SearchResult but with
+    # (F,)-arrays aligned row for row with `front`. None on uncalibrated
+    # searches and empty frontiers.
+    band: Optional[RobustBand] = dataclasses.field(default=None, repr=False,
+                                                   compare=False)
 
     @property
     def size(self) -> int:
@@ -270,7 +320,8 @@ def dxpta_search(wl: Workload, constraints: Constraints = Constraints(),
                  align_dims: Optional[Sequence[int]] = None,
                  prune: Union[bool, str] = True, collect: bool = False,
                  c: DeviceConstants = CONSTANTS, engine: str = "python",
-                 device=None, factorized: bool = False) -> SearchResult:
+                 device=None, factorized: bool = False, calibration=None,
+                 robust: Optional[str] = None) -> SearchResult:
     """The paper's constraint-aware search (Alg. 2).
 
     `engine` dispatches the significance-reduced grid to any backend of the
@@ -280,6 +331,10 @@ def dxpta_search(wl: Workload, constraints: Constraints = Constraints(),
     sequential loop, including the EDP_svd=1000 initial cap; `collect=True`
     requires it. `factorized=True` hands the candidate sets to the
     factorized product-space evaluation (numpy/torch/cuda engines).
+    `calibration=` / `robust="worst_case"` carry calibration uncertainty
+    through whichever path dispatches, exactly as in `search` (robust mode
+    needs a vectorized engine; the python loop accepts `calibration=` only
+    without `robust=`, running at its nominal constants).
     """
     dev = resolve_device(device)
     if collect and engine != "python":
@@ -288,15 +343,22 @@ def dxpta_search(wl: Workload, constraints: Constraints = Constraints(),
     space = build_search_space(n_z, step, significance, align_dims)
     if prune == "bound":
         return search(wl, constraints, engine=engine, factorized=True,
-                      space=space, c=c, device=dev, prune="bound")
+                      space=space, c=c, device=dev, prune="bound",
+                      calibration=calibration, robust=robust)
     if factorized:
         return search(wl, constraints, engine=engine, factorized=True,
-                      space=space, c=c, device=dev)
+                      space=space, c=c, device=dev, calibration=calibration,
+                      robust=robust)
     grid = _space_to_grid(space)
     if engine == "python":
-        return _sequential_search(grid, wl, constraints, prune, collect, c)
+        c, cal, _ = _resolve_robust(calibration, robust, c, engine)
+        res = _sequential_search(grid, wl, constraints, prune, collect, c)
+        if cal is not None:
+            res.band = _measure_band(res, cal, wl)
+        return res
     return search(wl, constraints, engine=engine, grid=grid,
-                  hierarchical=prune, c=c, device=dev)
+                  hierarchical=prune, c=c, device=dev,
+                  calibration=calibration, robust=robust)
 
 
 def exhaustive_search(wl: Workload, constraints: Constraints = Constraints(),
@@ -861,28 +923,71 @@ EDP_CHUNK_ENGINES = {"python": _edp_chunk_python, "numpy": _edp_chunk_numpy,
                      "torch": _edp_chunk_torch}
 
 
+def _rt_fp(tag, wl, constraints, engine, c, device, chunk_size, **extra):
+    """Search-signature fingerprint binding a checkpoint directory to one
+    exact search. Engine and device type are part of the signature: resume
+    re-runs the tail on the engine and device the head ran on (degradation
+    within a run is fine — engines are byte-identical — but resuming under
+    another engine= or device= is a different campaign)."""
+    return _fingerprint(tag=tag, wl=wl.name, gemms=wl.gemm_array,
+                        act=int(wl.max_act_bytes), cons=repr(constraints),
+                        engine=engine, c=repr(c), device=device.type,
+                        chunk=chunk_size, **extra)
+
+
+def _edp_chunk_thunks(chunk, wl, constraints, c, hierarchical, device, best):
+    """Byte-identical per-engine evaluations of one streamed EDP chunk for
+    the resilient runtime's retry / fallback / quarantine guard. Each
+    returns host values, so an attempt ends when its launches have."""
+    def cuda():
+        carry = best[1] if best[0] is not None else None
+        return _edp_chunk_cuda(chunk, wl, constraints, c, hierarchical,
+                               device, carry)
+
+    thunks = {"cuda": cuda}
+    for eng, fn in EDP_CHUNK_ENGINES.items():
+        thunks[eng] = functools.partial(fn, chunk, wl, constraints, c,
+                                        hierarchical, device)
+    return thunks
+
+
 def _search_streamed(grid, wl, constraints, engine, hierarchical, c, device,
-                     chunk_size) -> SearchResult:
-    """Chunked min-EDP driver, any engine."""
+                     chunk_size, rt=None) -> SearchResult:
+    """Chunked min-EDP driver, any engine; under a runtime each chunk is
+    one guarded, checkpointed unit."""
     t0 = time.perf_counter()
     n = len(grid)
     cs = int(chunk_size) if chunk_size else max(n, 1)
     best = (None, float("inf"))
     nf = n_wl = 0
-    for chunk in _iter_chunks(grid, cs):
-        if engine == "cuda":
-            # The kernel folds the carried best into its own reduction
-            # (carry wins ties), so per-chunk launches compose on device.
-            carry = best[1] if best[0] is not None else None
-            row, e, cf, cw = _edp_chunk_cuda(chunk, wl, constraints, c,
-                                             hierarchical, device, carry)
-        else:
-            row, e, cf, cw = EDP_CHUNK_ENGINES[engine](
-                chunk, wl, constraints, c, hierarchical, device)
+    start = 0
+    fp = None
+    if rt is not None:
+        fp = _rt_fp("edp_stream", wl, constraints, engine, c, device,
+                    chunk_size, grid=np.ascontiguousarray(grid),
+                    hier=bool(hierarchical))
+        rec = rt.resume(fp)
+        if rec is not None:
+            start, st, extra = rec
+            best = decode_best_row(st)
+            nf, n_wl = int(extra["nf"]), int(extra["n_wl"])
+    for u, chunk in enumerate(_iter_chunks(grid, cs)):
+        if u < start:
+            continue
+        thunks = _edp_chunk_thunks(chunk, wl, constraints, c, hierarchical,
+                                   device, best)
+        # The cuda kernel folds the carried best into its own reduction
+        # (carry wins ties), so per-chunk launches compose on device.
+        row, e, cf, cw = (thunks[engine]() if rt is None
+                          else rt.eval_unit(engine, thunks, device))
         nf += cf
         n_wl += cw
         best = merge_running_best(best, (row, e))
-    return _make_result(best[0], nf, wl, c, n, n_wl, time.perf_counter() - t0)
+        if rt is not None:
+            rt.unit_done(fp, u, encode_best_row(best),
+                         {"nf": nf, "n_wl": n_wl})
+    res = _make_result(best[0], nf, wl, c, n, n_wl, time.perf_counter() - t0)
+    return rt.annotate(res) if rt is not None else res
 
 
 def _pareto_chunk_python(chunk, wl, constraints, c, hierarchical, device,
@@ -983,8 +1088,27 @@ def _front_result(run_rows, run_met, wl, constraints, c, objectives,
                         n_workload_evals=n_wl, wall_time_s=wall, **counters)
 
 
+def _pareto_chunk_thunks(chunk, wl, constraints, c, hierarchical, device,
+                         objectives, run_rows):
+    """Per-engine streamed-frontier chunk evaluations, normalized to
+    (cand_rows, n_feasible, n_wl, n_overflow) for the runtime guard."""
+    def cuda():
+        return _pareto_chunk_cuda(chunk, wl, constraints, c, hierarchical,
+                                  device, objectives, run_rows)
+
+    def host(eng):
+        cand, cf, cw = PARETO_CHUNK_ENGINES[eng](
+            chunk, wl, constraints, c, hierarchical, device, objectives)
+        return cand, cf, cw, 0
+
+    thunks = {"cuda": cuda}
+    for eng in PARETO_CHUNK_ENGINES:
+        thunks[eng] = functools.partial(host, eng)
+    return thunks
+
+
 def _pareto_streamed(grid, wl, constraints, engine, hierarchical, c, device,
-                     objectives, chunk_size) -> ParetoResult:
+                     objectives, chunk_size, rt=None) -> ParetoResult:
     """Chunked frontier search, any engine: a running (float64-refined)
     frontier carried across chunks — into the kernels on cuda."""
     t0 = time.perf_counter()
@@ -992,24 +1116,39 @@ def _pareto_streamed(grid, wl, constraints, engine, hierarchical, c, device,
     cs = int(chunk_size) if chunk_size else max(n, 1)
     run_rows, run_met = _empty_run_state()
     nf = n_wl = n_over = 0
-    for chunk in _iter_chunks(grid, cs):
-        if engine == "cuda":
-            cand, cf, cw, co = _pareto_chunk_cuda(
-                chunk, wl, constraints, c, hierarchical, device, objectives,
-                run_rows)
-        else:
-            cand, cf, cw = PARETO_CHUNK_ENGINES[engine](
-                chunk, wl, constraints, c, hierarchical, device, objectives)
-            co = 0
+    start = 0
+    fp = None
+    if rt is not None:
+        fp = _rt_fp("pareto_stream", wl, constraints, engine, c, device,
+                    chunk_size, grid=np.ascontiguousarray(grid),
+                    hier=bool(hierarchical), objectives=tuple(objectives))
+        rec = rt.resume(fp)
+        if rec is not None:
+            start, st, extra = rec
+            run_rows, run_met = decode_front(st, REPORT_METRICS)
+            nf, n_wl = int(extra["nf"]), int(extra["n_wl"])
+            n_over = int(extra["n_over"])
+    for u, chunk in enumerate(_iter_chunks(grid, cs)):
+        if u < start:
+            continue
+        thunks = _pareto_chunk_thunks(chunk, wl, constraints, c, hierarchical,
+                                      device, objectives, run_rows)
+        cand, cf, cw, co = (thunks[engine]() if rt is None
+                            else rt.eval_unit(engine, thunks, device))
         nf += cf
         n_wl += cw
         n_over += co
         if len(cand):
             run_rows, run_met = _merge_running_front(
                 run_rows, run_met, cand, wl, constraints, c, objectives)
-    return _front_result(run_rows, run_met, wl, constraints, c, objectives,
-                         n, nf, n_wl, time.perf_counter() - t0,
-                         n_overflow=n_over)
+        if rt is not None:
+            rt.unit_done(fp, u, encode_front(run_rows, run_met,
+                                             REPORT_METRICS),
+                         {"nf": nf, "n_wl": n_wl, "n_over": n_over})
+    res = _front_result(run_rows, run_met, wl, constraints, c, objectives,
+                        n, nf, n_wl, time.perf_counter() - t0,
+                        n_overflow=n_over)
+    return rt.annotate(res) if rt is not None else res
 
 
 # ---------------------------------------------------------------------------
@@ -1099,31 +1238,57 @@ def _iter_spans(size: int, chunk_size):
         yield s, min(cs, size - s)
 
 
+def _edp_span_thunks(fspace, wl, constraints, c, device, s, n, best):
+    """Per-engine factorized EDP span evaluations, normalized to
+    (gidx or -1/CARRY_IDX, edp, n_feasible) for the runtime guard."""
+    def cuda():
+        from ..kernels.ops import dse_search_multi_factorized
+        carry = best[1] if best[0] >= 0 else None
+        (gi,), (e,), (cf,) = dse_search_multi_factorized(
+            fspace, s, n, [wl], [constraints], c, device,
+            carry_edp=None if carry is None else [carry])
+        return gi, e, cf
+
+    return {"cuda": cuda,
+            "torch": functools.partial(_edp_span_torch_factorized, fspace,
+                                       wl, constraints, c, device, s, n),
+            "numpy": functools.partial(_edp_span_numpy_factorized, fspace,
+                                       wl, constraints, c, s, n)}
+
+
 def _search_factorized(fspace, wl, constraints, engine, c, device,
-                       chunk_size) -> SearchResult:
+                       chunk_size, rt=None) -> SearchResult:
     """Factorized min-EDP driver (one-shot is the single-span case)."""
-    from ..kernels.ops import dse_search_multi_factorized
     t0 = time.perf_counter()
     best = (-1, float("inf"))
     nf = n_wl = 0
-    for s, n in _iter_spans(fspace.size, chunk_size):
-        if engine == "cuda":
-            carry = best[1] if best[0] >= 0 else None
-            (gi,), (e,), (cf,) = dse_search_multi_factorized(
-                fspace, s, n, [wl], [constraints], c, device,
-                carry_edp=None if carry is None else [carry])
-        elif engine == "torch":
-            gi, e, cf = _edp_span_torch_factorized(fspace, wl, constraints,
-                                                   c, device, s, n)
-        else:
-            gi, e, cf = _edp_span_numpy_factorized(fspace, wl, constraints,
-                                                   c, s, n)
+    start = 0
+    fp = None
+    if rt is not None:
+        fp = _rt_fp("edp_fact", wl, constraints, engine, c, device,
+                    chunk_size, axes=fspace.axes)
+        rec = rt.resume(fp)
+        if rec is not None:
+            start, st, extra = rec
+            best = decode_best_indexed(st)
+            nf, n_wl = int(extra["nf"]), int(extra["n_wl"])
+    for u, (s, n) in enumerate(_iter_spans(fspace.size, chunk_size)):
+        if u < start:
+            continue
+        thunks = _edp_span_thunks(fspace, wl, constraints, c, device, s, n,
+                                  best)
+        gi, e, cf = (thunks[engine]() if rt is None
+                     else rt.eval_unit(engine, thunks, device))
         nf += cf
         n_wl += n
         best = _merge_best_indexed(best, (gi, e))
+        if rt is not None:
+            rt.unit_done(fp, u, encode_best_indexed(best),
+                         {"nf": nf, "n_wl": n_wl})
     row = fspace.decode([best[0]])[0] if best[0] >= 0 else None
-    return _make_result(row, nf, wl, c, fspace.size, n_wl,
-                        time.perf_counter() - t0)
+    res = _make_result(row, nf, wl, c, fspace.size, n_wl,
+                       time.perf_counter() - t0)
+    return rt.annotate(res) if rt is not None else res
 
 
 def _front_candidates_of(m, constraints, objectives, index_of):
@@ -1263,31 +1428,60 @@ def _pareto_span_torch_factorized(fspace, wl, constraints, c, device, start,
         np.arange(start, start + n, dtype=np.int64), objectives)
 
 
+def _pareto_span_thunks(fspace, wl, constraints, c, device, objectives, s,
+                        n, run_rows):
+    """Per-engine factorized frontier span evaluations, normalized to
+    (candidate gidx array, n_feasible, n_overflow)."""
+    def cuda():
+        from ..kernels.ops import dse_pareto_multi_factorized
+        carry_points = None
+        if len(run_rows):
+            carry_points = [_cuda_front_points(run_rows, wl, c, device,
+                                               objectives)]
+        (idx, cf, co), = dse_pareto_multi_factorized(
+            fspace, s, n, [wl], [constraints], c, device,
+            objectives=objectives, carry_points=carry_points)
+        return idx, cf, co
+
+    def torch_():
+        idx, cf = _pareto_span_torch_factorized(fspace, wl, constraints, c,
+                                                device, s, n, objectives)
+        return idx, cf, 0
+
+    def numpy_():
+        idx, cf = _pareto_span_numpy_factorized(fspace, wl, constraints, c,
+                                                s, n, objectives)
+        return idx, cf, 0
+
+    return {"cuda": cuda, "torch": torch_, "numpy": numpy_}
+
+
 def _pareto_factorized(fspace, wl, constraints, engine, c, device,
-                       objectives, chunk_size) -> ParetoResult:
+                       objectives, chunk_size, rt=None) -> ParetoResult:
     """Factorized frontier search (one-shot is the single-span case): a
     running frontier across spans, carried into the kernel on cuda."""
-    from ..kernels.ops import dse_pareto_multi_factorized
     t0 = time.perf_counter()
     run_rows, run_met = _empty_run_state()
     nf = n_wl = n_over = 0
-    for s, n in _iter_spans(fspace.size, chunk_size):
-        if engine == "cuda":
-            carry_points = None
-            if len(run_rows):
-                carry_points = [_cuda_front_points(run_rows, wl, c, device,
-                                                   objectives)]
-            (idx, cf, co), = dse_pareto_multi_factorized(
-                fspace, s, n, [wl], [constraints], c, device,
-                objectives=objectives, carry_points=carry_points)
-        elif engine == "torch":
-            idx, cf = _pareto_span_torch_factorized(
-                fspace, wl, constraints, c, device, s, n, objectives)
-            co = 0
-        else:
-            idx, cf = _pareto_span_numpy_factorized(
-                fspace, wl, constraints, c, s, n, objectives)
-            co = 0
+    start = 0
+    fp = None
+    if rt is not None:
+        fp = _rt_fp("pareto_fact", wl, constraints, engine, c, device,
+                    chunk_size, axes=fspace.axes,
+                    objectives=tuple(objectives))
+        rec = rt.resume(fp)
+        if rec is not None:
+            start, st, extra = rec
+            run_rows, run_met = decode_front(st, REPORT_METRICS)
+            nf, n_wl = int(extra["nf"]), int(extra["n_wl"])
+            n_over = int(extra["n_over"])
+    for u, (s, n) in enumerate(_iter_spans(fspace.size, chunk_size)):
+        if u < start:
+            continue
+        thunks = _pareto_span_thunks(fspace, wl, constraints, c, device,
+                                     objectives, s, n, run_rows)
+        idx, cf, co = (thunks[engine]() if rt is None
+                       else rt.eval_unit(engine, thunks, device))
         nf += cf
         n_wl += n
         n_over += co
@@ -1295,9 +1489,14 @@ def _pareto_factorized(fspace, wl, constraints, engine, c, device,
             run_rows, run_met = _merge_running_front(
                 run_rows, run_met, fspace.decode(idx), wl, constraints, c,
                 objectives)
-    return _front_result(run_rows, run_met, wl, constraints, c, objectives,
-                         fspace.size, nf, n_wl, time.perf_counter() - t0,
-                         n_overflow=n_over)
+        if rt is not None:
+            rt.unit_done(fp, u, encode_front(run_rows, run_met,
+                                             REPORT_METRICS),
+                         {"nf": nf, "n_wl": n_wl, "n_over": n_over})
+    res = _front_result(run_rows, run_met, wl, constraints, c, objectives,
+                        fspace.size, nf, n_wl, time.perf_counter() - t0,
+                        n_overflow=n_over)
+    return rt.annotate(res) if rt is not None else res
 
 
 # ---------------------------------------------------------------------------
@@ -1361,11 +1560,14 @@ def _slab_first_indices(radices, ranges_list) -> np.ndarray:
     return arr[:, :, 0] @ strides
 
 
-def _bnb_descend(ev, prune_mask_fn, start, start_lbs, leaf_size, stats, c):
+def _bnb_descend(ev, prune_mask_fn, start, start_lbs, leaf_size, stats, c,
+                 led=None):
     """Slab-tree descent: process the active (B, 5, 2) digit-range array
     level by level — one vectorized `lower_bounds_batch` call plus one
     vectorized halving of the survivors along the significance order per
-    level. Returns the surviving ((L, 5, 2) leaves, {metric: (L,) bounds})."""
+    level. Returns the surviving ((L, 5, 2) leaves, {metric: (L,) bounds}).
+    With a `LedgerRecorder` attached every pruned slab is recorded with the
+    bounds it was priced at."""
     order = np.asarray(_bnb_axis_order(c))
     active, lbs = np.asarray(start, np.int64).reshape(-1, 5, 2), start_lbs
     leaf_parts = []
@@ -1375,6 +1577,8 @@ def _bnb_descend(ev, prune_mask_fn, start, start_lbs, leaf_size, stats, c):
         widths = active[:, :, 1] - active[:, :, 0]
         sizes = np.prod(widths, axis=1)
         stats["n_pruned"] += int(sizes[die].sum())
+        if led is not None:
+            led.prune(active[die], {k: v[die] for k, v in lbs.items()})
         keep = ~die
         is_leaf = keep & (sizes <= leaf_size)
         leaf_parts.append(active[is_leaf])
@@ -1405,14 +1609,14 @@ def _bnb_descend(ev, prune_mask_fn, start, start_lbs, leaf_size, stats, c):
     return leaves, out_lbs
 
 
-def _bnb_frontier(fspace, ev, constraints, c, stats):
+def _bnb_frontier(fspace, ev, constraints, c, stats, led=None):
     """Constraint-driven descent from the whole space to BNB_LEAF leaves."""
     from .factorized import full_ranges
     root = np.asarray([full_ranges(fspace.radices)], np.int64)
     lbs = ev.lower_bounds_batch(root)
     stats["n_bounds"] += 1
     return _bnb_descend(ev, lambda b: _bnb_infeasible_mask(b, constraints),
-                        root, lbs, BNB_LEAF, stats, c)
+                        root, lbs, BNB_LEAF, stats, c, led)
 
 
 def _bnb_dominated_vs(pts: np.ndarray, lbs_arrays, objectives) -> np.ndarray:
@@ -1427,6 +1631,56 @@ def _bnb_dominated_vs(pts: np.ndarray, lbs_arrays, objectives) -> np.ndarray:
     le = np.all(pts[None, :, :] <= corners[:, None, :], axis=-1)
     lt = np.any(pts[None, :, :] < corners[:, None, :], axis=-1)
     return np.any(le & lt, axis=1)
+
+
+@dataclasses.dataclass
+class WarmStart:
+    """Seed state for a warm-started bound-guided driver.
+
+    The constraint-delta path of `repro_torch.serve.SearchService` re-prices
+    a prior search's `SlabLedger` against a new constraint box and hands
+    the slabs it could not kill to the BnB drivers through this object
+    instead of the root descent: `start` (with its stored `lbs`) replaces
+    the `_bnb_frontier` leaf set, `best` / `nf` seed the EDP driver's
+    running argmin and incumbent with the best already-known feasible
+    point, and `rows` / `met` seed the pareto driver's running
+    (float64-refined) frontier. The seeds are true achievable values and
+    the stored bounds are admissible, so the warm drivers return the same
+    winners and frontiers as a cold search of the whole space under the new
+    box.
+    """
+
+    start: np.ndarray                      # (B, 5, 2) slabs still to search
+    lbs: Optional[Dict[str, np.ndarray]] = None  # their stored lower bounds
+    best: tuple = (-1, float("inf"))       # EDP mode: (gidx, float64 edp)
+    nf: int = 0                            # feasible count already known
+    rows: Optional[np.ndarray] = None      # pareto mode: (F, 5) seed rows
+    met: Optional[Dict[str, np.ndarray]] = None  # their metric columns
+
+
+def _warm_leaves(warm, ev, stats):
+    """(leaves, their lower bounds) of a WarmStart: the stored bounds when
+    it carries them, else priced here (and counted)."""
+    leaves = np.asarray(warm.start, np.int64).reshape(-1, 5, 2)
+    if warm.lbs is not None and len(leaves):
+        lbs = {k: np.asarray(warm.lbs[k], np.float64)
+               for k in REPORT_METRICS}
+    elif len(leaves):
+        lbs = ev.lower_bounds_batch([tuple(tuple(r) for r in rng)
+                                     for rng in leaves])
+        stats["n_bounds"] += len(leaves)
+    else:
+        lbs = {k: np.zeros(0) for k in REPORT_METRICS}
+    return leaves, lbs
+
+
+def _check_warm(warm, rt, led):
+    if warm is not None and rt is not None:
+        raise ValueError("warm= cannot combine with a runtime: checkpoint "
+                         "the cold search, re-price deltas warm")
+    if warm is not None and led is not None:
+        raise ValueError("warm= cannot capture a ledger: warm slabs do not "
+                         "tile the space (delta against the cold ledger)")
 
 
 def _bnb_order(fspace, ranges_list, lbs, objectives=None) -> np.ndarray:
@@ -1560,8 +1814,15 @@ def _bnb_eval_pareto(engine, fspace, wl, constraints, c, device,
             else np.zeros(0, np.int64)), nf, n_over
 
 
+def _bnb_thunks(run):
+    """The runtime's per-engine alternatives of one BnB batch evaluation."""
+    return {eng: functools.partial(run, eng)
+            for eng in ("numpy", "torch", "cuda")}
+
+
 def _search_factorized_bnb(fspace, wl, constraints, engine, c, device,
-                           chunk_size) -> SearchResult:
+                           chunk_size, rt=None, led=None,
+                           warm=None) -> SearchResult:
     """Bound-guided min-EDP driver.
 
     Phase 1 (`_bnb_frontier`): constraint-prune the slab tree down to
@@ -1571,18 +1832,74 @@ def _search_factorized_bnb(fspace, wl, constraints, engine, c, device,
     *sweep* — evaluate the refined survivors best-first in BNB_BATCH
     batches, stopping once the smallest remaining bound clears the
     incumbent.
+
+    With a runtime attached the evaluation *unit* is one probe/sweep batch.
+    The checkpoint carries the incumbent, the running (gidx, edp) argmin,
+    the counters and the phase cursor; the slab frontier and the refinement
+    are recomputed on resume (pure deterministic functions of the space and
+    the checkpointed incumbent; their bound/prune work is already in the
+    restored counters, so a throwaway stats dict keeps the totals exact).
+
+    A `WarmStart` (`warm=`) replaces the root slab frontier with a prior
+    run's re-priced surviving slabs and seeds the running argmin and
+    incumbent from its point store (the serve layer's constraint-delta
+    path). A `LedgerRecorder` (`led=`) captures the pruned/evaluated slab
+    partition onto ``result.ledger``. Warm starts exclude both the runtime
+    and the ledger (warm slabs no longer tile the space).
     """
     from .factorized import cached_bound_evaluator
+    _check_warm(warm, rt, led)
     t0 = time.perf_counter()
     ev = cached_bound_evaluator(fspace, wl, c)
     stats = {"n_pruned": 0, "n_bounds": 0}
     state = {"inc": float("inf"), "best": (-1, float("inf")),
              "nf": 0, "n_eval": 0}
-    leaves, lbs = _bnb_frontier(fspace, ev, constraints, c, stats)
+    fp = None
+    rec = None
+    if rt is not None:
+        fp = _rt_fp("edp_bnb", wl, constraints, engine, c, device,
+                    chunk_size, axes=fspace.axes, leaf=BNB_LEAF,
+                    batch=BNB_BATCH, fine=BNB_FINE)
+        rec = rt.resume(fp)
+    unit = 0
+    phase, probe_end = "probe", 0
+    inc_refine = float("inf")
+    if rec is not None:
+        # A resumed run replays only the tail of the schedule — the head's
+        # evaluated leaves never pass through this process, so no complete
+        # partition can be captured.
+        led = None
+        unit, st, extra = rec
+        leaves, lbs = _bnb_frontier(fspace, ev, constraints, c,
+                                    {"n_pruned": 0, "n_bounds": 0})
+        state["best"] = decode_best_indexed(st)
+        state["inc"] = float(st["inc"][0])
+        inc_refine = float(st["inc_refine"][0])
+        state["nf"] = int(extra["nf"])
+        state["n_eval"] = int(extra["n_eval"])
+        stats["n_pruned"] = int(extra["n_pruned"])
+        stats["n_bounds"] = int(extra["n_bounds"])
+        phase, probe_end = extra["phase"], int(extra["probe_end"])
+    elif warm is not None:
+        leaves, lbs = _warm_leaves(warm, ev, stats)
+        state["best"] = (int(warm.best[0]), float(warm.best[1]))
+        if state["best"][0] >= 0:
+            state["inc"] = state["best"][1]
+        state["nf"] = int(warm.nf)
+    else:
+        leaves, lbs = _bnb_frontier(fspace, ev, constraints, c, stats, led)
+    resumed_sweep = phase == "sweep"
 
     def evaluate(ranges_list, n_points):
-        gi, e, f = _bnb_eval_edp(engine, fspace, wl, constraints, c, device,
+        if led is not None:
+            led.evaluate(np.asarray(ranges_list, np.int64).reshape(-1, 5, 2))
+
+        def run(eng):
+            return _bnb_eval_edp(eng, fspace, wl, constraints, c, device,
                                  ranges_list, chunk_size)
+
+        gi, e, f = (run(engine) if rt is None
+                    else rt.eval_unit(engine, _bnb_thunks(run), device))
         state["nf"] += f
         state["n_eval"] += n_points
         merged = _merge_best_indexed(state["best"], (gi, e))
@@ -1595,70 +1912,154 @@ def _search_factorized_bnb(fspace, wl, constraints, engine, c, device,
             _, _, energy, latency = eval_full(cfg, wl, c)[:4]
             state["inc"] = calc_edp(energy, latency)
 
+    def snapshot():
+        st = encode_best_indexed(state["best"])
+        st["inc"] = np.asarray([state["inc"]], np.float64)
+        st["inc_refine"] = np.asarray([inc_refine], np.float64)
+        rt.unit_done(fp, unit, st, {
+            "nf": state["nf"], "n_eval": state["n_eval"],
+            "n_pruned": stats["n_pruned"], "n_bounds": stats["n_bounds"],
+            "phase": phase, "probe_end": probe_end})
+
     # Probe: evaluate best-first batches until an incumbent exists.
     order = _bnb_order(fspace, leaves, lbs)
     leaves = leaves[order]
     lbs = {k: v[order] for k, v in lbs.items()}
     sizes = _slab_sizes(leaves)
     slices = _bnb_batch_slices(sizes)
-    bi = 0
-    while bi < len(slices) and state["inc"] == float("inf"):
+    bi = probe_end
+    while (not resumed_sweep and bi < len(slices)
+           and state["inc"] == float("inf")):
         s, e = slices[bi]
         evaluate(leaves[s:e], int(sizes[s:e].sum()))
         bi += 1
+        if rt is not None:
+            probe_end = bi
+            snapshot()
+            unit += 1
     rs = slices[bi][0] if bi < len(slices) else len(leaves)
 
-    # Refine the remainder against the incumbent, then sweep the survivors
-    # best-first; the sorted early exit stops once the smallest remaining
-    # bound clears the incumbent.
-    inc_refine = state["inc"]
+    # Refine the remainder against the incumbent frozen at refine start
+    # (persisted, so a resumed replay prunes exactly as the head did), then
+    # sweep the survivors best-first; the sorted early exit stops once the
+    # smallest remaining bound clears the live incumbent.
+    if not resumed_sweep:
+        inc_refine = state["inc"]
+        refine_stats = stats
+    else:
+        refine_stats = {"n_pruned": 0, "n_bounds": 0}
     ready, rlbs = _bnb_descend(
         ev,
         lambda b: (_bnb_infeasible_mask(b, constraints)
                    | (np.asarray(b["edp"]) > inc_refine)),
         leaves[rs:], {k: v[rs:] for k, v in lbs.items()}, BNB_FINE,
-        stats, c)
+        refine_stats, c, led)
+    phase, probe_end = "sweep", bi
     order = _bnb_order(fspace, ready, rlbs)
     ready = ready[order]
     rlbs = {k: v[order] for k, v in rlbs.items()}
     edp_lo = rlbs["edp"] if len(ready) else np.zeros(0)
     sizes = _slab_sizes(ready)
-    for s, e in _bnb_batch_slices(sizes):
+    sweep_done = unit - bi
+    for j, (s, e) in enumerate(_bnb_batch_slices(sizes)):
+        if j < sweep_done:
+            continue
         if edp_lo[s] > state["inc"]:
             stats["n_pruned"] += int(sizes[s:].sum())
+            if led is not None:
+                led.prune(ready[s:], {k: v[s:] for k, v in rlbs.items()})
             break
         live = edp_lo[s:e] <= state["inc"]
         stats["n_pruned"] += int(sizes[s:e][~live].sum())
+        if led is not None:
+            led.prune(ready[s:e][~live],
+                      {k: v[s:e][~live] for k, v in rlbs.items()})
         evaluate(ready[s:e][live], int(sizes[s:e][live].sum()))
+        if rt is not None:
+            snapshot()
+            unit += 1
     best = state["best"]
     row = fspace.decode([best[0]])[0] if best[0] >= 0 else None
     r = _make_result(row, state["nf"], wl, c, fspace.size, state["n_eval"],
                      time.perf_counter() - t0)
     r.n_pruned = stats["n_pruned"]
     r.n_bounds = stats["n_bounds"]
-    return r
+    if led is not None:
+        r.ledger = led.build(fspace)
+    return rt.annotate(r) if rt is not None else r
 
 
 def _pareto_factorized_bnb(fspace, wl, constraints, engine, c, device,
-                           objectives, chunk_size) -> ParetoResult:
+                           objectives, chunk_size, rt=None, led=None,
+                           warm=None) -> ParetoResult:
     """Bound-guided frontier search: probe the objective-sorted leaves to
     seed the running (float64-refined) frontier, refine the remainder
     against it, then evaluate the survivors in batches. A slab is pruned
     when its objective lower-bound corner is strictly dominated by a
-    running-frontier point."""
+    running-frontier point. Runtime checkpointing follows
+    `_search_factorized_bnb`, with the frozen refinement frontier persisted
+    beside the live one; `warm=` / `led=` too (warm seeds the running
+    frontier from `WarmStart.rows` / `met` instead of an argmin)."""
     from .factorized import cached_bound_evaluator
+    _check_warm(warm, rt, led)
     t0 = time.perf_counter()
     d = len(objectives)
     ev = cached_bound_evaluator(fspace, wl, c)
     stats = {"n_pruned": 0, "n_bounds": 0}
     state = {"rows": _empty_run_state()[0], "met": _empty_run_state()[1],
              "pts": np.zeros((0, d)), "nf": 0, "n_eval": 0, "n_over": 0}
-    leaves, lbs = _bnb_frontier(fspace, ev, constraints, c, stats)
+    fp = None
+    rec = None
+    if rt is not None:
+        fp = _rt_fp("pareto_bnb", wl, constraints, engine, c, device,
+                    chunk_size, axes=fspace.axes,
+                    objectives=tuple(objectives), leaf=BNB_LEAF,
+                    batch=BNB_BATCH, fine=BNB_FINE)
+        rec = rt.resume(fp)
+    unit = 0
+    phase, probe_end = "probe", 0
+    pts_refine = np.zeros((0, d))
+    if rec is not None:
+        led = None  # a resumed run sees no complete partition
+        unit, st, extra = rec
+        leaves, lbs = _bnb_frontier(fspace, ev, constraints, c,
+                                    {"n_pruned": 0, "n_bounds": 0})
+        state["rows"], state["met"] = decode_front(st, REPORT_METRICS)
+        state["pts"] = (np.stack([state["met"][k] for k in objectives],
+                                 axis=1) if len(state["rows"])
+                        else np.zeros((0, d)))
+        pts_refine = np.asarray(st["pts_refine"],
+                                np.float64).reshape(-1, d)
+        state["nf"] = int(extra["nf"])
+        state["n_eval"] = int(extra["n_eval"])
+        state["n_over"] = int(extra["n_over"])
+        stats["n_pruned"] = int(extra["n_pruned"])
+        stats["n_bounds"] = int(extra["n_bounds"])
+        phase, probe_end = extra["phase"], int(extra["probe_end"])
+    elif warm is not None:
+        leaves, lbs = _warm_leaves(warm, ev, stats)
+        if warm.rows is not None and len(warm.rows):
+            state["rows"] = np.asarray(warm.rows, np.int64).reshape(-1, 5)
+            state["met"] = {k: np.asarray(warm.met[k], np.float64)
+                            for k in REPORT_METRICS}
+            state["pts"] = np.stack([state["met"][k] for k in objectives],
+                                    axis=1)
+        state["nf"] = int(warm.nf)
+    else:
+        leaves, lbs = _bnb_frontier(fspace, ev, constraints, c, stats, led)
+    resumed_sweep = phase == "sweep"
 
     def evaluate(ranges_list, n_points):
-        idx, f, o = _bnb_eval_pareto(engine, fspace, wl, constraints, c,
-                                     device, ranges_list, chunk_size,
-                                     objectives, state["rows"])
+        if led is not None:
+            led.evaluate(np.asarray(ranges_list, np.int64).reshape(-1, 5, 2))
+
+        def run(eng):
+            return _bnb_eval_pareto(eng, fspace, wl, constraints, c, device,
+                                    ranges_list, chunk_size, objectives,
+                                    state["rows"])
+
+        idx, f, o = (run(engine) if rt is None
+                     else rt.eval_unit(engine, _bnb_thunks(run), device))
         state["nf"] += f
         state["n_eval"] += n_points
         state["n_over"] += o
@@ -1670,44 +2071,76 @@ def _pareto_factorized_bnb(fspace, wl, constraints, engine, c, device,
                                      axis=1) if len(state["rows"])
                             else np.zeros((0, d)))
 
+    def snapshot():
+        st = encode_front(state["rows"], state["met"], REPORT_METRICS)
+        st["pts_refine"] = np.asarray(pts_refine,
+                                      np.float64).reshape(-1, d)
+        rt.unit_done(fp, unit, st, {
+            "nf": state["nf"], "n_eval": state["n_eval"],
+            "n_over": state["n_over"], "n_pruned": stats["n_pruned"],
+            "n_bounds": stats["n_bounds"], "phase": phase,
+            "probe_end": probe_end})
+
     # Probe: evaluate best-first batches until a frontier point exists.
     order = _bnb_order(fspace, leaves, lbs, objectives)
     leaves = leaves[order]
     lbs = {k: v[order] for k, v in lbs.items()}
     sizes = _slab_sizes(leaves)
     slices = _bnb_batch_slices(sizes)
-    bi = 0
-    while bi < len(slices) and not len(state["pts"]):
+    bi = probe_end
+    while not resumed_sweep and bi < len(slices) and not len(state["pts"]):
         s, e = slices[bi]
         evaluate(leaves[s:e], int(sizes[s:e].sum()))
         bi += 1
+        if rt is not None:
+            probe_end = bi
+            snapshot()
+            unit += 1
     rs = slices[bi][0] if bi < len(slices) else len(leaves)
     # The frontier frozen at refine start drives the refinement prune (the
-    # descent never evaluates, so freezing it is exact).
-    pts_refine = state["pts"]
+    # descent never evaluates, so freezing it is exact; persisting it makes
+    # the resumed replay identical after the live frontier moves).
+    if not resumed_sweep:
+        pts_refine = state["pts"]
+        refine_stats = stats
+    else:
+        refine_stats = {"n_pruned": 0, "n_bounds": 0}
     ready, rlbs = _bnb_descend(
         ev,
         lambda b: (_bnb_infeasible_mask(b, constraints)
                    | _bnb_dominated_vs(pts_refine, b, objectives)),
         leaves[rs:], {k: v[rs:] for k, v in lbs.items()}, BNB_FINE,
-        stats, c)
+        refine_stats, c, led)
+    phase, probe_end = "sweep", bi
     order = _bnb_order(fspace, ready, rlbs, objectives)
     ready = ready[order]
     rlbs = {k: v[order] for k, v in rlbs.items()}
     sizes = _slab_sizes(ready)
-    for s, e in _bnb_batch_slices(sizes):
+    sweep_done = unit - bi
+    for j, (s, e) in enumerate(_bnb_batch_slices(sizes)):
+        if j < sweep_done:
+            continue
         die = _bnb_dominated_vs(state["pts"],
                                 {k: v[s:e] for k, v in rlbs.items()},
                                 objectives)
         stats["n_pruned"] += int(sizes[s:e][die].sum())
+        if led is not None:
+            led.prune(ready[s:e][die],
+                      {k: v[s:e][die] for k, v in rlbs.items()})
         if not die.all():
             evaluate(ready[s:e][~die], int(sizes[s:e][~die].sum()))
-    return _front_result(state["rows"], state["met"], wl, constraints, c,
-                         objectives, fspace.size, state["nf"],
-                         state["n_eval"], time.perf_counter() - t0,
-                         n_pruned=stats["n_pruned"],
-                         n_bounds=stats["n_bounds"],
-                         n_overflow=state["n_over"])
+        if rt is not None:
+            snapshot()
+            unit += 1
+    res = _front_result(state["rows"], state["met"], wl, constraints, c,
+                        objectives, fspace.size, state["nf"],
+                        state["n_eval"], time.perf_counter() - t0,
+                        n_pruned=stats["n_pruned"],
+                        n_bounds=stats["n_bounds"],
+                        n_overflow=state["n_over"])
+    if led is not None:
+        res.ledger = led.build(fspace)
+    return rt.annotate(res) if rt is not None else res
 
 
 def _workloads_cuda_factorized(wls, names, cons_for, fspace, c, device,
@@ -1765,8 +2198,7 @@ def _workloads_cuda_factorized(wls, names, cons_for, fspace, c, device,
             for nm in names}
 
 
-def _check_later_args(engine, shard, runtime, keep_ledger, workers,
-                      calibration, robust):
+def _check_later_args(engine, shard, workers):
     """Refuse what the JAX package supports beyond these slices."""
     if engine == "jax":
         raise ValueError("engine='jax' is the reference's jit-compiled "
@@ -1779,13 +2211,15 @@ def _check_later_args(engine, shard, runtime, keep_ledger, workers,
     if shard is not None and int(shard) < 1:
         raise ValueError(f"shard must be >= 1, got {shard!r}")
     for arg, value, off in (("shard", shard, (None, 1)),
-                            ("runtime", runtime, (None,)),
-                            ("keep_ledger", keep_ledger, (False,)),
-                            ("workers", workers, (None,)),
-                            ("calibration", calibration, (None,)),
-                            ("robust", robust, (None,))):
+                            ("workers", workers, (None,))):
         if value not in off:
             raise _not_ported(arg, value)
+
+
+def _check_ledger_arg(keep_ledger, prune):
+    if keep_ledger and prune != "bound":
+        raise ValueError("keep_ledger=True records the bound-guided slab "
+                         "partition; it requires prune='bound'")
 
 
 def _check_objective(objective, engine, pareto_metrics):
@@ -1848,6 +2282,177 @@ def _check_grid(grid) -> np.ndarray:
     return g
 
 
+# ---------------------------------------------------------------------------
+# Robust (worst-case-feasible) search under calibration uncertainty
+#
+# The MONOTONE lemma of core.calibration reduces robust search to an
+# ordinary search at the calibration's worst corner, so the resolution below
+# swaps the `DeviceConstants` the engines run on (on cuda the corner's
+# constants reach the kernels folded to float32 on the host, like any
+# other) and attaches the winner's (or frontier's) uncertainty band
+# afterwards. Only calibrations with *unresolved* fields leave that path,
+# through the conservative host-side vertex sweep `_robust_vertex_search`.
+# ---------------------------------------------------------------------------
+
+#: Engines robust="worst_case" supports — the vectorized backends the
+#: worst-corner reduction prices in one sweep. The python engine is the
+#: paper-faithful sequential oracle and stays point-calibrated.
+ROBUST_ENGINES = ("numpy", "torch", "cuda")
+
+
+def _resolve_robust(calibration, robust, c, engine):
+    """Validate and resolve `calibration=` / `robust=` into the constants
+    the engines should run at.
+
+    Returns `(c_run, cal, fallback)`: `cal` is None on uncalibrated
+    searches; `fallback=True` routes through `_robust_vertex_search`
+    (unresolved fields), in which case `c_run` is None.
+    """
+    if calibration is None:
+        if robust is not None:
+            raise ValueError("robust= prices a calibration's uncertainty; "
+                             "pass calibration= (a CalibratedConstants, a "
+                             "{field: interval} mapping, or a preset name)")
+        return c, None, False
+    cal = as_calibration(calibration)
+    if c != CONSTANTS:
+        raise ValueError("pass either c= or calibration=, not both: the "
+                         "calibration's nominal values are the point "
+                         "constants")
+    if robust is None:
+        return cal.nominal(), cal, False
+    if robust != "worst_case":
+        raise ValueError(f"unknown robust mode {robust!r}; the engine "
+                         f"layer supports robust='worst_case' or None")
+    if engine not in ROBUST_ENGINES:
+        raise ValueError(f"robust='worst_case' supports engines "
+                         f"{ROBUST_ENGINES}, not {engine!r}")
+    if cal.unresolved():
+        return None, cal, True
+    return cal.worst_case(), cal, False
+
+
+def _corner_reduced_metrics(rows, wl, cal, sign, fspace=None, idx=None):
+    """Per-metric elementwise extreme over the calibration's `sign`-side
+    vertex corners (float64 host reference). One corner — hence one plain
+    `evaluate_grid` sweep — for fully certified calibrations."""
+    op = np.maximum if sign > 0 else np.minimum
+    out = None
+    for corner in cal.vertex_corners(sign=sign):
+        m = (factorized_evaluate_grid(fspace, wl, corner, idx=idx)
+             if fspace is not None else evaluate_grid(rows, wl, corner))
+        out = m if out is None else {k: op(out[k], m[k])
+                                     for k in REPORT_METRICS}
+    return out
+
+
+def _measure_band(res, cal, wl) -> Optional[RobustBand]:
+    """The result's uncertainty band: float64 reference metrics of the
+    winner (or each frontier row) at the calibration's worst / nominal /
+    best corners. None for infeasible results."""
+    if isinstance(res, ParetoResult):
+        if res.size == 0:
+            return None
+        rows = np.asarray(res.front, np.int64)
+
+        def to(m):
+            return {k: np.asarray(m[k], np.float64) for k in REPORT_METRICS}
+    else:
+        if res.best_cfg is None:
+            return None
+        rows = np.asarray([res.best_cfg.as_array()], np.int64)
+
+        def to(m):
+            return {k: float(np.asarray(m[k])[0]) for k in REPORT_METRICS}
+    worst = _corner_reduced_metrics(rows, wl, cal, +1)
+    best = _corner_reduced_metrics(rows, wl, cal, -1)
+    nom = evaluate_grid(rows, wl, cal.nominal())
+    return RobustBand(calibration=cal, worst=to(worst), nominal=to(nom),
+                      best=to(best))
+
+
+def _robust_vertex_search(wl, constraints, cal, engine, grid, n_z,
+                          objective, pareto_metrics, factorized, space,
+                          hierarchical):
+    """Conservative fallback for calibrations with unresolved fields: a
+    host-side float64 sweep over the 2^k vertex corners of the uncertified
+    fields (certified fields pinned at their worst end), each metric priced
+    at its elementwise corner max. Sound — per-field monotone metrics
+    attain their box extrema at vertices — but conservative: per-metric
+    maxes may come from different corners. `chunk_size` is accepted and
+    ignored (the host sweep returns the same bytes); `prune` / `runtime` /
+    `keep_ledger` are rejected by `search` before this runs."""
+    t0 = time.perf_counter()
+    fspace = None
+    if factorized:
+        fspace = _factorized_space(space, grid, n_z, engine, hierarchical)
+        rows = fspace.to_grid()
+    else:
+        if space is not None:
+            raise ValueError("space= requires factorized=True (pass grid= "
+                             "for materialized candidate sets)")
+        rows = _full_grid(n_z) if grid is None else _check_grid(grid)
+        rows = np.asarray(rows, np.int64)
+    n_corners = len(cal.vertex_corners())
+    worst = _corner_reduced_metrics(rows, wl, cal, +1, fspace=fspace)
+    ok = np.asarray(constraints.satisfied(worst["area"], worst["power"],
+                                          worst["energy"],
+                                          worst["latency"]))
+    n_eval = len(rows) * n_corners
+    n_feasible = int(ok.sum())
+
+    if objective == "edp":
+        if not ok.any():
+            return SearchResult(best_cfg=None, n_evaluated=n_eval,
+                                n_feasible=0, n_workload_evals=n_eval,
+                                wall_time_s=time.perf_counter() - t0)
+        idx = np.where(ok)[0]
+        best = int(idx[np.lexsort((idx, worst["edp"][idx]))[0]])
+        res = SearchResult(
+            best_cfg=PTAConfig.from_array(rows[best]),
+            area_mm2=float(worst["area"][best]),
+            power_w=float(worst["power"][best]),
+            energy_j=float(worst["energy"][best]),
+            latency_s=float(worst["latency"][best]),
+            edp=float(worst["edp"][best]),
+            n_evaluated=n_eval, n_feasible=n_feasible,
+            n_workload_evals=n_eval,
+            wall_time_s=time.perf_counter() - t0)
+    else:
+        metrics = _check_pareto_metrics(engine, pareto_metrics)
+        if not ok.any():
+            front = np.zeros((0, 5), np.int64)
+            met = {k: np.zeros(0, np.float64) for k in REPORT_METRICS}
+            return ParetoResult(front=front, metrics=met,
+                                objectives=metrics, n_evaluated=n_eval,
+                                n_feasible=0, n_workload_evals=n_eval,
+                                wall_time_s=time.perf_counter() - t0)
+        pts = np.stack([np.asarray(worst[k], np.float64)[ok]
+                        for k in metrics], axis=1)
+        mask = pareto_mask(pts)
+        front = rows[ok][mask]
+        order = np.lexsort(front.T[::-1])
+        sel = np.where(ok)[0][mask][order]
+        met = {k: np.asarray(worst[k], np.float64)[sel]
+               for k in REPORT_METRICS}
+        res = ParetoResult(front=front[order], metrics=met,
+                           objectives=metrics, n_evaluated=n_eval,
+                           n_feasible=n_feasible, n_workload_evals=n_eval,
+                           wall_time_s=time.perf_counter() - t0)
+    res.band = _measure_band(res, cal, wl)
+    return res
+
+
+def _refuse_vertex_with(cal, prune, runtime, keep_ledger):
+    if prune is not None or runtime is not None or keep_ledger:
+        raise ValueError(
+            "this calibration has uncertified varying fields "
+            f"({cal.unresolved()}): robust search runs the conservative "
+            "vertex sweep, which supports neither prune='bound' nor "
+            "runtime= nor keep_ledger=True — certify the field directions "
+            "(core.calibration.MONOTONE) to use the worst-corner fast path")
+
+
 def search(wl: Workload, constraints: Constraints = Constraints(), *,
            engine: str = "numpy", grid: Optional[np.ndarray] = None,
            n_z: int = 12, hierarchical: bool = False,
@@ -1865,9 +2470,10 @@ def search(wl: Workload, constraints: Constraints = Constraints(), *,
     Args:
       engine: one of ENGINES (python, numpy, torch, cuda). All return
         identical results. Caveat: the torch and cuda engines (and the
-        hierarchical prefilter) test feasibility in float32, so a config within one float32 ulp of
-        a constraint bound can classify differently than under the float64
-        python/numpy engines — real design points never ride that edge.
+        hierarchical prefilter) test feasibility in float32, so a config
+        within one float32 ulp of a constraint bound can classify
+        differently than under the float64 python/numpy engines — real
+        design points never ride that edge.
       grid: (G, 5) candidate configs; defaults to the full 1..n_z grid.
       hierarchical: area/power-only prefilter over the grid (float32, on
         `device`), then workload evaluation on the survivors only.
@@ -1890,44 +2496,108 @@ def search(wl: Workload, constraints: Constraints = Constraints(), *,
         space; winners and frontiers stay byte-identical to the unpruned
         sweep, with the skipped volume in `n_pruned`. Requires
         factorized=True.
-      shard, runtime, keep_ledger, workers, calibration, robust: accepted
-        for signature parity with `repro`; anything beyond shard <= 1 and
-        the defaults raises NotImplementedError naming the ROADMAP item
-        that ports it.
+      runtime: a `core.runtime.RuntimePolicy` (or `SearchRuntime`)
+        attaching the resilient control plane: checkpoint/resume through
+        the step-atomic snapshot layer, bounded-backoff launch retries, a
+        per-launch watchdog and, on the CPU only, cuda -> torch -> numpy
+        degradation and NaN quarantine with host float64 re-evaluation (on
+        a card a unit that exhausts its retries raises LaunchExhausted and
+        a NaN-poisoned one NanDetected). Results are byte-identical with
+        or without a runtime; the campaign's counters come back on the
+        result.
+      keep_ledger: keep the bound-guided run's slab partition — every
+        pruned slab with the lower bounds it was priced at, and every
+        evaluated leaf — as a `core.factorized.SlabLedger` on
+        ``result.ledger``. Requires prune="bound". A checkpointed run that
+        resumed returns ``ledger=None`` (it replays only the tail).
+      calibration: a `core.calibration.CalibratedConstants` (or a
+        `{field: interval}` mapping, or a shipped preset name) of per-field
+        (lo, nominal, hi) intervals over the device constants; exclusive
+        with a non-default `c=`. Without `robust=` the search runs at
+        `calibration.nominal()` and the result carries the winner's
+        uncertainty band on ``result.band``.
+      robust: "worst_case" prices the search at the calibration's certified
+        worst corner (numpy/torch/cuda engines): feasibility on each
+        metric's worst-case value, the incumbent on worst-case metrics.
+        The degenerate calibration returns an uncalibrated search's bytes.
+        Calibrations with uncertified varying fields take a conservative
+        host-side vertex sweep (which rejects prune/runtime/keep_ledger).
+      shard, workers: accepted for signature parity with `repro`; shard > 1
+        and workers= raise NotImplementedError naming the ROADMAP item that
+        ports them.
     """
     dev = resolve_device(device)
-    _check_later_args(engine, shard, runtime, keep_ledger, workers,
-                      calibration, robust)
+    _check_later_args(engine, shard, workers)
     _check_stream_args(chunk_size)
     _check_prune_arg(prune, factorized)
+    _check_ledger_arg(keep_ledger, prune)
+    c, cal, fallback = _resolve_robust(calibration, robust, c, engine)
+    if fallback:
+        _refuse_vertex_with(cal, prune, runtime, keep_ledger)
+        _check_objective(objective, engine, pareto_metrics)
+        return _robust_vertex_search(wl, constraints, cal, engine, grid,
+                                     n_z, objective, pareto_metrics,
+                                     factorized, space, hierarchical)
+    rt = SearchRuntime.of(runtime) if runtime is not None else None
+    if rt is None:
+        res = _search_impl(wl, constraints, engine, grid, n_z, hierarchical,
+                           c, dev, objective, pareto_metrics, shard,
+                           chunk_size, factorized, space, prune, None,
+                           keep_ledger)
+    else:
+        try:
+            res = _search_impl(wl, constraints, engine, grid, n_z,
+                               hierarchical, c, dev, objective,
+                               pareto_metrics, shard, chunk_size, factorized,
+                               space, prune, rt, keep_ledger)
+        finally:
+            # Durability on exit, normal or not: an injected KillSearch
+            # must leave the same committed snapshots a blocking save would
+            # have (a real process death simply replays one extra unit).
+            rt.flush()
+    if cal is not None:
+        res.band = _measure_band(res, cal, wl)
+    return res
+
+
+def _search_impl(wl, constraints, engine, grid, n_z, hierarchical, c, dev,
+                 objective, pareto_metrics, shard, chunk_size, factorized,
+                 space, prune, rt, keep_ledger):
     if factorized:
+        from .factorized import LedgerRecorder
         fspace = _factorized_space(space, grid, n_z, engine, hierarchical)
         metrics = _check_objective(objective, engine, pareto_metrics)
+        led = LedgerRecorder() if keep_ledger else None
         if metrics is None:
             if prune == "bound":
                 return _search_factorized_bnb(fspace, wl, constraints,
-                                              engine, c, dev, chunk_size)
+                                              engine, c, dev, chunk_size,
+                                              rt, led)
             return _search_factorized(fspace, wl, constraints, engine, c,
-                                      dev, chunk_size)
+                                      dev, chunk_size, rt)
         if prune == "bound":
             return _pareto_factorized_bnb(fspace, wl, constraints, engine,
-                                          c, dev, metrics, chunk_size)
+                                          c, dev, metrics, chunk_size, rt,
+                                          led)
         return _pareto_factorized(fspace, wl, constraints, engine, c, dev,
-                                  metrics, chunk_size)
+                                  metrics, chunk_size, rt)
     if space is not None:
         raise ValueError("space= requires factorized=True (pass grid= for "
                          "materialized candidate sets)")
     grid = _full_grid(n_z) if grid is None else _check_grid(grid)
     metrics = _check_objective(objective, engine, pareto_metrics)
-    streamed = shard is not None or chunk_size is not None
+    # A runtime routes through the streamed drivers even one-shot: the
+    # single-chunk streamed sweep is byte-identical to the one-shot path,
+    # and it is where the unit guard and the checkpoint cursor live.
+    streamed = shard is not None or chunk_size is not None or rt is not None
     if metrics is None:
         if streamed:
             return _search_streamed(grid, wl, constraints, engine,
-                                    hierarchical, c, dev, chunk_size)
+                                    hierarchical, c, dev, chunk_size, rt)
         return ENGINES[engine](grid, wl, constraints, c, hierarchical, dev)
     if streamed:
         return _pareto_streamed(grid, wl, constraints, engine, hierarchical,
-                                c, dev, metrics, chunk_size)
+                                c, dev, metrics, chunk_size, rt)
     return PARETO_ENGINES[engine](grid, wl, constraints, c, hierarchical,
                                   dev, metrics)
 
@@ -2037,14 +2707,23 @@ def search_workloads(wls: Union[Mapping[str, Workload], Sequence[Workload]],
     `factorized=True` decodes the product `space` on device;
     `prune="bound"` runs the branch-and-bound search per workload. Each
     result reports the whole batch's wall time.
+
+    `runtime=` runs the batch as a per-workload loop (full checkpoint /
+    resume per workload, each under `<checkpoint_dir>/<workload name>`),
+    every sub-search sharing the batch campaign's fault injector, and each
+    result carries its own workload's counters. `keep_ledger=True` keeps
+    each workload's slab partition (prune="bound"). `calibration=` /
+    `robust=` are resolved once for the whole batch — the fused launches
+    simply run at the worst corner — and every result carries its own
+    uncertainty band.
     """
     dev = resolve_device(device)
     if not isinstance(wls, Mapping):
         wls = {wl.name: wl for wl in wls}
-    _check_later_args(engine, shard, runtime, keep_ledger, workers,
-                      calibration, robust)
+    _check_later_args(engine, shard, workers)
     _check_stream_args(chunk_size)
     _check_prune_arg(prune, factorized)
+    _check_ledger_arg(keep_ledger, prune)
     if grid is not None:
         grid = _check_grid(grid)
 
@@ -2052,32 +2731,84 @@ def search_workloads(wls: Union[Mapping[str, Workload], Sequence[Workload]],
         return constraints[name] if isinstance(constraints, Mapping) \
             else constraints
 
-    def per_workload(**kw):
-        out = {name: search(wl, cons_for(name), engine=engine, n_z=n_z,
-                            c=c, device=dev, objective=objective,
-                            pareto_metrics=pareto_metrics, shard=shard,
-                            chunk_size=chunk_size, factorized=factorized,
-                            space=space, **kw)
+    c, cal, fallback = _resolve_robust(calibration, robust, c, engine)
+    if fallback:
+        _refuse_vertex_with(cal, prune, runtime, keep_ledger)
+        _check_objective(objective, engine, pareto_metrics)
+        out = {name: _robust_vertex_search(
+                   wl, cons_for(name), cal, engine, grid, n_z, objective,
+                   pareto_metrics, factorized, space, hierarchical)
                for name, wl in wls.items()}
-        total = sum(r.wall_time_s for r in out.values())
-        for r in out.values():
-            r.wall_time_s = total
-        return out
+        return _share_wall(out)
+    out = _search_workloads_impl(wls, cons_for, engine, grid, n_z,
+                                 hierarchical, c, dev, objective,
+                                 pareto_metrics, shard, chunk_size,
+                                 factorized, space, prune, runtime,
+                                 keep_ledger)
+    if cal is not None:
+        for name, r in out.items():
+            r.band = _measure_band(r, cal, wls[name])
+    return out
+
+
+def _share_wall(out):
+    """Every result of a per-workload loop reports the batch's wall time."""
+    total = sum(r.wall_time_s for r in out.values())
+    for r in out.values():
+        r.wall_time_s = total
+    return out
+
+
+def _search_workloads_impl(wls, cons_for, engine, grid, n_z, hierarchical,
+                           c, dev, objective, pareto_metrics, shard,
+                           chunk_size, factorized, space, prune, runtime,
+                           keep_ledger):
+    """The batched dispatch behind `search_workloads`, after calibration
+    resolution (`c` is the corner the batch runs at)."""
+    rt0 = SearchRuntime.of(runtime) if runtime is not None else None
+
+    def rt_for(name):
+        """Per-workload campaign (own counters + checkpoint subdirectory)
+        sharing the batch runtime's fault injector."""
+        if rt0 is None:
+            return None
+        pol = rt0.policy
+        if pol.checkpoint_dir:
+            pol = dataclasses.replace(
+                pol, checkpoint_dir=os.path.join(pol.checkpoint_dir, name))
+        sub = SearchRuntime(pol)
+        sub.fault_injector = rt0.fault_injector
+        return sub
+
+    def per_workload(**kw):
+        return _share_wall({
+            name: search(wl, cons_for(name), engine=engine, n_z=n_z, c=c,
+                         device=dev, objective=objective,
+                         pareto_metrics=pareto_metrics, shard=shard,
+                         chunk_size=chunk_size, space=space,
+                         runtime=rt_for(name), **kw)
+            for name, wl in wls.items()})
 
     if prune == "bound":
         # Same argument contract as search(): validate here rather than
         # silently searching the default product space.
         _factorized_space(space, grid, n_z, engine, hierarchical)
-        return per_workload(prune="bound")
-    if factorized and engine == "cuda":
+        return per_workload(factorized=True, prune="bound",
+                            keep_ledger=keep_ledger)
+    if factorized and engine == "cuda" and rt0 is None:
         fspace = _factorized_space(space, grid, n_z, engine, hierarchical)
         return _workloads_cuda_factorized(
             wls, list(wls), cons_for, fspace, c, dev, objective,
             _check_objective(objective, engine, pareto_metrics), chunk_size)
-    if engine != "cuda":
+    if engine != "cuda" or rt0 is not None:
+        # The runtime always takes the per-workload loop: the fused batched
+        # launches return byte-identical results, and per-workload
+        # campaigns are what make the checkpoint cursors and counters
+        # well-defined.
         if grid is None and not factorized:
             grid = _full_grid(n_z)  # materialize once, share across workloads
-        return per_workload(grid=grid, hierarchical=hierarchical)
+        return per_workload(grid=grid, hierarchical=hierarchical,
+                            factorized=factorized)
     if space is not None:
         raise ValueError("space= requires factorized=True (pass grid= for "
                          "materialized candidate sets)")

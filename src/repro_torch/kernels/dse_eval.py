@@ -483,9 +483,24 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+class KernelLaunchError(RuntimeError):
+    """A hand-written kernel's launch returned a CUDA error. The resilient
+    runtime retries it; a bare RuntimeError, a programming error, it never
+    retries."""
+
+
+class KernelNaN(RuntimeError):
+    """A DSE kernel's reduction output held NaN. The metric pipelines never
+    emit NaN (infeasible lanes reduce to +inf), so NaN there means a
+    poisoned launch (bad memory, an injected fault); the host wrappers
+    (`kernels.ops`) raise this instead of reducing it into a wrong answer,
+    and the resilient runtime treats the unit as poisoned."""
+
+
 def _check(rc: int, name: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+        raise KernelLaunchError(f"{name} kernel launch failed: CUDA error "
+                                f"{rc}")
 
 
 def _require(tensors, dtypes, name: str) -> None:

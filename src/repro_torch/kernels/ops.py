@@ -103,6 +103,14 @@ def _has_carry(carry_points) -> bool:
         p is not None and len(p) for p in carry_points)
 
 
+def _check_finite(out: np.ndarray, what: str) -> None:
+    """Raise `KernelNaN` on a NaN in a kernel's reduction output (already
+    on the host): the block reductions below would otherwise drop a NaN
+    lane (lexsort and `>= 0` pass it by) and return a wrong answer."""
+    if np.isnan(out).any():
+        raise _dse.KernelNaN(f"NaN in an output block of the {what}")
+
+
 def _front_candidates(out: np.ndarray, w: int, blk_lo: np.ndarray,
                       limit: int, what: str, keep=None):
     """Per-workload (candidate indices, n_feasible, n_overflow) from a
@@ -111,6 +119,7 @@ def _front_candidates(out: np.ndarray, w: int, blk_lo: np.ndarray,
     min(blk_lo + BLOCK, limit)), filtered by `keep` when given — so the
     emission bound never drops a frontier point; the caller's float64
     refinement restores the exact frontier."""
+    _check_finite(out, what)
     results = []
     for wi in range(w):
         rows = out[_dse.PARETO_ROWS * wi:_dse.PARETO_ROWS * (wi + 1)]
@@ -134,10 +143,11 @@ def _front_candidates(out: np.ndarray, w: int, blk_lo: np.ndarray,
     return results
 
 
-def _reduce_blocks(out: np.ndarray, w: int, carry_edp):
+def _reduce_blocks(out: np.ndarray, w: int, carry_edp, what: str):
     """Per-workload (best_idx, best_edp, n_feasible) from the (3W, n_blocks)
     reduction: min EDP across blocks, ties to the lowest index (CARRY_IDX
     sorts before every real index, so a carried tie wins)."""
+    _check_finite(out, what)
     best_idx, best_edp, n_feasible = [], [], []
     for wi in range(w):
         edp_b, idx_b, nf_b = out[_dse.SEARCH_ROWS * wi:
@@ -183,8 +193,8 @@ def dse_search_multi(grid: np.ndarray, wls, constraints_seq,
     out = _dse.dse_search_padded(
         cols, mask, _constraint_rows(constraints_seq, dev),
         _search_carry_rows(carry_edp, len(workloads), dev),
-        workloads=workloads, constants=c)
-    return _reduce_blocks(out.cpu().numpy(), len(workloads), carry_edp)
+        workloads=workloads, constants=c).cpu().numpy()
+    return _reduce_blocks(out, len(workloads), carry_edp, "search kernel")
 
 
 def dse_pareto_multi(grid: np.ndarray, wls, constraints_seq,
@@ -320,7 +330,8 @@ def dse_search_multi_factorized(space, start: int, count: int, wls,
                              _search_carry_rows(carry_edp, len(workloads),
                                                 dev),
                              dev, slab)
-    return _reduce_blocks(out, len(workloads), carry_edp)
+    return _reduce_blocks(out, len(workloads), carry_edp,
+                          "search decode kernel")
 
 
 def dse_pareto_multi_factorized(space, start: int, count: int, wls,

@@ -31,7 +31,11 @@ MODULES = ("repro_torch", "repro_torch.core", "repro_torch.core.search",
            "repro_torch.core.extract", "repro_torch.models",
            "repro_torch.models.lm", "repro_torch.train.serve",
            "repro_torch.launch.serve", "repro_torch.kernels.ddot_gemm",
-           "repro_torch.kernels.flash_attention")
+           "repro_torch.kernels.flash_attention",
+           "repro_torch.core.calibration", "repro_torch.core.runtime",
+           "repro_torch.checkpoint.checkpointing", "repro_torch.testing.faults",
+           "repro_torch.serve.cache", "repro_torch.serve.batching",
+           "repro_torch.serve.dse_service")
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -67,6 +71,8 @@ def _no_card():
     lambda wl: P.search(wl),
     lambda wl: P.search(wl, engine="cuda", factorized=True, prune="bound"),
     lambda wl: P.search_workloads([wl]),
+    lambda wl: P.search(wl, calibration="node45", robust="worst_case"),
+    lambda wl: P.search(wl, runtime=P.RuntimePolicy()),
     lambda wl: P.dxpta_search(wl),
     lambda wl: P.hw_prefilter(P.FactorizedSpace.full(3).to_grid(), wl,
                               P.Constraints()),
@@ -85,7 +91,8 @@ def _no_card():
     lambda wl: M.init_params(reduced(get_config("qwen2.5-3b"))),
     lambda wl: Server(_CFG, M.init_params(_CFG, device="cpu"), 1, 16)
     .generate([Request(prompt=np.arange(1, 5, dtype=np.int32), max_new=2)]),
-], ids=["search", "search_bound", "search_workloads", "dxpta_search",
+], ids=["search", "search_bound", "search_workloads", "search_robust",
+        "search_runtime", "dxpta_search",
         "hw_prefilter", "dse_search_grid", "decode_rows_device",
         "search_pareto", "pareto_front", "dse_pareto_multi", "ddot_matmul",
         "photonic_matmul", "flash_attention", "init_params",

@@ -256,6 +256,6 @@ def test_launcher_serves_a_reduced_config_on_the_cpu(capsys):
                  "--device", "cpu", "--max-new", "3"])
     out = capsys.readouterr().out
     assert "12 tokens on cpu" in out and "granite-3-2b-decode64b4n3" in out
-    for cmd, item in (("dse", "item 11"), ("scenarios", "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            launch.main([cmd])
+    # dse is ported (ROADMAP Queue 1 item 11); scenarios waits for item 12
+    with pytest.raises(NotImplementedError, match="item 12"):
+        launch.main(["scenarios"])

@@ -373,7 +373,13 @@ def test_objective_and_metric_validation():
     with pytest.raises(ValueError, match="util"):
         P.search(pw, engine="cuda", objective="pareto",
                  pareto_metrics=("area", "util"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.pareto_front(_grid(1, 50), pw, robust="worst_case")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.pareto_search_refined(pw, calibration="nominal")
+    # robust= without a calibration is refused as by the reference; a
+    # calibration runs (ROADMAP Queue 1 item 9 is ported)
+    with pytest.raises(ValueError, match="calibration"):
+        R.pareto_front(_grid(1, 50), wl, robust="worst_case")
+    with pytest.raises(ValueError, match="calibration"):
+        P.pareto_front(_grid(1, 50), pw, robust="worst_case", device="cpu")
+    got = P.pareto_search_refined(pw, calibration="nominal", device="cpu")
+    want = R.pareto_search_refined(wl, calibration="nominal")
+    assert np.array_equal(got.front, want.front)
+    assert got.band is not None

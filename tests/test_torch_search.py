@@ -228,12 +228,31 @@ def test_kernel_wrappers_match_reference_oracles():
     dict(robust="worst_case")],
     ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
 def test_later_slices_raise_not_implemented(kw):
+    """What a later slice ports (shard > 1, workers=) raises
+    NotImplementedError naming its ROADMAP item; what is ported behaves as
+    the reference does — the same error for the same misuse (a runtime
+    that is not a policy, a ledger without prune="bound", robust= without
+    a calibration), the same result otherwise."""
     pw = from_reference(load("deit-t"))
     kw.setdefault("engine", "numpy")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.search(pw, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.search_workloads([pw], device="cpu", **kw)
+    if next(iter(kw)) in p_search._LATER:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            P.search(pw, device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            P.search_workloads([pw], device="cpu", **kw)
+        return
+    wl = load("deit-t")
+    try:
+        want = R.search(wl, **kw)
+    except Exception as e:  # the reference's own refusal
+        for call in (lambda: P.search(pw, device="cpu", **kw),
+                     lambda: P.search_workloads([pw], device="cpu", **kw)):
+            with pytest.raises(type(e)):
+                call()
+        return
+    _same(want, P.search(pw, device="cpu", **kw), kw)
+    _same(R.search_workloads([wl], **kw)[wl.name],
+          P.search_workloads([pw], device="cpu", **kw)[pw.name], kw)
 
 
 @pytest.mark.parametrize("engine", ["torch", "jax"],
