@@ -60,6 +60,22 @@ From the root of a checkout, with one CUDA card visible. It
      every cold query launched kernels 3 and 2 (min-EDP) or 6, 5 and 1
      (Pareto). It prints each query's wall time beside the card's name and
      power limit;
+  4d. sweeps the model zoo (`repro_torch.scenarios`, `scenario_phase`): all
+     10 archs at their published configs x train, prefill and decode of
+     16 and 64 tokens at seq 2048, batch 8 (40 scenarios) through one cuda
+     service on the 24^5 space, under per-class boxes (decode
+     latency_ms=2), again from the memo (no launch), and under the
+     area/power box alone; a Pareto sweep of three archs; the `scenarios`
+     launcher with its defaults. Winners, frontiers, counters, stats and
+     report text equal numpy- and torch-engine services' sweeps;
+  4e. drives the parallel slab scheduler (`search(..., workers=N)`,
+     `workers_phase`): the five paper workloads on 24^5 in both objectives
+     with workers=None, 1, 4 and 4 asynchronous, equal in answers and
+     canonical counters; a kill, a raise and a timeout at a lease; a
+     checkpointed workers=4 query killed and resumed under workers=1; a
+     workers=4 service's cold and warm queries. Every call's launch counts
+     equal a second count kept per launching thread, and it prints each
+     call's wall time, launches and threads;
   5. holds the two LM kernels against their plain versions on the card:
      `ddot_gemm_quantized` (the photonic 4-bit GEMM, int8 tensor cores)
      `torch.equal` at the qwen2.5-3b LM head (4 x 2048 x 151,936, B
@@ -680,6 +696,372 @@ def service_phase(dev, n_z, hw, drive_service, float32_ties):
              "power_w=4.5"]), edp_search)
     print(f"launch.serve dse (5 workloads x 3 boxes): {wall:.4f} s ({hw})")
     return walls
+
+
+#: The C entry point of each DSE kernel in `csrc/dse_eval.cu`.
+DSE_ENTRIES = {"dse_eval_launch": "dse_eval_padded",
+               "dse_search_padded_launch": "dse_search_padded",
+               "dse_search_decoded_launch": "dse_search_decoded",
+               "dse_decode_rows_launch": "dse_decode_rows",
+               "dse_pareto_padded_launch": "dse_pareto_padded",
+               "dse_pareto_decoded_launch": "dse_pareto_decoded"}
+
+
+class LaunchesByThread:
+    """A second count of the DSE launches, beside the wrappers' locked
+    `LAUNCHES`: while active, each C entry point of the loaded `dse_eval`
+    library is wrapped to append the kernel's name to a list of the
+    calling thread's own (no shared read-modify-write). Phase 4e holds the
+    two counts equal with four worker threads launching."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.by_thread = {}
+        self._real = {}
+
+    def __enter__(self):
+        import threading
+
+        for entry, kernel in DSE_ENTRIES.items():
+            real = getattr(self.lib, entry)
+            self._real[entry] = real
+
+            def counted(*args, _real=real, _kernel=kernel):
+                mine = self.by_thread.setdefault(threading.get_ident(), [])
+                mine.append(_kernel)
+                return _real(*args)
+
+            setattr(self.lib, entry, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for entry, real in self._real.items():
+            setattr(self.lib, entry, real)
+        return False
+
+    def reset(self):
+        self.by_thread = {}
+
+    def totals(self):
+        out = {k: 0 for k in DSE_ENTRIES.values()}
+        for names in self.by_thread.values():
+            for name in names:
+                out[name] += 1
+        return out
+
+    def threads(self):
+        return sum(1 for names in self.by_thread.values() if names)
+
+
+def scenario_phase(dev, n_z, hw, drive, float32_ties):
+    """Phase 4d: the model-zoo scenario sweep (`repro_torch.scenarios`).
+
+    `ScenarioGrid.zoo(kinds=("train", "prefill", "decode"), seq_lens=
+    (2048,), batches=(8,), new_tokens=(16, 64))` — all 10 archs at their
+    published configs, 40 scenarios — is swept through one cuda
+    `SearchService` on the n_z^5 space under per-class boxes (decode
+    latency_ms=2, the paper box otherwise), twice: the second sweep must be
+    40 memo hits with no launch. At these widths every scenario is
+    infeasible under those boxes (the bounds prune the whole space), so the
+    grid is swept a third time under the area/power box alone (energy and
+    latency unbounded), where the decode scenarios are feasible and the
+    search kernels run. Every winner (config and float64 metrics) equals a
+    numpy-engine service's sweep of the same grid, and every counter a
+    torch-engine service's (numpy's too, except `n_feasible` at the
+    float32 edge, phase 4c's rule). Then a Pareto sweep of the launcher's
+    3-arch subset of the grid under the area/power box (frontiers held to
+    numpy's with phase 4's float32-edge rule) and `launch.serve scenarios`
+    with its defaults. `drive(label, fn, needs)` is phase 4c's, counting
+    under the path "scenarios". Returns the phase's wall times."""
+    import numpy as np
+    from repro_torch.core import Constraints, FactorizedSpace
+    from repro_torch.launch import serve as launch
+    from repro_torch.scenarios import ScenarioGrid, sweep
+    from repro_torch.serve import SearchService
+
+    space = FactorizedSpace.full(n_z)
+    shape = dict(kinds=("train", "prefill", "decode"), seq_lens=(2048,),
+                 batches=(8,), new_tokens=(16, 64))
+    grid = ScenarioGrid.zoo(**shape)
+    boxes = {"decode": Constraints(latency_ms=2)}
+    area_power = Constraints(energy_mj=math.inf, latency_ms=math.inf)
+    work = ("n_evaluated", "n_feasible", "n_workload_evals", "n_pruned",
+            "n_bounds")
+    work64 = tuple(k for k in work if k != "n_feasible")
+    health = ("n_retries", "n_fallbacks", "n_quarantined")
+    walls = []
+
+    def counts_equal(got, want, keys):
+        return all(getattr(got, k) == getattr(want, k) for k in keys)
+
+    def same_edp(got, want):
+        return ((got.best_cfg, got.edp, got.area_mm2, got.power_w,
+                 got.energy_j, got.latency_s)
+                == (want.best_cfg, want.edp, want.area_mm2, want.power_w,
+                    want.energy_j, want.latency_s))
+
+    def run(label, svc, objective, g, box, needs=()):
+        rep, wall, counts = drive(
+            label, lambda: sweep(g, box, service=svc, objective=objective),
+            needs)
+        walls.append((label, wall))
+        print(f"scenarios {label}: {len(rep.results)} scenarios in "
+              f"{wall:.4f} s ({hw}); stats delta {rep.stats}; launches "
+              f"{ {k: n for k, n in counts.items() if n} }")
+        return rep, counts
+
+    svc, ref_svc, f32_svc = (SearchService(space=space, engine=e, device=dev)
+                             for e in ("cuda", "numpy", "torch"))
+
+    def held_to_numpy(label, rep, box):
+        """Every winner against the numpy and torch services' sweeps of
+        the same grid under the same boxes; returns the feasible count."""
+        want = sweep(grid, box, service=ref_svc)
+        want32 = sweep(grid, box, service=f32_svc)
+        _check(len(rep.results) == 40,
+               f"{label}: {len(rep.results)} scenarios")
+        edges = []
+        for got, ref, ref32 in zip(rep.results, want.results,
+                                   want32.results):
+            g, w, w32 = got.result, ref.result, ref32.result
+            _check(got.scenario.name == ref.scenario.name
+                   and same_edp(g, w) and same_edp(g, w32)
+                   and counts_equal(g, w32, work)
+                   and counts_equal(g, w, work64)
+                   and all(getattr(g, k) == 0 for k in health),
+                   f"{label} {got.scenario.name}: {g.best_cfg} {g.edp!r} "
+                   f"{[getattr(g, k) for k in work]} vs numpy {w.best_cfg} "
+                   f"{w.edp!r} {[getattr(w, k) for k in work]}")
+            if g.n_feasible != w.n_feasible:
+                edges.append((got.scenario.name, w.n_feasible, g.n_feasible))
+        _check(rep.stats == want.stats == want32.stats,
+               f"{label} stats {rep.stats}, numpy {want.stats}, torch "
+               f"{want32.stats}")
+        _check(rep.format() == want.format(),
+               f"{label}: the report differs from the numpy service's")
+        n_feasible = sum(r.result.feasible for r in rep.results)
+        print(f"scenarios {label}: 40 winners equal the numpy service's "
+              f"({n_feasible} feasible), counters the torch service's"
+              + (f"; numpy n_feasible differs at the float32 edge: {edges}"
+                 if edges else ""))
+        return n_feasible
+
+    rep, _ = run("zoo sweep 1 (cold, edp)", svc, "edp", grid, boxes)
+    _check(rep.stats["cold"] == 40, f"zoo sweep 1: stats {rep.stats}")
+    held_to_numpy("zoo sweep 1", rep, boxes)
+    again, counts = run("zoo sweep 2 (memo)", svc, "edp", grid, boxes)
+    _check(again.stats["memo_hits"] == 40 and again.stats["cold"] == 0
+           and sum(counts.values()) == 0
+           and all(a.result is b.result
+                   for a, b in zip(rep.results, again.results)),
+           f"zoo sweep 2: stats {again.stats}, launches {counts}")
+    rep, counts = run("zoo sweep 3 (cold, edp, area/power box)", svc, "edp",
+                      grid, area_power)
+    n_feasible = held_to_numpy("zoo sweep 3", rep, area_power)
+    _check(n_feasible > 0 and counts["dse_search_decoded"] > 0,
+           f"zoo sweep 3: {n_feasible} feasible scenarios, kernel 3 "
+           f"launched {counts['dse_search_decoded']} times")
+    print(rep.format())
+
+    subset = ScenarioGrid(models=("qwen2.5-3b", "rwkv6-7b", "olmoe-1b-7b"),
+                          **shape)
+    prep, counts = run("3-arch sweep (cold, pareto, area/power box)", svc,
+                       "pareto", subset, area_power, ("dse_pareto_decoded",))
+    pwant = sweep(subset, area_power, service=ref_svc, objective="pareto")
+    for got, ref in zip(prep.results, pwant.results):
+        g, w = got.result, ref.result
+        held = float32_ties(g, w, got.workload)
+        _check(np.array_equal(g.front, w.front[held])
+               and all(np.array_equal(g.metrics[k], w.metrics[k][held])
+                       for k in w.metrics)
+               and counts_equal(g, w, work64),
+               f"pareto sweep {got.scenario.name}: {g.size} frontier rows "
+               f"vs numpy {w.size}")
+    print("scenarios pareto sweep: " + ", ".join(
+        f"{r.scenario.name} {r.result.size}" for r in prep.results)
+        + " frontier rows, equal the numpy service's")
+
+    _, wall, counts = drive("launch.serve scenarios (defaults)",
+                            lambda: launch.main(["scenarios"]), ())
+    walls.append(("launch.serve scenarios (defaults, 2 sweeps)", wall))
+    print(f"launch.serve scenarios (defaults): {wall:.4f} s ({hw}); "
+          f"launches { {k: n for k, n in counts.items() if n} }")
+    return walls
+
+
+def workers_phase(dev, n_z, hw, drive, float32_ties, by_thread):
+    """Phase 4e: the parallel slab scheduler (`search(..., workers=N)`).
+
+    The five paper workloads on the n_z^5 space, `factorized=True,
+    prune="bound"`, both objectives: `workers=None`, `workers=1`,
+    `workers=4` (deterministic) and `workers=4, deterministic=False`, all
+    on the cuda engine. Winners, frontiers and `canonical_counters` of
+    `workers=1` and `workers=4` equal `workers=None`'s; a frontier may
+    differ only by a row at the float32 edge (phase 4's rule against the
+    numpy engine: a split batch puts two configs that tie in float32 into
+    different launches). The async mode keeps the winner and frontier
+    under the same rule and covers the space. Then one fault of each kind
+    ("kill", "raise", "timeout") at "lease", a checkpointed `workers=4`
+    query killed and resumed under `workers=1`, and a `SearchService(
+    workers=4)` cold query and warm delta equal to the `workers=None`
+    service's. Every call's launch counts (`LAUNCHES`, locked) equal a
+    second count kept per thread (`by_thread`). `drive` counts under the
+    path "workers". Returns the phase's wall times."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core import (Constraints, FactorizedSpace,
+                                  RuntimePolicy, SearchRuntime, search)
+    from repro_torch.core.paper_workloads import PAPER_WORKLOADS, load
+    from repro_torch.core.runtime import KillSearch
+    from repro_torch.parallel import canonical_counters
+    from repro_torch.serve import SearchService
+    from repro_torch.testing import FaultSpec, inject
+
+    space = FactorizedSpace.full(n_z)
+    names = sorted(PAPER_WORKLOADS)
+    wls = {n: load(n) for n in names}
+    cons = Constraints()
+    walls = []
+    needs = {"edp": ("dse_search_decoded",),
+             "pareto": ("dse_pareto_decoded", "dse_eval_padded")}
+
+    def query(wl, objective, **kw):
+        return search(wl, cons, engine="cuda", factorized=True,
+                      space=space, prune="bound", objective=objective,
+                      device=dev, **kw)
+
+    def drive_counted(label, fn, needs_):
+        """`drive`, with the launches counted a second way per thread."""
+        by_thread.reset()
+        out, wall, counts = drive(label, fn, needs_)
+        dse = {k: n for k, n in counts.items() if k in DSE_ENTRIES.values()}
+        _check(dse == by_thread.totals(),
+               f"workers {label}: LAUNCHES {dse} differ from the per-thread "
+               f"count {by_thread.totals()}")
+        return out, wall, counts, by_thread.threads()
+
+    def same_answer(got, want, wl, objective, label):
+        """Exact, or (a frontier) at the float32 edge only."""
+        if objective == "edp":
+            _check(got.best_cfg == want.best_cfg and got.edp == want.edp,
+                   f"workers {label}: {got.best_cfg} {got.edp!r} vs "
+                   f"{want.best_cfg} {want.edp!r}")
+            return "equal"
+        if np.array_equal(got.front, want.front):
+            return "equal"
+        ref = query_numpy(wl)
+        for r in (got, want):
+            held = float32_ties(r, ref, wl)
+            _check(np.array_equal(r.front, ref.front[held]),
+                   f"workers {label}: frontier differs beyond the float32 "
+                   f"edge")
+        return (f"differs at the float32 edge ({got.size} rows against "
+                f"{want.size}, numpy {ref.size})")
+
+    def query_numpy(wl):
+        return search(wl, cons, engine="numpy", factorized=True, space=space,
+                      prune="bound", objective="pareto", device=dev)
+
+    for objective in ("edp", "pareto"):
+        for n in names:
+            wl = wls[n]
+            runs = {}
+            for label, kw in (("None", {}), ("1", dict(workers=1)),
+                              ("4", dict(workers=4)),
+                              ("4 async", dict(workers=4,
+                                               deterministic=False))):
+                res, wall, counts, threads = drive_counted(
+                    f"{objective} {n} workers={label}",
+                    lambda: query(wl, objective, **kw), needs[objective])
+                runs[label] = (res, wall, counts, threads)
+            base = runs["None"][0]
+            for label in ("1", "4", "4 async"):
+                res = runs[label][0]
+                how = same_answer(res, base, wl, objective,
+                                  f"{objective} {n} workers={label}")
+                if label != "4 async":
+                    _check(canonical_counters(res)
+                           == canonical_counters(base),
+                           f"workers {objective} {n} workers={label}: "
+                           f"{canonical_counters(res)} vs "
+                           f"{canonical_counters(base)}")
+                _check(res.n_pruned + res.n_workload_evals == space.size,
+                       f"workers {objective} {n} workers={label}: coverage")
+                runs[label] += (how,)
+            walls.append((f"{objective} {n}", {k: v[1]
+                                                for k, v in runs.items()}))
+            print(f"workers {objective} {n} ({hw}): " + "; ".join(
+                f"workers={k} {v[1]:.4f} s, launches "
+                f"{ {c: m for c, m in v[2].items() if m} } from "
+                f"{v[3]} thread(s)" for k, v in runs.items()))
+            print(f"workers {objective} {n}: answers "
+                  + ", ".join(f"workers={k} {v[4]}"
+                              for k, v in runs.items() if k != "None")
+                  + f"; canonical counters equal; workers=4 sched "
+                  f"{runs['4'][0].sched}; async sched "
+                  f"{runs['4 async'][0].sched}")
+
+    # -- faults at the lease, one of each kind -------------------------------
+    wl = wls["deit-b"]
+    base = query(wl, "edp")
+    for kind in ("kill", "raise", "timeout"):
+        rt = SearchRuntime(RuntimePolicy(sleep=lambda s: None))
+        with inject(rt, [FaultSpec("lease", kind, at=0)]) as inj:
+            got, wall, counts, _ = drive_counted(
+                f"fault {kind} at lease", lambda: query(
+                    wl, "edp", workers=4, runtime=rt), ())
+        _check(("lease", kind, 0) in inj.hits
+               and got.best_cfg == base.best_cfg and got.edp == base.edp
+               and canonical_counters(got) == canonical_counters(base)
+               and got.sched.n_requeued >= 1,
+               f"workers fault {kind}: {got.best_cfg} {got.sched}")
+        print(f"workers fault {kind} at lease: same answer and counters, "
+              f"{wall:.4f} s; {got.sched}")
+
+    # -- a checkpointed workers=4 query killed, resumed under workers=1 -----
+    with tempfile.TemporaryDirectory() as root:
+        pol = RuntimePolicy(checkpoint_dir=root, sleep=lambda s: None)
+        rt = SearchRuntime(pol)
+        killed = False
+        with inject(rt, [FaultSpec("checkpoint", "kill", at=1)]):
+            try:
+                query(wl, "edp", workers=4, runtime=rt)
+            except KillSearch:  # the fault this phase injected
+                killed = True
+        got, wall, _, _ = drive_counted(
+            "resume under workers=1", lambda: query(
+                wl, "edp", workers=1, runtime=SearchRuntime(pol)), ())
+        _check(killed and got.resumed_step > 0
+               and got.best_cfg == base.best_cfg and got.edp == base.edp
+               and canonical_counters(got) == canonical_counters(base),
+               f"workers kill/resume: killed {killed}, resumed at "
+               f"{got.resumed_step}, {got.best_cfg}")
+        print(f"workers: a workers=4 query killed at checkpoint 1 resumed "
+              f"under workers=1 at unit {got.resumed_step} in {wall:.4f} s, "
+              f"same answer and counters")
+
+    # -- the service with workers=4 ------------------------------------------
+    one = SearchService(space=space, engine="cuda", device=dev)
+    par = SearchService(space=space, engine="cuda", device=dev, workers=4)
+    for label, box in (("cold", cons), ("warm", Constraints(power_w=4.5))):
+        want = one.query(wl, box)
+        got, wall, counts, threads = drive_counted(
+            f"service workers=4 {label}", lambda: par.query(wl, box),
+            ("dse_search_decoded",) if label == "cold" else ())
+        _check(got.best_cfg == want.best_cfg and got.edp == want.edp
+               and canonical_counters(got) == canonical_counters(want),
+               f"workers service {label}: {got.best_cfg} vs "
+               f"{want.best_cfg}")
+        walls.append((f"service workers=4 {label}", wall))
+        print(f"workers service {label}: {wall:.4f} s ({hw}), equal the "
+              f"workers=None service; launches "
+              f"{ {k: n for k, n in counts.items() if n} } from {threads} "
+              f"thread(s)")
+    _check(par.stats == one.stats, f"workers service stats {par.stats} vs "
+                                   f"{one.stats}")
+    return walls
+
 
 def main() -> None:
     import numpy as np
@@ -1596,9 +1978,12 @@ def main() -> None:
               f"{t_warm:.4f} s, numpy {t_np:.4f} s, cuda {t_cuda:.4f} s")
 
     # -- the resident service on the card (phase 4c) ----------------------
-    def drive_service(label, fn, needs):
-        """`drive` for the service phase: the counts of every call add up
-        under the one path "service"."""
+    def drive_into(path):
+        """`drive` for the service, scenario and worker phases: the counts
+        of every call add up under the one path `path`."""
+        return lambda label, fn, needs: drive_path(path, label, fn, needs)
+
+    def drive_path(path, label, fn, needs):
         for c in counters:
             for k in c:
                 c[k] = 0
@@ -1608,17 +1993,25 @@ def main() -> None:
         wall = time.perf_counter() - t0
         counts = {k: n for c in counters for k, n in c.items()}
         for name in needs:
-            _check(counts[name] > 0, f"service {label}: never launched "
+            _check(counts[name] > 0, f"{path} {label}: never launched "
                                      f"{name}")
         for name, n in counts.items():
             if n:
                 rows[name]["launches"] += n
                 by_path = rows[name]["launches_by_path"]
-                by_path["service"] = by_path.get("service", 0) + n
+                by_path[path] = by_path.get(path, 0) + n
         return out, wall, counts
 
-    service_walls = service_phase(dev, 24, smi.stdout.strip(), drive_service,
-                                  float32_ties)
+    service_walls = service_phase(dev, 24, smi.stdout.strip(),
+                                  drive_into("service"), float32_ties)
+    # -- the model-zoo scenario sweep (phase 4d) ---------------------------
+    scenario_walls = scenario_phase(dev, 24, smi.stdout.strip(),
+                                    drive_into("scenarios"), float32_ties)
+    # -- the parallel slab scheduler (phase 4e) ----------------------------
+    with LaunchesByThread(load_library("dse_eval")) as by_thread:
+        worker_walls = workers_phase(dev, 24, smi.stdout.strip(),
+                                     drive_into("workers"), float32_ties,
+                                     by_thread)
 
     # -- kernel 7: the photonic DDot GEMM, at the serving path's shapes ----
     gen = torch.Generator(device=dev)
@@ -1863,6 +2256,13 @@ def main() -> None:
 
     print(f"service wall times ({smi.stdout.strip()}): " + "; ".join(
         f"{label} {kind} {wall:.4f} s" for label, kind, wall in service_walls))
+    print(f"scenario wall times ({smi.stdout.strip()}): " + "; ".join(
+        f"{label} {wall:.4f} s" for label, wall in scenario_walls))
+    print(f"worker wall times ({smi.stdout.strip()}): " + "; ".join(
+        f"{label} " + (", ".join(f"workers={k} {v:.4f} s"
+                                 for k, v in wall.items())
+                       if isinstance(wall, dict) else f"{wall:.4f} s")
+        for label, wall in worker_walls))
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -49,14 +49,16 @@ and, on the CPU only, cuda -> torch -> numpy degradation and NaN
 quarantine, all without changing a result (on a card an exhausted or
 NaN-poisoned unit fails the search). `keep_ledger=True` keeps a bound-guided run's slab
 partition (`core.factorized.SlabLedger`), the warm-start substrate of
-`repro_torch.serve.SearchService`.
+`repro_torch.serve.SearchService`. `workers=N` fans the bound-guided slab
+queue out across N leased worker threads (`repro_torch.parallel.slab_sched`),
+byte-identical to `workers=None` in its default deterministic mode.
 
 Every entry point takes `device=`: "cuda" (the default) launches the
 kernels and runs the prefilter on the card, and raises when no card is
 present; "cpu" runs the kernels' plain PyTorch versions. What the JAX
-package has beyond these slices — `shard>1` and `workers=` — raises
-NotImplementedError naming the ROADMAP item that ports it; `engine="jax"`
-raises a ValueError that names `torch`, its counterpart.
+package has beyond these slices — `shard>1` — raises NotImplementedError
+naming the ROADMAP item that ports it; `engine="jax"` raises a ValueError
+that names `torch`, its counterpart.
 """
 from __future__ import annotations
 
@@ -93,7 +95,6 @@ REPORT_METRICS = ("area", "power", "energy", "latency", "util", "edp")
 # Queue 1 item that ports it.
 _LATER = {
     "shard": (8, "sharding across CUDA devices"),
-    "workers": (13, "the slab scheduler"),
 }
 
 
@@ -155,6 +156,14 @@ class SearchResult:
     band: Optional[RobustBand] = dataclasses.field(default=None, repr=False,
                                                    compare=False)
 
+    # Parallel slab scheduler (search(..., workers=N)): the run's
+    # lease/requeue/merge telemetry (a repro_torch.parallel.slab_sched.
+    # SchedStats). None on single-executor searches. Excluded from equality
+    # like the ledger: scheduling is how the answer was computed, not the
+    # answer.
+    sched: Optional[object] = dataclasses.field(default=None, repr=False,
+                                                compare=False)
+
     @property
     def feasible(self) -> bool:
         """True when the search found any constraint-satisfying config."""
@@ -206,6 +215,9 @@ class ParetoResult:
     # searches and empty frontiers.
     band: Optional[RobustBand] = dataclasses.field(default=None, repr=False,
                                                    compare=False)
+    # Parallel slab scheduler telemetry, as on SearchResult (workers=N).
+    sched: Optional[object] = dataclasses.field(default=None, repr=False,
+                                                compare=False)
 
     @property
     def size(self) -> int:
@@ -1822,7 +1834,7 @@ def _bnb_thunks(run):
 
 def _search_factorized_bnb(fspace, wl, constraints, engine, c, device,
                            chunk_size, rt=None, led=None,
-                           warm=None) -> SearchResult:
+                           warm=None, executor=None) -> SearchResult:
     """Bound-guided min-EDP driver.
 
     Phase 1 (`_bnb_frontier`): constraint-prune the slab tree down to
@@ -1846,6 +1858,12 @@ def _search_factorized_bnb(fspace, wl, constraints, engine, c, device,
     path). A `LedgerRecorder` (`led=`) captures the pruned/evaluated slab
     partition onto ``result.ledger``. Warm starts exclude both the runtime
     and the ledger (warm slabs no longer tile the space).
+
+    An `executor` (a `repro_torch.parallel.slab_sched.SlabScheduler`)
+    replaces the direct `_bnb_eval_edp` call with a leased multi-worker
+    fan-out of the same batch. The fan-out is byte-identical to the direct
+    call (per the scheduler's merge contract), so every other line of this
+    driver — the schedule, the checkpoints, the counters — is untouched.
     """
     from .factorized import cached_bound_evaluator
     _check_warm(warm, rt, led)
@@ -1895,6 +1913,8 @@ def _search_factorized_bnb(fspace, wl, constraints, engine, c, device,
             led.evaluate(np.asarray(ranges_list, np.int64).reshape(-1, 5, 2))
 
         def run(eng):
+            if executor is not None:
+                return executor.eval_edp(eng, ranges_list)
             return _bnb_eval_edp(eng, fspace, wl, constraints, c, device,
                                  ranges_list, chunk_size)
 
@@ -1991,15 +2011,17 @@ def _search_factorized_bnb(fspace, wl, constraints, engine, c, device,
 
 def _pareto_factorized_bnb(fspace, wl, constraints, engine, c, device,
                            objectives, chunk_size, rt=None, led=None,
-                           warm=None) -> ParetoResult:
+                           warm=None, executor=None) -> ParetoResult:
     """Bound-guided frontier search: probe the objective-sorted leaves to
     seed the running (float64-refined) frontier, refine the remainder
     against it, then evaluate the survivors in batches. A slab is pruned
     when its objective lower-bound corner is strictly dominated by a
     running-frontier point. Runtime checkpointing follows
     `_search_factorized_bnb`, with the frozen refinement frontier persisted
-    beside the live one; `warm=` / `led=` too (warm seeds the running
-    frontier from `WarmStart.rows` / `met` instead of an argmin)."""
+    beside the live one; `warm=` / `led=` / `executor=` too (warm seeds the
+    running frontier from `WarmStart.rows` / `met` instead of an argmin; the
+    executor fan-out's candidate union is frontier-identical to the direct
+    call)."""
     from .factorized import cached_bound_evaluator
     _check_warm(warm, rt, led)
     t0 = time.perf_counter()
@@ -2054,6 +2076,8 @@ def _pareto_factorized_bnb(fspace, wl, constraints, engine, c, device,
             led.evaluate(np.asarray(ranges_list, np.int64).reshape(-1, 5, 2))
 
         def run(eng):
+            if executor is not None:
+                return executor.eval_pareto(eng, ranges_list, state["rows"])
             return _bnb_eval_pareto(eng, fspace, wl, constraints, c, device,
                                     ranges_list, chunk_size, objectives,
                                     state["rows"])
@@ -2198,7 +2222,7 @@ def _workloads_cuda_factorized(wls, names, cons_for, fspace, c, device,
             for nm in names}
 
 
-def _check_later_args(engine, shard, workers):
+def _check_later_args(engine, shard):
     """Refuse what the JAX package supports beyond these slices."""
     if engine == "jax":
         raise ValueError("engine='jax' is the reference's jit-compiled "
@@ -2210,10 +2234,22 @@ def _check_later_args(engine, shard, workers):
                          f"{sorted(ENGINES)}")
     if shard is not None and int(shard) < 1:
         raise ValueError(f"shard must be >= 1, got {shard!r}")
-    for arg, value, off in (("shard", shard, (None, 1)),
-                            ("workers", workers, (None,))):
-        if value not in off:
-            raise _not_ported(arg, value)
+    if shard not in (None, 1):
+        raise _not_ported("shard", shard)
+
+
+def _check_workers_arg(workers, prune) -> Optional[int]:
+    """The validated worker count of a slab-scheduler search (None when the
+    search runs on one executor)."""
+    if workers is None:
+        return None
+    workers = int(workers)
+    if workers < 1:
+        raise ValueError("workers= must be a positive integer")
+    if prune != "bound":
+        raise ValueError("workers= fans out the bound-guided slab queue; it "
+                         "requires prune='bound' (factorized=True)")
+    return workers
 
 
 def _check_ledger_arg(keep_ledger, prune):
@@ -2463,6 +2499,7 @@ def search(wl: Workload, constraints: Constraints = Constraints(), *,
            chunk_size: Optional[int] = None, factorized: bool = False,
            space=None, prune: Optional[str] = None, runtime=None,
            keep_ledger: bool = False, workers: Optional[int] = None,
+           deterministic: bool = True,
            calibration=None, robust: Optional[str] = None
            ) -> Union[SearchResult, ParetoResult]:
     """Unified search over a config grid.
@@ -2510,6 +2547,23 @@ def search(wl: Workload, constraints: Constraints = Constraints(), *,
         evaluated leaf — as a `core.factorized.SlabLedger` on
         ``result.ledger``. Requires prune="bound". A checkpointed run that
         resumed returns ``ledger=None`` (it replays only the tail).
+      workers: fan the bound-guided slab queue out across this many leased
+        worker threads (`repro_torch.parallel.slab_sched`), each launching
+        the kernels on `device`: every slab batch is taken under a
+        heartbeat lease, a worker that dies or hangs has its batch requeued
+        (the run ends with an explicit tiling assertion), and the
+        incumbent/frontier is shared through versioned monotone merges. A
+        kernel failure in a worker fails the query as it would the
+        sequential driver. Requires prune="bound". Composes with
+        `runtime=` and `keep_ledger=True`. Scheduler telemetry comes back
+        on ``result.sched``.
+      deterministic: with `workers=`, True (default) replays merges on the
+        sequential drivers' fixed schedule — byte-identical to
+        `workers=None` (winners, frontiers and the canonical counter set,
+        `repro_torch.parallel.slab_sched.canonical_counters`). False runs
+        the async work-stealing sweep: the same winner/frontier after
+        float64 exact verification, coverage-complete, with
+        schedule-dependent prune counters.
       calibration: a `core.calibration.CalibratedConstants` (or a
         `{field: interval}` mapping, or a shipped preset name) of per-field
         (lo, nominal, hi) intervals over the device constants; exclusive
@@ -2522,15 +2576,15 @@ def search(wl: Workload, constraints: Constraints = Constraints(), *,
         The degenerate calibration returns an uncalibrated search's bytes.
         Calibrations with uncertified varying fields take a conservative
         host-side vertex sweep (which rejects prune/runtime/keep_ledger).
-      shard, workers: accepted for signature parity with `repro`; shard > 1
-        and workers= raise NotImplementedError naming the ROADMAP item that
-        ports them.
+      shard: accepted for signature parity with `repro`; shard > 1 raises
+        NotImplementedError naming the ROADMAP item that ports it.
     """
     dev = resolve_device(device)
-    _check_later_args(engine, shard, workers)
+    _check_later_args(engine, shard)
     _check_stream_args(chunk_size)
     _check_prune_arg(prune, factorized)
     _check_ledger_arg(keep_ledger, prune)
+    workers = _check_workers_arg(workers, prune)
     c, cal, fallback = _resolve_robust(calibration, robust, c, engine)
     if fallback:
         _refuse_vertex_with(cal, prune, runtime, keep_ledger)
@@ -2543,13 +2597,14 @@ def search(wl: Workload, constraints: Constraints = Constraints(), *,
         res = _search_impl(wl, constraints, engine, grid, n_z, hierarchical,
                            c, dev, objective, pareto_metrics, shard,
                            chunk_size, factorized, space, prune, None,
-                           keep_ledger)
+                           keep_ledger, workers, deterministic)
     else:
         try:
             res = _search_impl(wl, constraints, engine, grid, n_z,
                                hierarchical, c, dev, objective,
                                pareto_metrics, shard, chunk_size, factorized,
-                               space, prune, rt, keep_ledger)
+                               space, prune, rt, keep_ledger, workers,
+                               deterministic)
         finally:
             # Durability on exit, normal or not: an injected KillSearch
             # must leave the same committed snapshots a blocking save would
@@ -2562,12 +2617,19 @@ def search(wl: Workload, constraints: Constraints = Constraints(), *,
 
 def _search_impl(wl, constraints, engine, grid, n_z, hierarchical, c, dev,
                  objective, pareto_metrics, shard, chunk_size, factorized,
-                 space, prune, rt, keep_ledger):
+                 space, prune, rt, keep_ledger, workers=None,
+                 deterministic=True):
     if factorized:
         from .factorized import LedgerRecorder
         fspace = _factorized_space(space, grid, n_z, engine, hierarchical)
         metrics = _check_objective(objective, engine, pareto_metrics)
         led = LedgerRecorder() if keep_ledger else None
+        if workers is not None:
+            from ..parallel.slab_sched import parallel_bnb
+            return parallel_bnb(fspace, wl, constraints, engine, c, dev,
+                                chunk_size, objective=objective,
+                                metrics=metrics, workers=workers,
+                                deterministic=deterministic, rt=rt, led=led)
         if metrics is None:
             if prune == "bound":
                 return _search_factorized_bnb(fspace, wl, constraints,
@@ -2693,6 +2755,7 @@ def search_workloads(wls: Union[Mapping[str, Workload], Sequence[Workload]],
                      prune: Optional[str] = None, runtime=None,
                      keep_ledger: bool = False,
                      workers: Optional[int] = None,
+                     deterministic: bool = True,
                      calibration=None, robust: Optional[str] = None
                      ) -> Dict[str, Union[SearchResult, ParetoResult]]:
     """Batched search: many workloads against one grid.
@@ -2712,7 +2775,10 @@ def search_workloads(wls: Union[Mapping[str, Workload], Sequence[Workload]],
     resume per workload, each under `<checkpoint_dir>/<workload name>`),
     every sub-search sharing the batch campaign's fault injector, and each
     result carries its own workload's counters. `keep_ledger=True` keeps
-    each workload's slab partition (prune="bound"). `calibration=` /
+    each workload's slab partition (prune="bound"). `workers=` /
+    `deterministic=` fan each workload's slab queue out across the leased
+    scheduler exactly as in `search` (a fresh worker pool per workload: the
+    slab tree is per workload, so there is nothing to share). `calibration=` /
     `robust=` are resolved once for the whole batch — the fused launches
     simply run at the worst corner — and every result carries its own
     uncertainty band.
@@ -2720,10 +2786,11 @@ def search_workloads(wls: Union[Mapping[str, Workload], Sequence[Workload]],
     dev = resolve_device(device)
     if not isinstance(wls, Mapping):
         wls = {wl.name: wl for wl in wls}
-    _check_later_args(engine, shard, workers)
+    _check_later_args(engine, shard)
     _check_stream_args(chunk_size)
     _check_prune_arg(prune, factorized)
     _check_ledger_arg(keep_ledger, prune)
+    workers = _check_workers_arg(workers, prune)
     if grid is not None:
         grid = _check_grid(grid)
 
@@ -2744,7 +2811,7 @@ def search_workloads(wls: Union[Mapping[str, Workload], Sequence[Workload]],
                                  hierarchical, c, dev, objective,
                                  pareto_metrics, shard, chunk_size,
                                  factorized, space, prune, runtime,
-                                 keep_ledger)
+                                 keep_ledger, workers, deterministic)
     if cal is not None:
         for name, r in out.items():
             r.band = _measure_band(r, cal, wls[name])
@@ -2762,7 +2829,7 @@ def _share_wall(out):
 def _search_workloads_impl(wls, cons_for, engine, grid, n_z, hierarchical,
                            c, dev, objective, pareto_metrics, shard,
                            chunk_size, factorized, space, prune, runtime,
-                           keep_ledger):
+                           keep_ledger, workers=None, deterministic=True):
     """The batched dispatch behind `search_workloads`, after calibration
     resolution (`c` is the corner the batch runs at)."""
     rt0 = SearchRuntime.of(runtime) if runtime is not None else None
@@ -2794,7 +2861,8 @@ def _search_workloads_impl(wls, cons_for, engine, grid, n_z, hierarchical,
         # silently searching the default product space.
         _factorized_space(space, grid, n_z, engine, hierarchical)
         return per_workload(factorized=True, prune="bound",
-                            keep_ledger=keep_ledger)
+                            keep_ledger=keep_ledger, workers=workers,
+                            deterministic=deterministic)
     if factorized and engine == "cuda" and rt0 is None:
         fspace = _factorized_space(space, grid, n_z, engine, hierarchical)
         return _workloads_cuda_factorized(

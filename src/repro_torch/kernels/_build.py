@@ -18,6 +18,11 @@ IEEE division are part of the float32 contract of the DSE and DDot kernels
 with the Pallas kernels they replace, which they equal bit for bit; never
 add --use_fast_math. The two attention sources, held to a tolerance, build
 without `-fmad=false` (`FLAGS`).
+
+The slab scheduler's worker threads launch kernels concurrently, so loading
+(and building) a library happens under one lock, each nvcc run writes to a
+temporary file of its own thread, and the wrappers count their launches
+through `count_launch`, under a lock too.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -75,6 +81,16 @@ _SIGNATURES = {
 }
 
 _LOADED: dict = {}
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """Add one launch of kernel `name` to `counts` (a kernel module's
+    `LAUNCHES`); the read-modify-write happens under a lock, as worker
+    threads launch concurrently."""
+    with _COUNT_LOCK:
+        counts[name] += 1
 
 
 def nvcc() -> str:
@@ -102,7 +118,7 @@ def _start(name: str):
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc(), *FLAGS[name], "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -133,13 +149,18 @@ def build_all(names=SOURCES) -> dict:
 
 def load_library(name: str = "dse_eval") -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built first if needed, with
-    the argtypes of its C entry points set."""
+    the argtypes of its C entry points set. Threads that ask at once wait
+    for one build and one load."""
     lib = _LOADED.get(name)
-    if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn, argtypes in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LOADED[name] = lib
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            build_all((name,))
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, argtypes in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _LOADED[name] = lib
     return lib

@@ -108,7 +108,7 @@ def ddot_gemm_quantized(qa: torch.Tensor, qb: torch.Tensor, sa: torch.Tensor,
     if not qa.is_cuda:
         return ddot_gemm_quantized_plain(qa, qb, sa, sb, z,
                                          noise_rms=noise_rms)
-    from ._build import load_library
+    from ._build import count_launch, load_library
     noisy = noise_rms > 0.0
     qbt = k_major(qb)
     ops = [qa, qbt, sa, sb] + ([z] if noisy else [])
@@ -121,5 +121,5 @@ def ddot_gemm_quantized(qa: torch.Tensor, qb: torch.Tensor, sa: torch.Tensor,
         ctypes.c_int(n), ctypes.c_int(k), ctypes.c_int(int(noisy)),
         ctypes.c_float(float(np.float32(noise_rms))), _stream())
     _check(rc, "ddot_gemm_quantized")
-    LAUNCHES["ddot_gemm_quantized"] += 1
+    count_launch(LAUNCHES, "ddot_gemm_quantized")
     return out

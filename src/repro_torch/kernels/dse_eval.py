@@ -529,7 +529,7 @@ def dse_eval_padded(cfg_cols: torch.Tensor, *, gemms: tuple,
         return dse_eval_padded_plain(cfg_cols, gemms=gemms,
                                      wl_scalars=wl_scalars,
                                      constants=constants)
-    from ._build import load_library
+    from ._build import count_launch, load_library
     _require([cfg_cols], [torch.float32], "dse_eval_padded")
     g = cfg_cols.shape[1]
     params = _device_params(((gemms, wl_scalars),), constants,
@@ -539,7 +539,7 @@ def dse_eval_padded(cfg_cols: torch.Tensor, *, gemms: tuple,
         _ptr(cfg_cols), _ptr(out), ctypes.c_int(g), _ptr(params),
         ctypes.c_int(params.numel()), _stream())
     _check(rc, "dse_eval_padded")
-    LAUNCHES["dse_eval_padded"] += 1
+    count_launch(LAUNCHES, "dse_eval_padded")
     return out
 
 
@@ -558,7 +558,7 @@ def dse_search_padded(cfg_cols, mask, cons, carry, *, workloads: tuple,
         return dse_search_padded_plain(cfg_cols, mask, cons, carry,
                                        workloads=workloads,
                                        constants=constants)
-    from ._build import load_library
+    from ._build import count_launch, load_library
     _require([cfg_cols, mask, cons, carry], [torch.float32] * 4,
              "dse_search_padded")
     g = cfg_cols.shape[1]
@@ -574,7 +574,7 @@ def dse_search_padded(cfg_cols, mask, cons, carry, *, workloads: tuple,
         _ptr(carry), _ptr(params), ctypes.c_int(params.numel()), _ptr(out),
         ctypes.c_int(n_blocks), _stream())
     _check(rc, "dse_search_padded")
-    LAUNCHES["dse_search_padded"] += 1
+    count_launch(LAUNCHES, "dse_search_padded")
     return out
 
 
@@ -591,7 +591,7 @@ def dse_search_decoded(axes, meta, cons, carry, *, radices: tuple,
                                         radices=radices, n_blocks=n_blocks,
                                         workloads=workloads,
                                         constants=constants)
-    from ._build import load_library
+    from ._build import count_launch, load_library
     _require([axes, meta, cons, carry],
              [torch.float32, torch.int32, torch.float32, torch.float32],
              "dse_search_decoded")
@@ -608,7 +608,7 @@ def dse_search_decoded(axes, meta, cons, carry, *, radices: tuple,
         ctypes.c_int(params.numel()), _ptr(out), ctypes.c_int(n_blocks),
         _stream())
     _check(rc, "dse_search_decoded")
-    LAUNCHES["dse_search_decoded"] += 1
+    count_launch(LAUNCHES, "dse_search_decoded")
     return out
 
 
@@ -620,7 +620,7 @@ def dse_decode_rows(axes, meta, *, radices: tuple,
     if not axes.is_cuda:
         return dse_decode_rows_plain(axes, meta, radices=radices,
                                      n_blocks=n_blocks)
-    from ._build import load_library
+    from ._build import count_launch, load_library
     _require([axes, meta], [torch.float32, torch.int32], "dse_decode_rows")
     if meta.shape != (META_COLS,):
         raise ValueError("dse_decode_rows: meta must be (META_COLS,) int32")
@@ -631,7 +631,7 @@ def dse_decode_rows(axes, meta, *, radices: tuple,
         *_radix_args(radices, axes), _ptr(out), ctypes.c_int(n_blocks),
         _stream())
     _check(rc, "dse_decode_rows")
-    LAUNCHES["dse_decode_rows"] += 1
+    count_launch(LAUNCHES, "dse_decode_rows")
     return out
 
 
@@ -668,7 +668,7 @@ def dse_pareto_padded(cfg_cols, mask, cons, carry, *, workloads: tuple,
                                        objectives=objectives,
                                        has_carry=has_carry,
                                        constants=constants)
-    from ._build import load_library
+    from ._build import count_launch, load_library
     _require([cfg_cols, mask, cons, carry], [torch.float32] * 4,
              "dse_pareto_padded")
     g = cfg_cols.shape[1]
@@ -685,7 +685,7 @@ def dse_pareto_padded(cfg_cols, mask, cons, carry, *, workloads: tuple,
         _ptr(carry), *obj_args, _ptr(params), ctypes.c_int(params.numel()),
         _ptr(out), ctypes.c_int(n_blocks), _stream())
     _check(rc, "dse_pareto_padded")
-    LAUNCHES["dse_pareto_padded"] += 1
+    count_launch(LAUNCHES, "dse_pareto_padded")
     return out
 
 
@@ -704,7 +704,7 @@ def dse_pareto_decoded(axes, meta, cons, carry, *, radices: tuple,
                                         objectives=objectives,
                                         has_carry=has_carry,
                                         constants=constants)
-    from ._build import load_library
+    from ._build import count_launch, load_library
     _require([axes, meta, cons, carry],
              [torch.float32, torch.int32, torch.float32, torch.float32],
              "dse_pareto_decoded")
@@ -721,5 +721,5 @@ def dse_pareto_decoded(axes, meta, cons, carry, *, radices: tuple,
         _ptr(params), ctypes.c_int(params.numel()), _ptr(out),
         ctypes.c_int(n_blocks), _stream())
     _check(rc, "dse_pareto_decoded")
-    LAUNCHES["dse_pareto_decoded"] += 1
+    count_launch(LAUNCHES, "dse_pareto_decoded")
     return out

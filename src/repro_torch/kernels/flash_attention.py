@@ -112,7 +112,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_operands(q, k, v, group)
     if not q.is_cuda:
         return flash_attention_bhsd_plain(q, k, v, causal=causal, group=group)
-    from ._build import load_library
+    from ._build import count_launch, load_library
     _require([q, k, v], [q.dtype] * 3, "flash_attention_bhsd")
     bh, sq, d = q.shape
     out = torch.empty_like(q)
@@ -136,5 +136,5 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ctypes.c_int(splits),
             None if part is None else _ptr(part), _stream())
     _check(rc, name)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return out

@@ -22,18 +22,25 @@ and the resident DSE service.
             --scenario power_w=4.5 --scenario power_w=4.0,area_mm2=45
 
     runs on the card with the cuda engine (``--device cpu`` runs the
-    kernels' plain versions).
+    kernels' plain versions); ``--workers N`` fans every search out over N
+    leased slab workers (byte-identical answers).
 
-The ``scenarios`` subcommand waits for the scenario sweep (ROADMAP Queue 1
-item 12).
+  * ``scenarios`` — sweep a model-zoo scenario grid (models x train /
+    prefill / decode x shapes) through one resident service, twice by
+    default (the repeat is served from the memo), and print the winners
+    and the cross-class parameter shift::
+
+        PYTHONPATH=src python -m repro_torch.launch.serve scenarios \
+            --model qwen2.5-3b --model rwkv6-7b --box decode:latency_ms=2
+
+    runs on the card with the cuda engine (``--device cpu --reduced`` sweeps
+    tiny same-family configs with the kernels' plain versions).
 """
 from __future__ import annotations
 
 import argparse
 import sys
 import time
-
-_NOT_PORTED = {"scenarios": "the scenario sweep (ROADMAP Queue 1 item 12)"}
 
 
 def _tokens_main(args) -> None:
@@ -125,13 +132,43 @@ def _dse_main(args) -> None:
               f"kept newest {args.gc}")
 
 
+def _scenarios_main(args) -> None:
+    """Model-zoo scenario sweep through one resident service."""
+    from ..configs import list_archs
+    from ..core.arch_params import Constraints
+    from ..scenarios import ScenarioGrid, sweep
+    from ..serve import SearchService
+
+    models = tuple(args.model) or ("qwen2.5-3b", "rwkv6-7b", "olmoe-1b-7b")
+    unknown = sorted(set(models) - set(list_archs()))
+    if unknown:
+        raise SystemExit(f"unknown arch(es) {unknown}; pick from "
+                         f"{list_archs()}")
+    grid = ScenarioGrid(models=models, kinds=tuple(args.kind),
+                        seq_lens=tuple(args.seq_len),
+                        batches=tuple(args.batch),
+                        new_tokens=tuple(args.new_tokens),
+                        reduce=args.reduced)
+    cons = {spec.split(":", 1)[0]: _parse_scenario(spec.split(":", 1)[1])
+            for spec in args.box} if args.box else {}
+    svc = SearchService(n_z=args.n_z, engine=args.engine, device=args.device,
+                        chunk_size=args.chunk_size)
+    print(f"service: {args.engine} engine on {svc.device}, {args.n_z}^5 "
+          f"space; grid: {len(models)} model(s) x {len(args.kind)} kind(s) "
+          f"-> {grid.size} scenarios")
+    for i in range(max(1, args.repeat)):
+        t0 = time.perf_counter()
+        rep = sweep(grid, cons if cons else Constraints(), service=svc,
+                    objective=args.objective)
+        ms = (time.perf_counter() - t0) * 1e3
+        print(f"sweep {i + 1} ({ms:.1f}ms):")
+        print(rep.format())
+
+
 def main(argv=None) -> None:
     """Dispatch to a subcommand (``tokens`` when none is given)."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in _NOT_PORTED:
-        raise NotImplementedError(f"repro_torch.launch.serve {argv[0]}: "
-                                  f"{_NOT_PORTED[argv[0]]} is not ported yet")
-    if not argv or argv[0] not in ("tokens", "dse"):
+    if not argv or argv[0] not in ("tokens", "dse", "scenarios"):
         argv.insert(0, "tokens")  # original flag-only invocation
 
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
@@ -161,7 +198,8 @@ def main(argv=None) -> None:
     ds.add_argument("--checkpoint-root", default=None,
                     help="service-owned checkpoint root (resume per query)")
     ds.add_argument("--workers", type=int, default=None,
-                    help="SearchService(workers=)")
+                    help="fan cold searches and warm deltas out over N "
+                         "leased slab workers (byte-identical answers)")
     ds.add_argument("--gc", type=int, default=None, metavar="KEEP",
                     help="after serving, prune completed-query checkpoint "
                          "dirs under --checkpoint-root down to the newest "
@@ -169,8 +207,46 @@ def main(argv=None) -> None:
     ds.add_argument("--device", default="cuda",
                     help="torch device the service runs on (default cuda; "
                          "cpu runs the kernels' plain PyTorch versions)")
+
+    sc = sub.add_parser("scenarios", help="model-zoo scenario co-search")
+    sc.add_argument("--model", action="append", default=[],
+                    help="arch name (repeatable; default: a 3-model zoo)")
+    sc.add_argument("--kind", action="append", default=None,
+                    choices=("train", "prefill", "decode"),
+                    help="scenario class (repeatable; default: all three)")
+    sc.add_argument("--seq-len", type=int, action="append", default=None,
+                    help="context length axis (repeatable; default 2048)")
+    sc.add_argument("--batch", type=int, action="append", default=None,
+                    help="batch axis (repeatable; default 8)")
+    sc.add_argument("--new-tokens", type=int, action="append", default=None,
+                    help="decode-length axis (repeatable; default 16, 64)")
+    sc.add_argument("--box", action="append", default=[],
+                    metavar="KIND:FIELD=VAL[,FIELD=VAL...]",
+                    help="per-class constraint box, e.g. "
+                         "decode:latency_ms=2 (repeatable)")
+    sc.add_argument("--reduced", action="store_true",
+                    help="sweep the reduced (CPU-smoke) configs")
+    sc.add_argument("--repeat", type=int, default=2,
+                    help="sweep the grid this many times (repeats after "
+                         "the first are served from the memo)")
+    sc.add_argument("--n-z", type=int, default=6)
+    sc.add_argument("--engine", default="cuda",
+                    choices=("numpy", "torch", "cuda"))
+    sc.add_argument("--objective", default="edp",
+                    choices=("edp", "pareto"))
+    sc.add_argument("--chunk-size", type=int, default=None)
+    sc.add_argument("--device", default="cuda",
+                    help="torch device the service runs on (default cuda; "
+                         "cpu runs the kernels' plain PyTorch versions)")
+
     args = ap.parse_args(argv)
-    if args.cmd == "dse":
+    if args.cmd == "scenarios":
+        args.kind = args.kind or ["train", "prefill", "decode"]
+        args.seq_len = args.seq_len or [2048]
+        args.batch = args.batch or [8]
+        args.new_tokens = args.new_tokens or [16, 64]
+        _scenarios_main(args)
+    elif args.cmd == "dse":
         _dse_main(args)
     else:
         _tokens_main(args)

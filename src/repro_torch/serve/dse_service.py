@@ -35,6 +35,7 @@ multi-workload batched calls (`serve.batching`).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 import time
@@ -129,9 +130,13 @@ class SearchService:
         evicted base only downgrades its successors from warm to cold —
         answers never change, because the memo of exact results is
         separate and every cold search is self-contained.
-      workers: the reference's leased parallel slab scheduler; not ported
-        yet (ROADMAP Queue 1 item 13), so anything but None raises
-        NotImplementedError.
+      workers / deterministic: fan every cold search's slab queue out
+        across the leased parallel scheduler
+        (`repro_torch.parallel.slab_sched`, worker threads launching on
+        `device`), and run warm constraint-deltas through the same worker
+        fan-out. Answers stay byte-identical (deterministic mode) or
+        exactly-verified-identical (async) to a single-executor service,
+        per `core.search.search(workers=)`.
 
     The constants fingerprint (`constants_fingerprint`) joins every memo
     / base key and therefore the per-query checkpoint directories —
@@ -151,9 +156,10 @@ class SearchService:
                  calibration=None, robust: Optional[str] = None,
                  max_bases: Optional[int] = None,
                  max_ledger_bytes: Optional[int] = None,
-                 workers: Optional[int] = None):
+                 workers: Optional[int] = None,
+                 deterministic: bool = True):
         self.device = resolve_device(device)
-        _check_later_args(engine, None, workers)
+        _check_later_args(engine, None)
         self.space = (FactorizedSpace.full(n_z) if space is None
                       else FactorizedSpace.from_space(space))
         self.engine = engine
@@ -175,6 +181,8 @@ class SearchService:
             raise ValueError("max_ledger_bytes= must be >= 0")
         self.max_bases = max_bases
         self.max_ledger_bytes = max_ledger_bytes
+        self.workers = workers
+        self.deterministic = deterministic
         self._memo: Dict[str, Result] = {}
         self._base: "collections.OrderedDict[str, _BaseEntry]" = \
             collections.OrderedDict()
@@ -347,6 +355,9 @@ class SearchService:
                   objective="edp", chunk_size=self.chunk_size,
                   factorized=True, space=self.space, prune="bound",
                   keep_ledger=True)
+        if self.workers is not None:
+            kw["workers"] = self.workers
+            kw["deterministic"] = self.deterministic
         if self.checkpoint_root is not None:
             kw["runtime"] = query_policy(self.checkpoint_root, mkey)
         return kw
@@ -433,6 +444,23 @@ class SearchService:
                       "resident)", bkey[:12], entry.nbytes,
                       len(self._base), self._base_bytes)
 
+    def _maybe_executor(self, wl, cons, objective, metrics):
+        """A leased worker fan-out for one warm delta, or a None context.
+
+        Warm deltas always use the *deterministic* wave fan-out even on
+        an async-configured service: the async drivers own their whole
+        probe/refine/sweep schedule and have no warm-start entry point,
+        and a delta's revived-slab descent is small enough that the
+        byte-identical wave split is the right tool anyway.
+        """
+        if self.workers is None:
+            return contextlib.nullcontext(None)
+        from ..parallel.slab_sched import SlabScheduler
+        return SlabScheduler(self.space, wl, cons, self.c, self.device,
+                             self.chunk_size, self.workers,
+                             objective=objective, objectives=metrics,
+                             deterministic=True)
+
     def _delta(self, base: _BaseEntry, q: ServeQuery) -> Result:
         """Warm constraint-delta answer: filter the point store, re-price
         the pruned slabs, descend only the revived ones."""
@@ -455,9 +483,10 @@ class SearchService:
                 lbs={k2: v[~dead]
                      for k2, v in base.ledger.bounds.items()},
                 best=best, nf=int(ok.sum()))
-            res = _search_factorized_bnb(
-                self.space, q.wl, cons, self.engine, self.c, self.device,
-                self.chunk_size, warm=warm)
+            with self._maybe_executor(q.wl, cons, "edp", None) as ex:
+                res = _search_factorized_bnb(
+                    self.space, q.wl, cons, self.engine, self.c,
+                    self.device, self.chunk_size, warm=warm, executor=ex)
         else:
             metrics = self._metrics(q)
             front, met, nf = _pareto_from_rows(base.rows, q.wl, cons,
@@ -470,9 +499,11 @@ class SearchService:
                 lbs={k2: v[~dead]
                      for k2, v in base.ledger.bounds.items()},
                 rows=front, met=met, nf=nf)
-            res = _pareto_factorized_bnb(
-                self.space, q.wl, cons, self.engine, self.c, self.device,
-                metrics, self.chunk_size, warm=warm)
+            with self._maybe_executor(q.wl, cons, "pareto", metrics) as ex:
+                res = _pareto_factorized_bnb(
+                    self.space, q.wl, cons, self.engine, self.c,
+                    self.device, metrics, self.chunk_size, warm=warm,
+                    executor=ex)
         if self.calibration is not None:
             res.band = _measure_band(res, self.calibration, q.wl)
         self.stats["slabs_repriced"] += len(base.ledger.pruned)

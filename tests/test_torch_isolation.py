@@ -19,6 +19,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core.paper_workloads import load
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops
+from repro_torch.scenarios import ScenarioGrid, sweep
 from repro_torch.train.serve import Request, Server
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
@@ -35,7 +36,9 @@ MODULES = ("repro_torch", "repro_torch.core", "repro_torch.core.search",
            "repro_torch.core.calibration", "repro_torch.core.runtime",
            "repro_torch.checkpoint.checkpointing", "repro_torch.testing.faults",
            "repro_torch.serve.cache", "repro_torch.serve.batching",
-           "repro_torch.serve.dse_service")
+           "repro_torch.serve.dse_service", "repro_torch.scenarios",
+           "repro_torch.scenarios.grid", "repro_torch.scenarios.sweep",
+           "repro_torch.parallel", "repro_torch.parallel.slab_sched")
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -91,12 +94,14 @@ def _no_card():
     lambda wl: M.init_params(reduced(get_config("qwen2.5-3b"))),
     lambda wl: Server(_CFG, M.init_params(_CFG, device="cpu"), 1, 16)
     .generate([Request(prompt=np.arange(1, 5, dtype=np.int32), max_new=2)]),
+    lambda wl: P.search(wl, factorized=True, prune="bound", workers=2),
+    lambda wl: sweep(ScenarioGrid(models=("rwkv6-7b",), reduce=True)),
 ], ids=["search", "search_bound", "search_workloads", "search_robust",
         "search_runtime", "dxpta_search",
         "hw_prefilter", "dse_search_grid", "decode_rows_device",
         "search_pareto", "pareto_front", "dse_pareto_multi", "ddot_matmul",
         "photonic_matmul", "flash_attention", "init_params",
-        "server_generate"])
+        "server_generate", "search_workers", "scenario_sweep"])
 def test_entry_points_raise_without_a_card(call):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -256,6 +256,10 @@ def test_launcher_serves_a_reduced_config_on_the_cpu(capsys):
                  "--device", "cpu", "--max-new", "3"])
     out = capsys.readouterr().out
     assert "12 tokens on cpu" in out and "granite-3-2b-decode64b4n3" in out
-    # dse is ported (ROADMAP Queue 1 item 11); scenarios waits for item 12
-    with pytest.raises(NotImplementedError, match="item 12"):
-        launch.main(["scenarios"])
+    # dse (ROADMAP Queue 1 item 11) and scenarios (item 12) are ported
+    launch.main(["scenarios", "--model", "granite-3-2b", "--reduced",
+                 "--device", "cpu", "--n-z", "3", "--kind", "decode",
+                 "--repeat", "1"])
+    out = capsys.readouterr().out
+    assert "cuda engine on cpu" in out
+    assert "2 scenarios (2 cold" in out and "granite-3-2b-reduced/" in out

@@ -446,10 +446,16 @@ def test_service_and_launcher_need_the_card_unless_told(monkeypatch, capsys):
 
 
 def test_workers_and_unknown_engines_are_refused():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _svc(workers=2)
+    # workers= is ported (ROADMAP Queue 1 item 13): a worker count below 1
+    # is refused at the first cold search, as the reference's service
+    # refuses it (tests/test_torch_slab_sched.py holds workers=N services).
+    with pytest.raises(ValueError, match="positive integer"):
+        _r_svc(workers=0).query(WL)
+    with pytest.raises(ValueError, match="positive integer"):
+        _svc(workers=0).query(PW)
     with pytest.raises(ValueError, match="torch"):
         _svc(engine="jax")
     from repro_torch.launch import serve as launch
-    with pytest.raises(NotImplementedError, match="item 13"):
-        launch.main(["dse", "--device", "cpu", "--workers", "2"])
+    with pytest.raises(ValueError, match="positive integer"):
+        launch.main(["dse", "--device", "cpu", "--n-z", "4", "--workers",
+                     "0"])
