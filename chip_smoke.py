@@ -100,6 +100,19 @@ From the root of a checkout, with one CUDA card visible. It
      `photonic_report` prices the workload, and `kernels.flash_attention`
      runs at the attention shape above (bf16, the wgmma kernel) and at
      S = 512 in f32 (the TF32 kernel);
+  6b. serves each other model family at its published widths
+     (`families_phase`; random weights from a seeded generator, one model
+     resident at a time): olmoe-1b-7b, zamba2-7b, rwkv6-7b and
+     seamless-m4t-medium whole, deepseek-v3-671b cut to 4 layers (3 dense
+     MLA layers, one MoE layer of 256 experts, MTP). Per family: the
+     reduced model on the card within LOGIT_ATOL of the port's CPU path
+     (prefill and one decode step), the build, a prefill whose cache keys
+     have `init_cache`'s layout, 4 requests x 12 new tokens twice through
+     `Server` (the enc-dec family greedily through
+     `models.prefill`/`decode_step` with 64 source frames), `forward` and
+     `lm_loss` on a (4, 16) batch (finite; deepseek's `mtp_logits` too),
+     the peak device memory, `photonic_report` at the published config; no
+     hand-written kernel may launch;
   7. prints one JSON line with every kernel's launches (counted per
      entry-point call, the counts set to 0 just before each call and read
      just after it), its largest difference from its plain version, its
@@ -1061,6 +1074,231 @@ def workers_phase(dev, n_z, hw, drive, float32_ties, by_thread):
     _check(par.stats == one.stats, f"workers service stats {par.stats} vs "
                                    f"{one.stats}")
     return walls
+
+
+#: Phase 6b's families: each whole at its published widths, deepseek-v3-671b
+#: with its depth cut to this many layers (3 dense MLA layers, 1 MoE layer
+#: of 256 experts, MTP depth 1). Widths are never cut.
+FAMILY_ARCHS = ("olmoe-1b-7b", "zamba2-7b", "rwkv6-7b", "seamless-m4t-medium",
+                "deepseek-v3-671b")
+DEPTH_CUTS = {"deepseek-v3-671b": 4}
+SRC_FRAMES = 64
+
+
+def families_phase(dev, hw, drive, counters):
+    """Phase 6b: serve each model family that phase 6 does not (moe,
+    hybrid_ssm, rwkv, encdec, mla_moe) on the card at its published widths
+    (random weights from a seeded generator), one model resident at a time.
+
+    Per family: build; prefill 4 left-padded prompts (finite logits, every
+    cache key in `init_cache`'s layout); serve 4 requests x 12 new tokens
+    twice through `Server(batch_size=4, max_len=64)` (the enc-dec family,
+    which `Server` cannot feed source frames, greedily through
+    `models.prefill`/`decode_step` with 64 frames of `src_embeds`); score
+    one (4, 16) batch with `forward` and `lm_loss` (finite; deepseek's
+    `mtp_logits` too); hold the reduced same-family model on the card
+    against the port's CPU path (prefill logits and one decode step within
+    LOGIT_ATOL); price the published config with `photonic_report`. Every
+    call runs under `drive(label, fn, needs=())`, and no hand-written
+    kernel may launch (no reference model calls one). Returns the phase's
+    rows: (arch, ttft_s per run, decode_s_per_tok per run, peak GiB,
+    build s)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.train.serve import (Request, Server, _grow_cache,
+                                         photonic_report)
+
+    def run(label, fn):
+        out, wall = drive(label, fn, needs=())
+        launched = {k: n for c in counters for k, n in c.items() if n}
+        _check(not launched, f"{label}: launched {launched}; no reference "
+                             f"model calls a kernel")
+        return out, wall
+
+    def batch_of(cfg, toks, gen):
+        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        if cfg.family == "encdec":
+            batch["src_embeds"] = torch.randn(
+                (toks.shape[0], SRC_FRAMES, cfg.d_model), generator=gen,
+                device=dev)
+        return batch
+
+    def left_pad(prompts):
+        plen = max(len(p_) for p_ in prompts)
+        return np.stack([np.pad(p_, (plen - len(p_), 0)) for p_ in prompts])
+
+    def greedy_encdec(params, cfg, batch, max_new):
+        """`Server.generate`'s loop through models.prefill/decode_step."""
+        plen = batch["tokens"].shape[1]
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = models.prefill(params, cfg, batch)
+            cache = _grow_cache(cache, 64)
+            torch.cuda.synchronize()
+            ttft = time.perf_counter() - t0
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            outs, steps = [tok[:, 0].tolist()], []
+            for j in range(max_new - 1):
+                t1 = time.perf_counter()
+                logits, cache = models.decode_step(params, cfg, tok,
+                                                   plen + j, cache)
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t1)
+                tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+                outs.append(tok[:, 0].tolist())
+        return {"ttft_s": ttft, "decode_s_per_tok": float(np.mean(steps)),
+                "out": [list(r) for r in zip(*outs)]}
+
+    def serve_twice(arch, params, cfg, prompts, batch):
+        """4 requests x 12 new tokens, twice: (ttft_s, decode_s_per_tok)
+        per run. The server lives only here, so the family's weights go
+        with the caller's `del`."""
+        ttfts, decodes = [], []
+        for run_name in ("first", "second"):
+            if cfg.family == "encdec":
+                stats, _ = run(f"greedy {arch} 4x12 ({run_name})",
+                               lambda: greedy_encdec(params, cfg, batch, 12))
+                outs = stats["out"]
+            else:
+                reqs = [Request(prompt=p_, max_new=12) for p_ in prompts]
+                srv = Server(cfg, params, batch_size=4, max_len=64,
+                             device=dev)
+                stats, _ = run(f"serve {arch} 4x12 ({run_name})",
+                               lambda: srv.generate(reqs))
+                outs = [r.out for r in reqs]
+                _check(stats["tokens"] == 48, f"{arch} serving: "
+                       f"{stats['tokens']} tokens, not 48")
+            _check(len(outs) == 4 and all(
+                len(o) == 12 and all(0 <= t_ < cfg.vocab for t_ in o)
+                for o in outs), f"{arch} serving: wrong number of tokens "
+                                f"or ids")
+            ttfts.append(stats["ttft_s"])
+            decodes.append(stats["decode_s_per_tok"])
+            print(f"serve {arch} ({run_name} call, {hw}): 48 tokens, ttft_s "
+                  f"{stats['ttft_s']!r}, decode_s_per_tok "
+                  f"{stats['decode_s_per_tok']!r}; request 0: {outs[0]}")
+        return ttfts, decodes
+
+    t_phase = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    rows = []
+    for arch in FAMILY_ARCHS:
+        published = get_config(arch)
+        cfg = published
+        if arch in DEPTH_CUTS:
+            cfg = dataclasses.replace(cfg, n_layers=DEPTH_CUTS[arch])
+            print(f"{arch}: depth cut {published.n_layers} -> {cfg.n_layers} "
+                  f"layers ({cfg.moe.first_dense_layers} dense, "
+                  f"{cfg.n_layers - cfg.moe.first_dense_layers} MoE of "
+                  f"{cfg.moe.n_experts} experts, MTP depth {cfg.mtp_depth});"
+                  f" widths as published")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+
+        # the reduced same-family model: the card against the CPU path
+        small = reduced(published)
+        small_cpu = models.init_params(small, torch.Generator().manual_seed(1),
+                                       "cpu")
+        small_dev = models.init_params(small, torch.Generator().manual_seed(1),
+                                       "cpu").to(dev)
+        rng = np.random.default_rng(1)
+        toks = rng.integers(1, small.vocab, size=(4, 10)).astype(np.int32)
+        src = rng.standard_normal((4, 8, small.d_model)).astype(np.float32)
+        with torch.inference_mode():
+            runs = []   # (model, device, prefill logits, cache)
+            for model, d in ((small_cpu, torch.device("cpu")),
+                             (small_dev, dev)):
+                b = {"tokens": torch.from_numpy(toks).to(d)}
+                if small.family == "encdec":
+                    b["src_embeds"] = torch.from_numpy(src).to(d)
+                logits, cache = models.prefill(model, small, b)
+                runs.append((model, d, logits, _grow_cache(cache, 12)))
+            # one decode step of the CPU path's greedy token on both
+            tok = torch.argmax(runs[0][2], -1).to(torch.int32)[:, None]
+            steps = [models.decode_step(model, small, tok.to(d), 10,
+                                        cache)[0].cpu()
+                     for model, d, _, cache in runs]
+        errs = []
+        for what, got, want in (("prefill", runs[1][2].cpu(), runs[0][2]),
+                                ("decode step", steps[1], steps[0])):
+            err = float((got - want).abs().max())
+            errs.append(err)
+            _check(err <= LOGIT_ATOL, f"reduced {arch} {what} logits: card "
+                   f"vs CPU path differ by {err!r} > {LOGIT_ATOL}")
+        print(f"reduced {arch}: card within {errs[0]!r} (prefill) and "
+              f"{errs[1]!r} (one decode step) of the CPU path")
+        del small_cpu, small_dev
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = models.init_params(cfg, gen, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n_params = sum(p_.numel() for p_ in params.parameters())
+        n_bytes = sum(p_.numel() * p_.element_size()
+                      for p_ in params.parameters())
+        print(f"{arch} ({cfg.family}, {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}): {n_params} parameters, {n_bytes / 1e9:.2f} GB"
+              f", built in {build_s:.2f} s ({hw})")
+
+        prng = np.random.default_rng(0)
+        prompts = [prng.integers(1, cfg.vocab, size=prng.integers(4, 12))
+                   .astype(np.int32) for _ in range(4)]
+        toks = left_pad(prompts)
+        batch = batch_of(cfg, toks, gen)
+        with torch.inference_mode():
+            (logits, cache), _ = run(f"prefill {arch}",
+                                     lambda: models.prefill(params, cfg,
+                                                            batch))
+            want = models.init_cache(cfg, 4, toks.shape[1],
+                                     src_len=SRC_FRAMES, device=dev)
+        _check(tuple(logits.shape) == (4, cfg.vocab)
+               and bool(torch.isfinite(logits).all()),
+               f"{arch} prefill: logits not finite or of shape "
+               f"{tuple(logits.shape)}")
+        _check({k: (tuple(v.shape), v.dtype) for k, v in cache.items()}
+               == {k: (tuple(v.shape), v.dtype) for k, v in want.items()},
+               f"{arch} prefill: cache layout differs from init_cache's")
+        del logits, cache, want
+
+        ttfts, decodes = serve_twice(arch, params, cfg, prompts, batch)
+        score = batch_of(cfg, np.random.default_rng(2).integers(
+            0, cfg.vocab, size=(4, 16)).astype(np.int32), gen)
+        with torch.inference_mode():
+            out, t_fwd = run(f"forward {arch} (4, 16)",
+                             lambda: models.forward(params, cfg, score))
+            (loss, _), t_loss = run(f"lm_loss {arch} (4, 16)",
+                                    lambda: models.lm_loss(params, cfg,
+                                                           score))
+        _check(tuple(out["logits"].shape) == (4, 16, cfg.vocab)
+               and bool(torch.isfinite(out["logits"]).all())
+               and bool(torch.isfinite(loss)),
+               f"{arch} forward/lm_loss: not finite")
+        if cfg.mtp_depth:
+            _check("mtp_logits" in out
+                   and bool(torch.isfinite(out["mtp_logits"]).all()),
+                   f"{arch} forward: no finite mtp_logits")
+        print(f"score {arch} (4, 16) ({hw}): forward {t_fwd:.4f} s, lm_loss "
+              f"{float(loss)!r} in {t_loss:.4f} s"
+              + (", mtp_logits finite" if cfg.mtp_depth else ""))
+        del out, loss, batch, score
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{arch} peak device memory: {peak:.2f} GiB")
+        print(f"photonic_report {arch} (published config):",
+              photonic_report(published, seq_len=64, batch=4, new_tokens=12,
+                              device=dev))
+        rows.append((arch, ttfts, decodes, peak, build_s))
+        del params
+        torch.cuda.empty_cache()
+        left = (torch.cuda.memory_allocated() - base) / 2**30
+        _check(left < 0.5, f"{arch}: {left:.2f} GiB still allocated after "
+                           f"its release; one model is resident at a time")
+    print(f"phase 6b wall time: {time.perf_counter() - t_phase:.1f} s ({hw})")
+    return rows
 
 
 def main() -> None:
@@ -2254,6 +2492,9 @@ def main() -> None:
     print(f"flash_attention entry point (1, 512, 16/2 heads, 128) f32: "
           f"within tolerance, {t_fa * 1e3:.3f} ms with its layout copies")
 
+    # -- the other model families at published widths (phase 6b) ----------
+    family_rows = families_phase(dev, smi.stdout.strip(), drive, counters)
+
     print(f"service wall times ({smi.stdout.strip()}): " + "; ".join(
         f"{label} {kind} {wall:.4f} s" for label, kind, wall in service_walls))
     print(f"scenario wall times ({smi.stdout.strip()}): " + "; ".join(
@@ -2263,6 +2504,10 @@ def main() -> None:
                                  for k, v in wall.items())
                        if isinstance(wall, dict) else f"{wall:.4f} s")
         for label, wall in worker_walls))
+    print(f"family serving ({smi.stdout.strip()}): " + "; ".join(
+        f"{arch} ttft {t[0]:.4f} / {t[1]:.4f} s, decode {d[0]:.4f} / "
+        f"{d[1]:.4f} s/token, peak {peak:.2f} GiB, built in {b_s:.2f} s"
+        for arch, t, d, peak, b_s in family_rows))
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

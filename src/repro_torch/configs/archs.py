@@ -1,9 +1,10 @@
 """The 10 assigned architectures as published configs + reduced smoke configs.
 
 Sources per the assignment sheet (hf / arXiv ids inline); the port's copy
-of `repro.configs.archs`. The dense and vlm configs serve at full width on
-the card (`repro_torch.train.serve`); `reduced()` variants run on the CPU in
-the parity tests.
+of `repro.configs.archs`. Every config builds and serves at its published
+widths on the card (`repro_torch.models`, `repro_torch.train.serve`;
+deepseek-v3-671b's 61 layers do not fit one card, so `chip_smoke.py` cuts
+its depth); `reduced()` variants run on the CPU in the parity tests.
 """
 from __future__ import annotations
 

@@ -8,8 +8,9 @@ objects field by field (duck typing on the dataclass fields — nothing of
 can hand a `repro` workload to `repro_torch` and compare the two engines on
 the same inputs.
 
-The LM has weights: `lm_params_from_reference` carries a reference
-parameter pytree (as numpy arrays) into the port's `DecoderLM`, bit for bit.
+The models have weights: `params_from_reference` carries a reference
+parameter pytree (as numpy arrays) of any family into the port's model, bit
+for bit.
 """
 from __future__ import annotations
 
@@ -64,41 +65,71 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def lm_params_from_reference(params, cfg, device=None):
-    """The port's `DecoderLM` holding a reference LM's parameters.
+#: The layer stacks: a reference leaf under one of these names has leading
+#: layer axes, one entry per module of the port's ModuleList of that name.
+STACKS = ("layers", "dense_layers", "moe_layers", "mamba_groups",
+          "mamba_tail", "enc_layers", "dec_layers")
+
+
+def reference_leaf(name: str, cfg):
+    """Where the port's parameter `name` (a `named_parameters` name) lies
+    in the reference's pytree: (path of dict keys, index into the leaf's
+    leading layer axes, () outside a stack). The port's module names are
+    the reference's keys; a stack's flat module index unstacks as one layer
+    axis, and `mamba_groups`' as its two, (group, layer in group)."""
+    parts = name.split(".")
+    if parts[0] not in STACKS:
+        return tuple(parts), ()
+    i = int(parts[1])
+    if parts[0] == "mamba_groups":
+        a = cfg.ssm.attn_every
+        return (parts[0],) + tuple(parts[2:]), (i // a, i % a)
+    return (parts[0],) + tuple(parts[2:]), (i,)
+
+
+def params_from_reference(params, cfg, device=None):
+    """The port's model (`lm.DecoderLM`, or `encdec.EncDec` for the encdec
+    family) holding a reference model's parameters, bit for bit.
 
     `params` is `repro.models.init_params`'s pytree with numpy leaves (or
-    any leaves `np.asarray` reads): embed/table, head/table (untied),
-    final_norm/scale and the layer stack `layers`, whose leading axis
-    (one entry per layer) is unstacked into the module list (ln1, ln2,
-    attn/{wq, wk, wv, wo, bq, bk, bv}, mlp/{wi, wg, wo}).
+    any leaves `np.asarray` reads). Every parameter of the port takes the
+    leaf `reference_leaf` names (the stacks `layers`, `dense_layers`,
+    `moe_layers`, `mamba_groups`, `mamba_tail`, `enc_layers` and
+    `dec_layers` unstacked into the module lists, expert tensors whole),
+    whose shape and dtype must be the parameter's; a reference leaf that no
+    parameter takes is an error too.
     """
     from ._device import resolve_device
-    from .models.lm import DecoderLM
+    from .models import encdec, lm
 
     dev = resolve_device(device)
-    model = DecoderLM(cfg, dev)
-
-    def put(dst, src):
-        t = _tensor(src, dev)
+    model = (encdec.EncDec(cfg, dev) if cfg.family == "encdec"
+             else lm.DecoderLM(cfg, dev))
+    taken = set()
+    for name, dst in model.named_parameters():
+        path, index = reference_leaf(name, cfg)
+        src = params
+        for key in path:
+            src = src[key]
+        t = _tensor(np.asarray(src)[index], dev)
         if t.shape != dst.shape or t.dtype != dst.dtype:
-            raise ValueError(f"reference leaf {tuple(t.shape)} {t.dtype} "
-                             f"does not fit {tuple(dst.shape)} {dst.dtype}")
+            raise ValueError(f"reference leaf {'/'.join(path)}{list(index)} "
+                             f"{tuple(t.shape)} {t.dtype} does not fit "
+                             f"{name} {tuple(dst.shape)} {dst.dtype}")
         with torch.no_grad():
             dst.copy_(t)
-
-    put(model.embed.table, params["embed"]["table"])
-    put(model.final_norm.scale, params["final_norm"]["scale"])
-    if model.head is not None:
-        put(model.head.table, params["head"]["table"])
-    stack = params["layers"]
-    for i, blk in enumerate(model.layers):
-        put(blk.ln1.scale, np.asarray(stack["ln1"]["scale"])[i])
-        put(blk.ln2.scale, np.asarray(stack["ln2"]["scale"])[i])
-        names = ("wq", "wk", "wv", "wo") + (("bq", "bk", "bv")
-                                            if blk.attn.has_bias else ())
-        for n in names:
-            put(getattr(blk.attn, n), np.asarray(stack["attn"][n])[i])
-        for n in ("wi", "wg", "wo"):
-            put(getattr(blk.mlp, n), np.asarray(stack["mlp"][n])[i])
+        taken.add(path)
+    left = sorted("/".join(map(str, p)) for p in _leaf_paths(params)
+                  if p not in taken)
+    if left:
+        raise ValueError(f"reference leaves with no parameter in the port: "
+                         f"{left}")
     return model
+
+
+def _leaf_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_paths(v, prefix + (k,))
+    else:
+        yield prefix

@@ -8,7 +8,9 @@ and the resident DSE service.
             --arch qwen2.5-3b
 
     serves the full published config with random weights on the card
-    (``--device cpu --reduced`` runs a tiny same-family config).
+    (``--device cpu --reduced`` runs a tiny same-family config). Every
+    decoder family serves; the enc-dec family needs source frames, which
+    `Server` does not send (as in the reference), so it fails there.
 
   * ``dse`` — stand up a `repro_torch.serve.SearchService` and replay a
     constraint-scenario session against it: one cold bound-guided search

@@ -1,9 +1,8 @@
-"""Model zoo facade (the port of `repro.models`): dispatch on cfg.family.
-
-Only the dense and vlm families are ported; the others raise
-NotImplementedError (ROADMAP Queue 1 item 14). Parameters are a
-`lm.DecoderLM` module; entry points run on "cuda" unless the caller names
-another device.
+"""Model zoo facade (the port of `repro.models`): dispatch on cfg.family to
+the decoder-LM assembly (`lm.DecoderLM`: dense, vlm, moe, mla_moe,
+hybrid_ssm, rwkv) or the enc-dec one (`encdec.EncDec`). Entry points that
+build tensors run on "cuda" unless the caller names another device; the
+others run where the parameters lie.
 """
 from __future__ import annotations
 
@@ -13,17 +12,20 @@ import torch
 
 from .._device import resolve_device
 from ..configs.base import ModelConfig
-from . import lm
+from . import encdec, lm
 from .layers import DTYPE
 
 
+def _module(cfg: ModelConfig):
+    return encdec if cfg.family == "encdec" else lm
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device=None) -> lm.DecoderLM:
+                device=None):
     """Random parameters on `device` ("cuda" by default), drawn from
     `generator` (default: a generator on that device seeded with 0). The
     draws are not `jax.random`'s: parity tests carry the reference's
-    weights across (`interop.lm_params_from_reference`)."""
-    lm.require_ported(cfg)
+    weights across (`interop.params_from_reference`)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev)
@@ -31,19 +33,32 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     elif generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, parameters on "
                          f"{dev}: torch draws on the generator's device")
-    return lm.init_params(cfg, generator, dev)
+    return _module(cfg).init_params(cfg, generator, dev)
 
 
-def prefill(params: lm.DecoderLM, cfg: ModelConfig, batch):
-    return lm.prefill(params, cfg, batch)
+def forward(params, cfg: ModelConfig, batch):
+    return _module(cfg).forward(params, cfg, batch)
 
 
-def decode_step(params: lm.DecoderLM, cfg: ModelConfig, tokens, pos, cache):
-    return lm.decode_step(params, cfg, tokens, pos, cache)
+def lm_loss(params, cfg: ModelConfig, batch, **kw):
+    return _module(cfg).lm_loss(params, cfg, batch, **kw)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    return lm.init_cache(cfg, batch, max_len, resolve_device(device))
+def prefill(params, cfg: ModelConfig, batch):
+    return _module(cfg).prefill(params, cfg, batch)
 
 
-__all__ = ["DTYPE", "decode_step", "init_cache", "init_params", "prefill"]
+def decode_step(params, cfg: ModelConfig, tokens, pos, cache):
+    return _module(cfg).decode_step(params, cfg, tokens, pos, cache)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, src_len: int = 0,
+               device=None):
+    dev = resolve_device(device)
+    if cfg.family == "encdec":
+        return encdec.init_cache(cfg, batch, max_len, src_len, dev)
+    return lm.init_cache(cfg, batch, max_len, dev)
+
+
+__all__ = ["DTYPE", "decode_step", "forward", "init_cache", "init_params",
+           "lm_loss", "prefill"]

@@ -1,10 +1,11 @@
 """Common transformer layers (the port of `repro/models/layers.py`): RMSNorm,
-RoPE, GQA attention (global or sliding window, optional softcap and bias),
-the gated MLP, embeddings.
+RoPE, GQA attention (global or sliding window, optional softcap and bias,
+bidirectional for the encoder), the gated MLP, embeddings, the
+cross-entropy loss.
 
 Parameters live in `nn.Module`s with the reference's names and layouts
 (`wq` is (d, H, Dh), `wo` (H, Dh, d), ...), so that a reference pytree
-carries across leaf for leaf (`interop.lm_params_from_reference`); the
+carries across leaf for leaf (`interop.params_from_reference`); the
 compute is plain functions on tensors, as in the reference. Mixed
 precision follows the reference: parameters and activations bf16; norms,
 softmax and RoPE in f32; every product casts its operands to f32 and
@@ -15,8 +16,8 @@ then casts back to the activation dtype. TF32 must stay off for that
 "highest", PyTorch's defaults).
 
 The GSPMD layout knobs (`set_gqa_mode`, `set_xent_mode`, sharding rules)
-have no counterpart: the port runs on one card, and attention is the
-default "grouped" GQA evaluation.
+have no counterpart: the port runs on one card, attention is the default
+"grouped" GQA evaluation and `softmax_xent` the default "gather" form.
 """
 from __future__ import annotations
 
@@ -55,17 +56,21 @@ def _f32(x: float, device) -> torch.Tensor:
     return torch.tensor(np.float32(x), device=device)
 
 
-def _param(shape, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=DTYPE, device=device),
+def _param(shape, device, dtype=DTYPE) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
 
 def _normal_(p: torch.Tensor, generator: torch.Generator, scale: float):
     """The reference's `_normal`: N(0, 1) in f32, times scale, cast to bf16
-    (from a torch.Generator: not `jax.random`'s stream)."""
+    (and on to p's dtype: the MoE router keeps the bf16 draw in f32). From
+    a torch.Generator: not `jax.random`'s stream. The f32 draw is scaled in
+    place and a bf16 parameter takes it by `copy_` (which rounds as `.to`
+    does), so a large tensor's build holds one f32 copy of it and no other
+    temporary."""
     draw = torch.randn(p.shape, generator=generator, device=p.device,
-                       dtype=torch.float32)
-    p.copy_((draw * scale).to(DTYPE))
+                       dtype=torch.float32).mul_(scale)
+    p.copy_(draw if p.dtype == DTYPE else draw.to(DTYPE))
 
 
 # --------------------------------------------------------------------------
@@ -194,9 +199,11 @@ class Attention(nn.Module):
         return rope(k, positions, cfg.rope_theta), v
 
     def forward(self, cfg, x, positions, *, kv=None, kv_positions=None,
-                is_local: Optional[bool] = None):
+                is_local: Optional[bool] = None, causal: bool = True):
         """Self-attention over x, or attention against the given (k, v)
-        (decode: the whole cache, `kv_positions` masking unwritten slots)."""
+        (decode: the whole cache, `kv_positions` masking unwritten slots);
+        `causal=False` is the encoder's bidirectional attention over the
+        valid (non-negative) positions."""
         q = einsum32("bsd,dhk->bshk", x, self.wq).to(x.dtype)
         if self.has_bias:
             q = q + self.bq
@@ -206,8 +213,12 @@ class Attention(nn.Module):
             kv_positions = positions
         else:
             k, v = kv
-        mask = attn_mask(positions, kv_positions, cfg.sliding_window,
-                         is_local)
+        if causal:
+            mask = attn_mask(positions, kv_positions, cfg.sliding_window,
+                             is_local)
+        else:
+            mask = (kv_positions >= 0)[:, None, :].expand(
+                x.shape[0], x.shape[1], kv_positions.shape[1])
         out = gqa_attend(q, k, v, mask, cfg.attn_logit_softcap)
         return einsum32("bshk,hkd->bsd", out, self.wo).to(x.dtype)
 
@@ -245,7 +256,13 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     """`jax.nn.silu` op for op in x's dtype: x * (1 / (1 + exp(-x))), each
     step rounded to bf16 as XLA does (a fused f32 silu rounds once and
     differs in about a third of the bf16 outputs)."""
-    return x * (1.0 / (torch.exp(-x) + 1.0))
+    return x * sigmoid(x)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.sigmoid` as XLA expands it: 1 / (1 + exp(-x)) in x's
+    dtype."""
+    return 1.0 / (torch.exp(-x) + 1.0)
 
 
 # --------------------------------------------------------------------------
@@ -270,3 +287,17 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(B, S, D) -> f32 logits (B, S, V) against the (possibly tied)
     table."""
     return einsum32("bsd,vd->bsv", x, table)
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy of f32 logits (B, S, V) against int
+    targets (B, S); with `mask`, the mean over its nonzero positions. The
+    gold logit is gathered (the reference's default "gather" form)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -1,7 +1,10 @@
 """Serving loop (the port of `repro/train/serve.py`): batched greedy decoding
 with prefill + decode_step, plus the photonic-execution report.
 
-`Server` pads requests into a fixed batch and decodes greedily;
+`Server` pads requests into a fixed batch and decodes greedily, for every
+decoder family (the batch holds tokens only, as in the reference, so the
+enc-dec family, whose prefill needs `src_embeds`, fails with the
+reference's KeyError and runs through `models.prefill`/`decode_step`);
 `photonic_report` attaches the DxPTA cost-model estimate (energy/latency on
 the searched PTA config) of the same serving workload — the co-design
 loop's serving-side output.
@@ -93,7 +96,9 @@ class Server:
 
 
 def _grow_cache(cache, max_len: int):
-    """Zero-pad attention caches' sequence axis (axis 2) up to max_len."""
+    """Zero-pad attention caches' sequence axis (axis 2) up to max_len: the
+    K/V rows ("k", "v") and MLA's latent rows ("c", "rope"); recurrent
+    states and the enc-dec cross K/V keep their shapes."""
     def pad(k, x):
         if k in ("k", "v", "c", "rope") and x.ndim >= 3 \
                 and x.shape[2] < max_len:

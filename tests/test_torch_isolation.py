@@ -38,7 +38,10 @@ MODULES = ("repro_torch", "repro_torch.core", "repro_torch.core.search",
            "repro_torch.serve.cache", "repro_torch.serve.batching",
            "repro_torch.serve.dse_service", "repro_torch.scenarios",
            "repro_torch.scenarios.grid", "repro_torch.scenarios.sweep",
-           "repro_torch.parallel", "repro_torch.parallel.slab_sched")
+           "repro_torch.parallel", "repro_torch.parallel.slab_sched",
+           "repro_torch.models.layers", "repro_torch.models.moe",
+           "repro_torch.models.mla", "repro_torch.models.ssd",
+           "repro_torch.models.rwkv", "repro_torch.models.encdec")
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -96,12 +99,23 @@ def _no_card():
     .generate([Request(prompt=np.arange(1, 5, dtype=np.int32), max_new=2)]),
     lambda wl: P.search(wl, factorized=True, prune="bound", workers=2),
     lambda wl: sweep(ScenarioGrid(models=("rwkv6-7b",), reduce=True)),
+    lambda wl: M.init_params(reduced(get_config("olmoe-1b-7b"))),
+    lambda wl: M.init_params(reduced(get_config("deepseek-v3-671b"))),
+    lambda wl: M.init_params(reduced(get_config("zamba2-7b"))),
+    lambda wl: M.init_params(reduced(get_config("rwkv6-7b"))),
+    lambda wl: M.init_params(reduced(get_config("seamless-m4t-medium"))),
+    lambda wl: M.init_cache(reduced(get_config("zamba2-7b")), 1, 8),
+    lambda wl: M.init_cache(reduced(get_config("seamless-m4t-medium")), 1, 8,
+                            src_len=4),
 ], ids=["search", "search_bound", "search_workloads", "search_robust",
         "search_runtime", "dxpta_search",
         "hw_prefilter", "dse_search_grid", "decode_rows_device",
         "search_pareto", "pareto_front", "dse_pareto_multi", "ddot_matmul",
         "photonic_matmul", "flash_attention", "init_params",
-        "server_generate", "search_workers", "scenario_sweep"])
+        "server_generate", "search_workers", "scenario_sweep",
+        "init_params_moe", "init_params_mla_moe", "init_params_hybrid_ssm",
+        "init_params_rwkv", "init_params_encdec", "init_cache_hybrid_ssm",
+        "init_cache_encdec"])
 def test_entry_points_raise_without_a_card(call):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -2,7 +2,7 @@
 `repro.train.serve`.
 
 The reference's random parameters carry across bit for bit
-(`interop.lm_params_from_reference`); both sides then run the same
+(`interop.params_from_reference`); both sides then run the same
 prompts, made from numpy seeds, on the CPU: the reference jitted with
 exec-safe (f32) products, as the serving tests run it, the port with
 `device="cpu"`.
@@ -43,7 +43,7 @@ from repro.train.serve import Server as RefServer
 from repro.train.serve import _grow_cache as ref_grow_cache
 from repro.train.serve import photonic_report as ref_photonic_report
 from repro_torch.configs import get_config, list_archs, reduced
-from repro_torch.interop import lm_params_from_reference
+from repro_torch.interop import params_from_reference
 from repro_torch.train.serve import Request, Server, photonic_report
 
 LOGIT_ATOL = 0.03
@@ -68,7 +68,7 @@ def models():
         rcfg = ref_reduced(ref_get_config(arch))
         pcfg = reduced(get_config(arch))
         params = RM.init_params(jax.random.key(0), rcfg)
-        model = lm_params_from_reference(jax.tree.map(np.asarray, params),
+        model = params_from_reference(jax.tree.map(np.asarray, params),
                                          pcfg, "cpu")
         out[arch] = (rcfg, pcfg, params, model)
     return out
@@ -219,17 +219,6 @@ def test_photonic_report_equals_the_reference():
     got = photonic_report(get_config("qwen2.5-3b"), seq_len=64, batch=4,
                           new_tokens=12, device="cpu")
     assert got == ref
-
-
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b",
-                                  "zamba2-7b", "rwkv6-7b",
-                                  "seamless-m4t-medium"])
-def test_other_families_raise(arch):
-    cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        PM.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        PM.init_cache(cfg, 1, 8, device="cpu")
 
 
 def test_init_params_follows_the_reference_scales():

@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Where the time of token serving goes, on one CUDA card.
 
-    python3 tools/trace_serve.py [--arch qwen2.5-3b] [--batch 4]
-                                 [--max-len 64] [--out build/trace_serve]
+    python3 tools/trace_serve.py [--arch qwen2.5-3b] [--n-layers N]
+                                 [--batch 4] [--max-len 64]
+                                 [--out build/trace_serve]
 
 Builds the port's model at the config's full published width (random bf16
-weights from a seeded generator), serves `--batch` requests once untimed
+weights from a seeded generator; `--n-layers` cuts the depth, never the
+widths, for a model that does not fit the card, as deepseek-v3-671b at 4
+layers in `chip_smoke.py`), serves `--batch` requests once untimed
 (cuBLAS set-up), then traces one prefill and one decode step with
 `torch.profiler` and prints, for each, the wall time (host clock around
 work that ends in a sync), the device time of its kernels (the device's
-busy share), and the kernels with the most device time. The Chrome traces
+busy share), the number of kernels it launched, and the kernels with the
+most device time. Any decoder family serves; the enc-dec family needs
+source frames, which `Server` does not send. The Chrome traces
 and the full tables go under `--out`.
 """
 import argparse
@@ -41,6 +46,8 @@ def _device_us(evt) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth to N layers (widths stay)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--out", default=str(ROOT / "build" / "trace_serve"))
@@ -58,6 +65,9 @@ def main() -> None:
     out.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda", 0)
     cfg = get_config(args.arch)
+    if args.n_layers is not None:
+        import dataclasses
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = models.init_params(cfg, gen, device=dev)
@@ -92,9 +102,11 @@ def main() -> None:
             prof.export_chrome_trace(str(out / f"{name}.trace.json"))
             avgs = prof.key_averages()
             dev_us = sum(_device_us(e) for e in avgs)
-            print(f"{args.arch} {name} (batch {args.batch}): wall "
-                  f"{wall * 1e3:.3f} ms, device time {dev_us / 1e3:.3f} ms, "
-                  f"device busy share {dev_us / 1e6 / wall:.4f}"
+            n_kernels = sum(e.count for e in avgs if _device_us(e))
+            print(f"{args.arch} ({cfg.n_layers} layers) {name} (batch "
+                  f"{args.batch}): wall {wall * 1e3:.3f} ms, device time "
+                  f"{dev_us / 1e3:.3f} ms, device busy share "
+                  f"{dev_us / 1e6 / wall:.4f}, {n_kernels} kernels"
                   if dev_us else f"{args.arch} {name}: wall "
                   f"{wall * 1e3:.3f} ms; the profiler recorded no device "
                   f"time")
