@@ -113,6 +113,17 @@ From the root of a checkout, with one CUDA card visible. It
      `lm_loss` on a (4, 16) batch (finite; deepseek's `mtp_logits` too),
      the peak device memory, `photonic_report` at the published config; no
      hand-written kernel may launch;
+  6c. trains on the card (`train_phase`): a reduced model of each family
+     (qwen2.5-3b, llava-next-34b, olmoe-1b-7b, deepseek-v3-671b, zamba2-7b,
+     rwkv6-7b, seamless-m4t-medium, gemma3-4b) 3 steps of
+     `make_train_step`, held against the port's CPU path (loss, and the
+     gradient norm from the same state) and run twice on the card; a
+     `Trainer` run checkpointed and auto-resumed; `launch.train` in-process;
+     qwen2.5-3b at its published width (3,397,103,616 parameters, one
+     sequence of 4096 tokens, AdamW with f32 moments, remat): step wall
+     time, tokens/s, peak device memory, the device busy share of a
+     profiled step and its top kernels, and the step split into forward,
+     backward and the optimizer pass; no hand-written kernel may launch;
   7. prints one JSON line with every kernel's launches (counted per
      entry-point call, the counts set to 0 just before each call and read
      just after it), its largest difference from its plain version, its
@@ -125,6 +136,7 @@ From the root of a checkout, with one CUDA card visible. It
 Any failed check raises, so the script exits non-zero and prints no result
 line. It exits non-zero at once without a CUDA card, or outside a checkout.
 """
+import copy
 import dataclasses
 import json
 import math
@@ -1299,6 +1311,281 @@ def families_phase(dev, hw, drive, counters):
                            f"its release; one model is resident at a time")
     print(f"phase 6b wall time: {time.perf_counter() - t_phase:.1f} s ({hw})")
     return rows
+
+
+TRAIN_ARCHS = ("qwen2.5-3b", "llava-next-34b", "olmoe-1b-7b",
+               "deepseek-v3-671b", "zamba2-7b", "rwkv6-7b",
+               "seamless-m4t-medium", "gemma3-4b")
+TRAIN_STEPS = 3
+# Card against the port's CPU path over TRAIN_STEPS steps of a reduced
+# model: the loss within the CPU tests' loss tolerance
+# (tests/test_torch_train_grads.py's LOSS_ATOL: twice LOGIT_ATOL); the
+# global gradient norm within TRAIN_GNORM_RTOL of the CPU path's, the
+# tolerance each gradient leaf is held to against the reference (2^-5 of
+# the leaf's largest magnitude), which bounds the norm's relative error too.
+TRAIN_LOSS_ATOL = 2 * LOGIT_ATOL
+TRAIN_GNORM_RTOL = 2.0 ** -5
+# Published width: qwen2.5-3b at train_4k's sequence length, the global
+# batch cut from 256 to 1 (the trainer has no gradient accumulation).
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 1
+
+
+def device_us(evt) -> float:
+    """Self device time of a profiler average that is a device event (a
+    kernel or a copy), in microseconds, under either of the attribute names
+    PyTorch versions use; 0 for host events. An operator's average carries
+    its kernels' device time too, so summing every row would count each
+    kernel twice (the profiler's own table sums device events only)."""
+    from torch.autograd import DeviceType
+    if evt.device_type != DeviceType.CUDA \
+            or getattr(evt, "is_user_annotation", False):
+        return 0.0
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def train_phase(dev, hw, drive, counters):
+    """Phase 6c: training on the card.
+
+    (a) A reduced model of each of TRAIN_ARCHS (all seven families;
+    gemma3-4b for the sliding window and tied embeddings), built on the
+    CPU from a seeded generator and carried to the card: TRAIN_STEPS steps
+    of `make_train_step` on the port's CPU path; each of them on the card
+    from the CPU path's state before it (loss within TRAIN_LOSS_ATOL,
+    grad_norm within TRAIN_GNORM_RTOL); the card's own TRAIN_STEPS steps
+    from the same weights and pipeline batches (losses within
+    TRAIN_LOSS_ATOL, all finite), run twice with a line saying whether
+    their losses are bitwise equal (reported, not required). Along two
+    trajectories the gradient norm is not comparable: AdamW turns a
+    noise-level gradient (the reduced rwkv6-7b's bonus `u`, whose
+    gradient norm falls from 3,300 to 60 in a step) into a full step of
+    either sign, and a 0.1 % change of the weights moves the third step's
+    norm by 30 % on the CPU alone.
+    (b) `Trainer.run` for a reduced qwen2.5-3b: 4 steps with ckpt_every=2
+    into a temporary directory, then a new `Trainer` that auto-resumes at
+    step 4 (pipeline step 4) and runs 2 more, finite.
+    (c) `python -m repro_torch.launch.train --arch granite-3-2b --reduced
+    --steps 4` in-process.
+    (d) qwen2.5-3b at its published width, AdamW with f32 moments, remat:
+    3 steps of `make_train_step` at sequence TRAIN_SEQ, batch TRAIN_BATCH
+    (each step's wall time and tokens/s, the peak device memory), one step
+    under `torch.profiler` (device busy share, the kernels that take the
+    most device time), then one step split into its forward and backward
+    pass and its optimizer pass, each timed, and one forward pass without
+    gradients (what remat runs a second time in the backward pass).
+    Every call runs under `drive(label, fn, needs=())`; no hand-written
+    kernel may launch. Returns the phase's summary."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticTokenSource
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import (Trainer, TrainerConfig, batch_to,
+                                           make_train_step)
+
+    def run(label, fn):
+        out, wall = drive(label, fn, needs=())
+        launched = {k: n for c in counters for k, n in c.items() if n}
+        _check(not launched, f"{label}: launched {launched}; no reference "
+                             f"model calls a kernel")
+        return out, wall
+
+    def cpu_built(cfg):
+        return models.init_params(cfg, torch.Generator().manual_seed(1),
+                                  "cpu")
+
+    def on(device, model, state):
+        """`model` moved to `device` with a copy of the optimizer state
+        (the train step updates the moments in place)."""
+        return model.to(device), adamw.OptState(
+            state.step.to(device, copy=True),
+            {n: t.to(device, copy=True) for n, t in state.mu.items()},
+            {n: t.to(device, copy=True) for n, t in state.nu.items()})
+
+    def trajectory(cfg, device, src, snapshots=None):
+        """TRAIN_STEPS steps from the seeded CPU build, on `device`: the
+        metrics of each step, and with `snapshots` (a list) the model and
+        optimizer state each step started from, copied to the host."""
+        model, state = on(device, cpu_built(cfg), adamw.init(
+            opt_small, dict(cpu_built(cfg).named_parameters())))
+        step = make_train_step(cfg, opt_small)
+        rows = []
+        for i in range(TRAIN_STEPS):
+            if snapshots is not None:
+                snapshots.append(on("cpu", copy.deepcopy(model), state))
+            model, state, m = step(model, state,
+                                   batch_to(src.batch_at(i), device))
+            rows.append({k: float(v) for k, v in m.items()})
+        return rows
+
+    def steps_from(cfg, src, snapshots):
+        """Each step on the card from the CPU path's state before it."""
+        step = make_train_step(cfg, opt_small)
+        rows = []
+        for i, (model, state) in enumerate(snapshots):
+            model, state = on(dev, copy.deepcopy(model), state)
+            _, _, m = step(model, state, batch_to(src.batch_at(i), dev))
+            rows.append({k: float(v) for k, v in m.items()})
+        return rows
+
+    t_phase = time.perf_counter()
+    small_shape = ShapeConfig("tiny", 16, 2, "train")
+    opt_small = adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                  total_steps=TRAIN_STEPS)
+    for arch in TRAIN_ARCHS:
+        cfg = reduced(get_config(arch))
+        src = SyntheticTokenSource(cfg, small_shape, seed=0)
+        snaps = []
+        want = trajectory(cfg, torch.device("cpu"), src, snaps)
+        each, _ = run(f"train reduced {arch} (each step from the CPU "
+                      f"path's state)", lambda: steps_from(cfg, src, snaps))
+        got, _ = run(f"train reduced {arch} ({TRAIN_STEPS} steps)",
+                     lambda: trajectory(cfg, dev, src))
+        again, _ = run(f"train reduced {arch} (again)",
+                       lambda: trajectory(cfg, dev, src))
+        _check(all(math.isfinite(v) for r in each + got + again
+                   for v in r.values()),
+               f"reduced {arch} training on the card: not finite")
+        d_loss = max(abs(g["loss"] - w["loss"])
+                     for g, w in zip(each + got, want + want))
+        d_gn = max(abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                   for g, w in zip(each, want))
+        _check(d_loss <= TRAIN_LOSS_ATOL, f"reduced {arch} training: card "
+               f"loss differs from the CPU path's by {d_loss!r} > "
+               f"{TRAIN_LOSS_ATOL}")
+        _check(d_gn <= TRAIN_GNORM_RTOL, f"reduced {arch} training: card "
+               f"grad_norm differs from the CPU path's by {d_gn!r} "
+               f"(relative) > {TRAIN_GNORM_RTOL}")
+        free = max(abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                   for g, w in zip(got, want))
+        same = [g["loss"] for g in got] == [a["loss"] for a in again]
+        print(f"train reduced {arch}: losses {[r['loss'] for r in got]}, "
+              f"within {d_loss!r} of the CPU path's; grad_norm within "
+              f"{d_gn!r} (relative) from the same state, {free!r} along "
+              f"the card's own steps; two card runs bitwise equal: {same}")
+
+    # (b) the fault-tolerant trainer: run, then auto-resume
+    cfg = reduced(get_config("qwen2.5-3b"))
+    with tempfile.TemporaryDirectory() as d:
+        tcfg = TrainerConfig(total_steps=6, ckpt_every=2, ckpt_dir=d)
+        shape = ShapeConfig("tiny", 32, 4, "train")
+        first, _ = run("Trainer.run reduced qwen2.5-3b (4 steps)",
+                       lambda: Trainer(cfg, shape, tcfg=tcfg,
+                                       device=dev).run(num_steps=4))
+        resumed = Trainer(cfg, shape, tcfg=tcfg, device=dev)
+        _check(resumed.start_step == 4 and resumed.data.state.step == 4,
+               f"Trainer resume: start step {resumed.start_step}, pipeline "
+               f"step {resumed.data.state.step}, not 4")
+        second, _ = run("Trainer.run reduced qwen2.5-3b (resumed, 2 steps)",
+                        lambda: resumed.run(num_steps=2))
+        _check(first["final_step"] == 4 and second["final_step"] == 6
+               and all(math.isfinite(v) for v in second["losses"]),
+               "Trainer resume: wrong final step or non-finite losses")
+        print(f"Trainer reduced qwen2.5-3b: losses {first['losses']}, "
+              f"resumed at step 4 (pipeline step 4): {second['losses']}")
+    with tempfile.TemporaryDirectory() as d:
+        out, wall = run("launch.train granite-3-2b --reduced --steps 4",
+                        lambda: launch_train.main([
+                            "--arch", "granite-3-2b", "--reduced",
+                            "--steps", "4", "--ckpt-dir", d]))
+        _check(out["final_step"] == 4
+               and all(math.isfinite(v) for v in out["losses"]),
+               "launch.train: wrong final step or non-finite losses")
+    print(f"launch.train granite-3-2b --reduced --steps 4: {wall:.2f} s")
+
+    # (d) qwen2.5-3b at its published width
+    cfg = get_config("qwen2.5-3b")
+    shape = ShapeConfig("train_4k_batch_1", TRAIN_SEQ, TRAIN_BATCH, "train")
+    print(f"qwen2.5-3b training: train_4k's sequence {TRAIN_SEQ}, global "
+          f"batch cut 256 -> {TRAIN_BATCH} (no gradient accumulation in "
+          f"the trainer), AdamW f32 moments, remat")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = models.init_params(cfg, gen, device=dev)
+    n_params = sum(p_.numel() for p_ in model.parameters())
+    opt_cfg = adamw.AdamWConfig(moment_dtype=torch.float32)
+    state = adamw.init(opt_cfg, dict(model.named_parameters()))
+    step = make_train_step(cfg, opt_cfg, remat=True)
+    src = SyntheticTokenSource(cfg, shape, seed=0)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    walls, losses = [], []
+    for i in range(TRAIN_STEPS):
+        batch = batch_to(src.batch_at(i), dev)
+        (model, state, m), wall = run(
+            f"train qwen2.5-3b step {i + 1}",
+            lambda: step(model, state, batch))
+        m = {k: float(v) for k, v in m.items()}
+        _check(all(math.isfinite(v) for v in m.values()),
+               f"qwen2.5-3b training step {i + 1}: not finite ({m})")
+        walls.append(wall)
+        losses.append(m["loss"])
+        print(f"train qwen2.5-3b step {i + 1} ({hw}): {wall:.3f} s, "
+              f"{tokens / wall:.1f} tokens/s, loss {m['loss']!r}, "
+              f"grad_norm {m['grad_norm']!r}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train qwen2.5-3b ({n_params} parameters) peak device memory: "
+          f"{peak:.2f} GiB ({hw})")
+
+    batch = batch_to(src.batch_at(TRAIN_STEPS), dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        model, state, _ = step(model, state, batch)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    dev_us = sum(device_us(e) for e in avgs)
+    n_kernels = sum(e.count for e in avgs if device_us(e))
+    busy = dev_us / 1e6 / prof_wall
+    print(f"train qwen2.5-3b profiled step ({hw}): wall {prof_wall:.3f} s, "
+          f"device time {dev_us / 1e6:.3f} s, busy share {busy:.4f} "
+          f"({dev_us / 1e6 / statistics.median(walls):.4f} of the median "
+          f"unprofiled step), {n_kernels} kernels")
+    for e in sorted(avgs, key=device_us, reverse=True)[:12]:
+        if device_us(e):
+            print(f"  device {device_us(e) / 1e3:10.2f} ms  x{e.count:<6d} "
+                  f"{e.key[:90]}")
+
+    # one step split: forward + backward (remat), then the optimizer pass
+    named = dict(model.named_parameters())
+    batch = batch_to(src.batch_at(TRAIN_STEPS + 1), dev)
+
+    def fwd_bwd():
+        loss, _ = models.lm_loss(model, cfg, batch, remat=True)
+        loss.backward()
+        return loss
+    with torch.no_grad():
+        _, t_f = run("train qwen2.5-3b forward (no gradient)",
+                     lambda: models.lm_loss(model, cfg, batch, remat=False))
+    _, t_fb = run("train qwen2.5-3b forward + backward", fwd_bwd)
+    (_, state, _), t_opt = run(
+        "train qwen2.5-3b AdamW pass",
+        lambda: adamw.apply(opt_cfg, named,
+                            {n: p_.grad for n, p_ in named.items()}, state,
+                            model_cfg=cfg))
+    print(f"train qwen2.5-3b step split ({hw}): forward alone {t_f:.3f} "
+          f"s (what remat runs twice), forward + backward {t_fb:.3f} s, "
+          f"AdamW over {len(named)} tensors {t_opt:.3f} s")
+    del model, state, named, batch, prof, avgs
+    torch.cuda.empty_cache()
+    summary = {"step_s": walls, "tokens_per_s": [tokens / w for w in walls],
+               "peak_gib": peak, "busy": busy, "fwd_s": t_f,
+               "fwd_bwd_s": t_fb, "adamw_s": t_opt, "losses": losses}
+    print(f"phase 6c wall time: {time.perf_counter() - t_phase:.1f} s ({hw})")
+    return summary
 
 
 def main() -> None:
@@ -2494,6 +2781,8 @@ def main() -> None:
 
     # -- the other model families at published widths (phase 6b) ----------
     family_rows = families_phase(dev, smi.stdout.strip(), drive, counters)
+    # -- training on the card (phase 6c) -----------------------------------
+    train = train_phase(dev, smi.stdout.strip(), drive, counters)
 
     print(f"service wall times ({smi.stdout.strip()}): " + "; ".join(
         f"{label} {kind} {wall:.4f} s" for label, kind, wall in service_walls))
@@ -2508,6 +2797,14 @@ def main() -> None:
         f"{arch} ttft {t[0]:.4f} / {t[1]:.4f} s, decode {d[0]:.4f} / "
         f"{d[1]:.4f} s/token, peak {peak:.2f} GiB, built in {b_s:.2f} s"
         for arch, t, d, peak, b_s in family_rows))
+    print(f"training qwen2.5-3b at published width, seq {TRAIN_SEQ} batch "
+          f"{TRAIN_BATCH} ({smi.stdout.strip()}): step "
+          + ", ".join(f"{t:.3f}" for t in train["step_s"]) + " s, "
+          + ", ".join(f"{r:.1f}" for r in train["tokens_per_s"])
+          + f" tokens/s, peak {train['peak_gib']:.2f} GiB, device busy "
+          f"{train['busy']:.4f}, forward {train['fwd_s']:.3f} s, forward + "
+          f"backward {train['fwd_bwd_s']:.3f} s, AdamW {train['adamw_s']:.3f} "
+          f"s")
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

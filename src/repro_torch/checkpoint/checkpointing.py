@@ -19,11 +19,14 @@ either package restores the other's snapshots:
     device tensors) at once;
   * GC: `keep_last` bounds disk usage.
 
-A state tree is nested dicts, lists and tuples with numpy arrays, torch
-tensors or Python scalars at the leaves; None is an empty subtree (no
-leaf). Leaves are numbered in the reference's flattening order — dict keys
-sorted, sequences in order — and a leaf's path joins its keys and indices
-with "/".
+A state tree is nested dicts, lists, tuples and namedtuples with numpy
+arrays, torch tensors or Python scalars at the leaves; None is an empty
+subtree (no leaf). Leaves are numbered in the reference's flattening order
+— dict keys sorted, sequences and a namedtuple's fields in order — and a
+leaf's path joins its keys with "/": a dict key, a sequence index, or
+".field" for a namedtuple field (as JAX names a namedtuple's leaves, so an
+optimizer state `{"opt": OptState(step, mu, nu)}` is stored under
+`opt/.step`, `opt/.mu/...`, `opt/.nu/...` by either package).
 """
 from __future__ import annotations
 
@@ -53,6 +56,11 @@ def _flatten(tree, prefix=()):
         for k in sorted(tree):
             out += _flatten(tree[k], prefix + (k,))
         return out
+    if _is_namedtuple(tree):
+        out = []
+        for name, v in zip(tree._fields, tree):
+            out += _flatten(v, prefix + ("." + name,))
+        return out
     if isinstance(tree, (list, tuple)):
         out = []
         for i, v in enumerate(tree):
@@ -61,12 +69,18 @@ def _flatten(tree, prefix=()):
     return [(prefix, tree)]
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _unflatten(tree, values):
     """`tree` with its leaves replaced, in flattening order, by `values`."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: _unflatten(tree[k], values) for k in sorted(tree)}
+    if _is_namedtuple(tree):
+        return type(tree)._make(_unflatten(v, values) for v in tree)
     if isinstance(tree, (list, tuple)):
         return type(tree)(_unflatten(v, values) for v in tree)
     return next(values)

@@ -1,0 +1,76 @@
+"""Deterministic synthetic data pipeline (the port of
+`repro/data/pipeline.py`): token streams + stub modality embeddings,
+checkpointable.
+
+Batches are numpy arrays drawn from `np.random.default_rng((seed, step))`,
+the reference's draws, so the two packages see the same batch at every
+step, bit for bit; a trainer moves them to its device. The pipeline is
+stateful by step index only: resuming from a checkpoint replays nothing
+and skips nothing (the step index is part of the checkpoint's extra).
+`shard_batch` (the reference's device_put with per-input shardings) waits
+for the port's sharding (ROADMAP item 8).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator
+
+import numpy as np
+
+from ..configs.base import ModelConfig, ShapeConfig
+
+
+@dataclasses.dataclass
+class PipelineState:
+    step: int = 0
+    seed: int = 0
+
+
+class SyntheticTokenSource:
+    """Counter-based (stateless-random) batch generator: the batch at step N
+    is a pure function of (seed, N) — no RNG state to checkpoint."""
+
+    def __init__(self, cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
+                 zipf_a: float = 1.2):
+        self.cfg = cfg
+        self.shape = shape
+        self.state = PipelineState(step=0, seed=seed)
+        self.zipf_a = zipf_a
+
+    def _tokens(self, rng: np.random.Generator, b: int, s: int) -> np.ndarray:
+        # Zipf-distributed ids folded into the vocab: realistic
+        # embedding-gather locality, unlike uniform ids.
+        z = rng.zipf(self.zipf_a, size=(b, s))
+        return (z % self.cfg.vocab).astype(np.int32)
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        cfg, sh = self.cfg, self.shape
+        rng = np.random.default_rng((self.state.seed, step))
+        b, s = sh.global_batch, sh.seq_len
+        out: Dict[str, np.ndarray] = {}
+        if cfg.family == "encdec":
+            s_src = s // 2
+            out["src_embeds"] = rng.standard_normal(
+                (b, s_src, cfg.d_model), dtype=np.float32)
+            out["tokens"] = self._tokens(rng, b, s - s_src)
+        elif cfg.family == "vlm":
+            p = cfg.n_prefix_embeds
+            out["embeds"] = rng.standard_normal(
+                (b, p, cfg.d_model), dtype=np.float32)
+            out["tokens"] = self._tokens(rng, b, s - p)
+        else:
+            out["tokens"] = self._tokens(rng, b, s)
+        return out
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            batch = self.batch_at(self.state.step)
+            self.state.step += 1
+            yield batch
+
+    # ---- checkpoint integration ----
+    def state_dict(self) -> Dict:
+        return dataclasses.asdict(self.state)
+
+    def load_state_dict(self, d: Dict) -> None:
+        self.state = PipelineState(**d)

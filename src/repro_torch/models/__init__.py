@@ -3,6 +3,11 @@ the decoder-LM assembly (`lm.DecoderLM`: dense, vlm, moe, mla_moe,
 hybrid_ssm, rwkv) or the enc-dec one (`encdec.EncDec`). Entry points that
 build tensors run on "cuda" unless the caller names another device; the
 others run where the parameters lie.
+
+Parameters are built with `requires_grad=False` (serving takes no
+gradient); a trainer turns them on (`model.requires_grad_(True)`), and
+`forward`/`lm_loss` then rematerialise each layer body (`remat=True`, the
+reference's default).
 """
 from __future__ import annotations
 
@@ -36,8 +41,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return _module(cfg).init_params(cfg, generator, dev)
 
 
-def forward(params, cfg: ModelConfig, batch):
-    return _module(cfg).forward(params, cfg, batch)
+def forward(params, cfg: ModelConfig, batch, remat: bool = True):
+    return _module(cfg).forward(params, cfg, batch, remat)
 
 
 def lm_loss(params, cfg: ModelConfig, batch, **kw):

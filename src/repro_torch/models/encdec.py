@@ -20,7 +20,7 @@ from ..configs.base import ModelConfig
 from .layers import (DTYPE, MLP, Attention, Embedding, RMSNorm, _normal_,
                      _param, einsum32, embed, gqa_attend, matmul32,
                      softmax_xent, unembed)
-from .lm import Block, _decode_positions
+from .lm import Block, _decode_positions, remat_fn
 
 
 class DecBlock(nn.Module):
@@ -107,12 +107,17 @@ def _cross_kv(p: Attention, x):
     return k, v
 
 
-def encode(params: EncDec, cfg, src_embeds):
+def encode(params: EncDec, cfg, src_embeds, remat: bool = True):
     x = matmul32(src_embeds.to(DTYPE), params.adapter).to(DTYPE)
     positions = _positions(x)
-    for blk in params.enc_layers:
+
+    def body(blk, x):
         x = x + blk.attn(cfg, blk.ln1(x), positions, causal=False)
-        x = x + blk.mlp(blk.ln2(x))
+        return x + blk.mlp(blk.ln2(x))
+
+    body = remat_fn(body, remat)
+    for blk in params.enc_layers:
+        x = body(blk, x)
     return params.enc_norm(x)
 
 
@@ -124,28 +129,35 @@ def _dec_block(blk: DecBlock, cfg, x, positions, mem_k, mem_v, *,
     return x + blk.mlp(blk.ln3(x))
 
 
-def forward(params: EncDec, cfg: ModelConfig, batch):
+def forward(params: EncDec, cfg: ModelConfig, batch, remat: bool = True):
     """batch: {"src_embeds": (B, Ss, D), "tokens": (B, St)}. Returns
-    dict(logits (B, St, V) f32, aux_moe 0.0, n_prefix 0)."""
-    memory = encode(params, cfg, batch["src_embeds"])
+    dict(logits (B, St, V) f32, aux_moe 0.0, n_prefix 0). With `remat`
+    each encoder and decoder layer body runs under `lm.remat_fn`, as the
+    reference checkpoints them."""
+    memory = encode(params, cfg, batch["src_embeds"], remat)
     y = embed(params.embed.table, batch["tokens"])
     positions = _positions(y)
-    for blk in params.dec_layers:
+
+    def body(blk, y, memory):
         mem_k, mem_v = _cross_kv(blk.cross_attn, memory)
-        y = _dec_block(blk, cfg, y, positions, mem_k, mem_v)
+        return _dec_block(blk, cfg, y, positions, mem_k, mem_v)
+
+    body = remat_fn(body, remat)
+    for blk in params.dec_layers:
+        y = body(blk, y, memory)
     logits = unembed(params.head.table, params.final_norm(y))
     return {"logits": logits, "aux_moe": 0.0, "n_prefix": 0}
 
 
-def lm_loss(params: EncDec, cfg, batch, **_):
-    out = forward(params, cfg, batch)
+def lm_loss(params: EncDec, cfg, batch, remat: bool = True, **_):
+    out = forward(params, cfg, batch, remat)
     return softmax_xent(out["logits"][:, :-1], batch["tokens"][:, 1:]), out
 
 
 def prefill(params: EncDec, cfg: ModelConfig, batch):
     """Encode and score the target prefix. Returns (last-position f32
     logits (B, V), the self- and cross-KV cache)."""
-    memory = encode(params, cfg, batch["src_embeds"])
+    memory = encode(params, cfg, batch["src_embeds"], remat=False)
     y = embed(params.embed.table, batch["tokens"])
     positions = _positions(y)
     ks, vs, mks, mvs = [], [], [], []

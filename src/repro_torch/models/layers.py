@@ -52,8 +52,10 @@ def _f32(x: float, device) -> torch.Tensor:
     type rounds it, and a tensor divisor (PyTorch's CUDA division by a
     Python scalar multiplies by its reciprocal instead). Cached: building a
     CUDA tensor from host data synchronizes with the card, once per layer
-    and call otherwise."""
-    return torch.tensor(np.float32(x), device=device)
+    and call otherwise. Built outside inference mode, so that a constant
+    first made while serving can still be saved for a backward pass."""
+    with torch.inference_mode(False):
+        return torch.tensor(np.float32(x), device=device)
 
 
 def _param(shape, device, dtype=DTYPE) -> nn.Parameter:

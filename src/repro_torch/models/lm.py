@@ -25,9 +25,13 @@ modules, and the caches keep the reference's layer-stacked layouts:
 
 `decode_step` writes the new cache rows and states into the cache in place
 (the reference returns an updated copy) and returns the same dict. The
-enc-dec family is `encdec.py`'s. `forward` takes no sharding rules and no
-rematerialisation flag: the port runs on one card, and rematerialisation
-belongs to training.
+enc-dec family is `encdec.py`'s. `forward` takes no sharding rules (the
+port runs on one card). With `remat=True` (the default, as in the
+reference) and gradients enabled, each layer body runs under
+`torch.utils.checkpoint` where the reference puts `jax.checkpoint`: every
+layer of a stack, each hybrid group (its shared attention and Mamba layers,
+with no checkpoint inside) and each Mamba tail layer. Recomputation
+changes no value.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import mla as mla_mod
@@ -289,7 +294,7 @@ def _rwkv_layer(layer, cfg, x, last_t=None, state=None, last_c=None):
 
 
 # --------------------------------------------------------------------------
-# Forward (scoring; training's forward without rematerialisation)
+# Forward (training and scoring)
 # --------------------------------------------------------------------------
 
 def _embed_inputs(params: DecoderLM, cfg, batch):
@@ -308,7 +313,17 @@ def _logits(params: DecoderLM, x):
     return unembed(params.head_table(), params.final_norm(x))
 
 
-def forward(params: DecoderLM, cfg: ModelConfig, batch):
+def remat_fn(fn, remat: bool):
+    """`fn`, run under `torch.utils.checkpoint` (non-reentrant) when
+    `remat` is set and autograd records: the reference's `jax.checkpoint`
+    around a layer body. Its activations are recomputed in the backward
+    pass instead of kept."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def forward(params: DecoderLM, cfg: ModelConfig, batch, remat: bool = True):
     """Full-sequence forward. Returns dict(logits (B, S, V) f32, aux_moe
     (the MoE layers' summed aux loss, 0.0 without MoE), n_prefix, and for
     mla_moe with MTP, mtp_logits)."""
@@ -316,18 +331,29 @@ def forward(params: DecoderLM, cfg: ModelConfig, batch):
     fam = cfg.family
     auxs = []
     if fam == "hybrid_ssm":
-        for _, layers in _mamba_groups(params, cfg):
+        def mamba_body(layer, x):
+            return x + ssd_mod.apply_mamba(layer.m, cfg, layer.ln(x))
+
+        def group_body(layers, x):
             x, _ = _block_fwd(params.shared_attn, cfg, x, positions)
             for _, layer in layers:
-                x = x + ssd_mod.apply_mamba(layer.m, cfg, layer.ln(x))
+                x = mamba_body(layer, x)
+            return x
+
+        group, tail = remat_fn(group_body, remat), remat_fn(mamba_body, remat)
+        for _, layers in _mamba_groups(params, cfg):
+            x = group(layers, x)
         for layer in params.mamba_tail:
-            x = x + ssd_mod.apply_mamba(layer.m, cfg, layer.ln(x))
+            x = tail(layer, x)
     elif fam == "rwkv":
+        body = remat_fn(lambda layer, x: _rwkv_layer(layer, cfg, x)[0], remat)
         for layer in params.layers:
-            x = _rwkv_layer(layer, cfg, x)[0]
+            x = body(layer, x)
     else:
+        body = remat_fn(lambda blk, x, fl: _block_fwd(blk, cfg, x, positions,
+                                                      fl), remat)
         for blk, fl in zip(params.blocks(), _layer_flags(cfg)):
-            x, aux = _block_fwd(blk, cfg, x, positions, fl)
+            x, aux = body(blk, x, fl)
             if aux is not None:
                 auxs.append(aux)
 
@@ -349,11 +375,11 @@ def forward(params: DecoderLM, cfg: ModelConfig, batch):
     return out
 
 
-def lm_loss(params: DecoderLM, cfg: ModelConfig, batch, aux_coeff=0.01,
-            mtp_coeff=0.3):
+def lm_loss(params: DecoderLM, cfg: ModelConfig, batch, remat: bool = True,
+            aux_coeff=0.01, mtp_coeff=0.3):
     """Next-token loss (+ the MoE aux loss + MTP). Returns (loss, the
     forward's dict)."""
-    out = forward(params, cfg, batch)
+    out = forward(params, cfg, batch, remat)
     tokens = batch["tokens"]
     npre = out["n_prefix"]
     # predict tokens[:, 1:] from positions [npre : -1]

@@ -19,8 +19,11 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core.paper_workloads import load
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import train as launch_train
 from repro_torch.scenarios import ScenarioGrid, sweep
 from repro_torch.train.serve import Request, Server
+from repro_torch.train.trainer import Trainer, TrainerConfig
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 MODULES = ("repro_torch", "repro_torch.core", "repro_torch.core.search",
@@ -41,7 +44,11 @@ MODULES = ("repro_torch", "repro_torch.core", "repro_torch.core.search",
            "repro_torch.parallel", "repro_torch.parallel.slab_sched",
            "repro_torch.models.layers", "repro_torch.models.moe",
            "repro_torch.models.mla", "repro_torch.models.ssd",
-           "repro_torch.models.rwkv", "repro_torch.models.encdec")
+           "repro_torch.models.rwkv", "repro_torch.models.encdec",
+           "repro_torch.optim", "repro_torch.optim.adamw",
+           "repro_torch.data", "repro_torch.data.pipeline",
+           "repro_torch.train.fault_tolerance", "repro_torch.train.trainer",
+           "repro_torch.launch.train")
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -66,6 +73,8 @@ def test_no_source_file_names_jax_or_the_reference_package():
 
 
 _CFG = reduced(get_config("granite-3-2b"))
+# never created: the trainer resolves its device before it touches the disk
+_NO_DIR = str(pathlib.Path(__file__).parent / "no-such-checkpoint-dir")
 
 
 def _no_card():
@@ -107,6 +116,10 @@ def _no_card():
     lambda wl: M.init_cache(reduced(get_config("zamba2-7b")), 1, 8),
     lambda wl: M.init_cache(reduced(get_config("seamless-m4t-medium")), 1, 8,
                             src_len=4),
+    lambda wl: Trainer(_CFG, ShapeConfig("tiny", 16, 2, "train"),
+                       tcfg=TrainerConfig(ckpt_dir=_NO_DIR)),
+    lambda wl: launch_train.main(["--arch", "granite-3-2b", "--reduced",
+                                  "--ckpt-dir", _NO_DIR]),
 ], ids=["search", "search_bound", "search_workloads", "search_robust",
         "search_runtime", "dxpta_search",
         "hw_prefilter", "dse_search_grid", "decode_rows_device",
@@ -115,7 +128,7 @@ def _no_card():
         "server_generate", "search_workers", "scenario_sweep",
         "init_params_moe", "init_params_mla_moe", "init_params_hybrid_ssm",
         "init_params_rwkv", "init_params_encdec", "init_cache_hybrid_ssm",
-        "init_cache_encdec"])
+        "init_cache_encdec", "trainer", "launch_train"])
 def test_entry_points_raise_without_a_card(call):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):

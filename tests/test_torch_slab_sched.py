@@ -190,6 +190,30 @@ def test_async_same_winner_and_coverage(engine, objective):
     assert got.sched is not None and not got.sched.deterministic
 
 
+def test_async_pareto_at_the_float32_edge_matches_the_references_pallas():
+    # bert-b on 24^5, Pareto BnB, work stealing: the sequential pallas and
+    # cuda engines return 165 rows here ((1, 1, 14, 12, 10) ties its
+    # (n_h, n_v) swap in float32), the numpy engine 166. The reference's
+    # own async pallas run returns 166 too, and the port's async cuda run
+    # must equal it: frontier, metrics, coverage and the slab bounds. The
+    # other canonical counters depend on the stealing order in this mode
+    # (`repro/parallel/slab_sched.py:47-54`): three reference runs gave
+    # 88080, 88080 and 87972 workload evaluations.
+    wl = load("bert-b")
+    ref = R.search(wl, R_CONS, engine="pallas", factorized=True,
+                   space=R.FactorizedSpace.full(24), prune="bound",
+                   objective="pareto", workers=4, deterministic=False)
+    space = P.FactorizedSpace.full(24)
+    got = P.search(from_reference(wl), CONS, engine="cuda", factorized=True,
+                   space=space, prune="bound", objective="pareto", workers=4,
+                   deterministic=False, device="cpu")
+    _assert_same("pareto", ref, got, "async bert-b 24^5")
+    assert len(got.front) == 166
+    for res in (ref, got):
+        _assert_covered(res, space)
+    assert (got.n_evaluated, got.n_bounds) == (ref.n_evaluated, ref.n_bounds)
+
+
 def test_workers_validation():
     with pytest.raises(ValueError, match="positive integer"):
         _run(workers=0)

@@ -30,22 +30,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def _device_us(evt) -> float:
-    """Self device time of a profiler average that is a device event (a
-    kernel or a copy), in microseconds, under either of the attribute names
-    PyTorch versions use; 0 for host events. An operator's average carries
-    its kernels' device time too, so summing every row would count each
-    kernel twice (the profiler's own table sums device events only)."""
-    from torch.autograd import DeviceType
-    if evt.device_type != DeviceType.CUDA \
-            or getattr(evt, "is_user_annotation", False):
-        return 0.0
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", default="deit-b")
@@ -58,6 +42,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("trace_bnb: no CUDA device is available")
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import device_us
     from repro_torch.core import Constraints, FactorizedSpace, search
     from repro_torch.core.paper_workloads import load
     from repro_torch.kernels import dse_eval as dse
@@ -96,15 +82,15 @@ def main() -> None:
     launches = dict(dse.LAUNCHES)
     prof.export_chrome_trace(str(out / "cuda_query.trace.json"))
     avgs = prof.key_averages()
-    dev_us = sum(_device_us(e) for e in avgs)
+    dev_us = sum(device_us(e) for e in avgs)
     print(f"profiled cuda query: wall {wall:.4f} s, launches {launches}, "
           f"device time {dev_us / 1e3:.4f} ms, device busy share "
           f"{dev_us / 1e6 / wall:.6f}" if dev_us else
           f"profiled cuda query: wall {wall:.4f} s, launches {launches}; "
           f"the profiler recorded no device time")
-    for e in sorted(avgs, key=_device_us, reverse=True)[:8]:
-        if _device_us(e):
-            print(f"  device {_device_us(e):10.1f} us  x{e.count:<5d} "
+    for e in sorted(avgs, key=device_us, reverse=True)[:8]:
+        if device_us(e):
+            print(f"  device {device_us(e):10.1f} us  x{e.count:<5d} "
                   f"{e.key[:70]}")
     for e in sorted(avgs, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:8]:

@@ -27,22 +27,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def _device_us(evt) -> float:
-    """Self device time of a profiler average that is a device event (a
-    kernel or a copy), in microseconds, under either of the attribute names
-    PyTorch versions use; 0 for host events. An operator's average carries
-    its kernels' device time too, so summing every row would count each
-    kernel twice (the profiler's own table sums device events only)."""
-    from torch.autograd import DeviceType
-    if evt.device_type != DeviceType.CUDA \
-            or getattr(evt, "is_user_annotation", False):
-        return 0.0
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen2.5-3b")
@@ -57,6 +41,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("trace_serve: no CUDA device is available")
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import device_us
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.train.serve import Request, Server, _grow_cache
@@ -101,8 +87,8 @@ def main() -> None:
                 wall = time.perf_counter() - t0
             prof.export_chrome_trace(str(out / f"{name}.trace.json"))
             avgs = prof.key_averages()
-            dev_us = sum(_device_us(e) for e in avgs)
-            n_kernels = sum(e.count for e in avgs if _device_us(e))
+            dev_us = sum(device_us(e) for e in avgs)
+            n_kernels = sum(e.count for e in avgs if device_us(e))
             print(f"{args.arch} ({cfg.n_layers} layers) {name} (batch "
                   f"{args.batch}): wall {wall * 1e3:.3f} ms, device time "
                   f"{dev_us / 1e3:.3f} ms, device busy share "
@@ -110,9 +96,9 @@ def main() -> None:
                   if dev_us else f"{args.arch} {name}: wall "
                   f"{wall * 1e3:.3f} ms; the profiler recorded no device "
                   f"time")
-            for e in sorted(avgs, key=_device_us, reverse=True)[:10]:
-                if _device_us(e):
-                    print(f"  device {_device_us(e):10.1f} us  "
+            for e in sorted(avgs, key=device_us, reverse=True)[:10]:
+                if device_us(e):
+                    print(f"  device {device_us(e):10.1f} us  "
                           f"x{e.count:<5d} {e.key[:80]}")
             (out / f"{name}.key_averages.txt").write_text(
                 avgs.table(sort_by="self_cpu_time_total", row_limit=60))
