@@ -76,6 +76,18 @@ From the root of a checkout, with one CUDA card visible. It
      workers=4 service's cold and warm queries. Every call's launch counts
      equal a second count kept per launching thread, and it prints each
      call's wall time, launches and threads;
+  4f. drives `shard=` on the main path (`shard_phase`): prints k, the
+     cards `shard=4` spans (one here: k = 1, in the sharded layout); the
+     12^5 golden searches of the five workloads in both objectives at
+     shard=4 and at (shard=2, chunk_size=65536), the 24^5 BnB of deit-b in
+     both objectives at shard=4 on the cuda and torch engines, a
+     `SearchService(shard=4)`'s cold and warm query and `launch.serve dse
+     --shard 4` / `scenarios --shard 2`, each equal byte for byte to the
+     same call at shard=None (the 12^5 ones also to the golden record);
+     then kernels 2, 3, 5 and 6 through the k = 4 launchers on the one
+     card, 4 launches a call, the rebased per-block columns `torch.equal`
+     to the unsharded launch's. It prints each call's wall time beside
+     shard=None's;
   5. holds the two LM kernels against their plain versions on the card:
      `ddot_gemm_quantized` (the photonic 4-bit GEMM, int8 tensor cores)
      `torch.equal` at the qwen2.5-3b LM head (4 x 2048 x 151,936, B
@@ -1085,6 +1097,235 @@ def workers_phase(dev, n_z, hw, drive, float32_ties, by_thread):
               f"thread(s)")
     _check(par.stats == one.stats, f"workers service stats {par.stats} vs "
                                    f"{one.stats}")
+    return walls
+
+
+def shard_phase(dev, n_z, hw, drive, inp):
+    """Phase 4f: `shard=` on the DSE main path (ROADMAP item 8, DSE half).
+
+    Prints k, the size of the candidate mesh `shard=4` gets here (one card:
+    the public `shard=` clamps to k = 1, which still takes the sharded
+    layout). Then, each held byte for byte (winners, float64 metrics,
+    frontiers, every counter) to the same call at shard=None: the five
+    paper workloads' 12^5 golden searches (`search_workloads`, cuda,
+    hierarchical) in both objectives at shard=4 and at (shard=2,
+    chunk_size=65536), also against the golden record; the n_z^5 BnB of
+    deit-b in both objectives at shard=4 on the cuda and torch engines; a
+    `SearchService(shard=4)`'s cold and warm query and its stats;
+    `launch.serve dse --shard 4` and `launch.serve scenarios --shard 2`
+    (their printed answers, less the wall times). Last, the ops-level
+    launchers of kernels 2, 3, 5 and 6 given `(dev,) * 4` (the 12^5 grid
+    of `inp`, `dse_inputs`' operands, and the n_z^5 span): the k = 4 layout
+    on the one card, one launch a shard (4 in `LAUNCHES`), whose per-block
+    columns, shard-local indices rebased, equal the unsharded launch's
+    (`torch.equal`) and whose further columns are empty blocks. `drive` is
+    phase 4c's, counting under the path "shard". Returns the wall times."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+    import torch
+    from repro_torch.core import (Constraints, FactorizedSpace, search,
+                                  search_workloads)
+    from repro_torch.core.paper_workloads import PAPER_WORKLOADS, load
+    from repro_torch.core.photonic_model import CONSTANTS
+    from repro_torch.kernels import dse_eval as dse
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+    from repro_torch.launch.mesh import make_candidate_mesh
+    from repro_torch.serve import SearchService
+
+    k = len(make_candidate_mesh(4, dev))
+    print(f"shard: shard=4 spans k = {k} device(s) of "
+          f"{torch.cuda.device_count()} ({hw})")
+    names = sorted(PAPER_WORKLOADS)
+    wls = {n: load(n) for n in names}
+    cons = Constraints()
+    space = FactorizedSpace.full(n_z)
+    walls = []
+    edp_keys = ("best_cfg", "area_mm2", "power_w", "energy_j", "latency_s",
+                "edp")
+    counts_keys = ("n_evaluated", "n_feasible", "n_workload_evals",
+                   "n_pruned", "n_bounds")
+
+    def same(got, want):
+        if hasattr(want, "front"):
+            return (np.array_equal(got.front, want.front)
+                    and all(np.array_equal(got.metrics[m], want.metrics[m])
+                            for m in want.metrics)
+                    and got.n_overflow == want.n_overflow
+                    and all(getattr(got, c) == getattr(want, c)
+                            for c in counts_keys))
+        return all(getattr(got, c) == getattr(want, c)
+                   or getattr(want, c) != getattr(want, c)   # NaN: no winner
+                   and getattr(got, c) != getattr(got, c)
+                   for c in edp_keys + counts_keys)
+
+    def golden_ok(r, n):
+        gold = inp.golden["workloads"][n]
+        if hasattr(r, "front"):
+            return ([[int(x) for x in row] for row in r.front]
+                    == gold["front"] and r.n_feasible == gold["n_feasible"])
+        return ([int(x) for x in r.best_cfg.as_array()] == gold["best"]
+                and r.edp == gold["edp"]
+                and r.n_feasible == gold["n_feasible"])
+
+    def pair(label, call, needs, shard_kw, check=None):
+        """call(shard=None), then call(**shard_kw): the results equal, both
+        walls printed; returns the sharded result."""
+        want, t_base, _ = drive(f"{label} shard=None", lambda: call(),
+                                needs)
+        got, t_shard, counts = drive(f"{label} {shard_kw}",
+                                     lambda: call(**shard_kw), needs)
+        pairs = (list(zip(got.values(), want.values()))
+                 if isinstance(got, dict) else [(got, want)])
+        _check(all(same(g, w) for g, w in pairs),
+               f"shard {label} {shard_kw}: differs from shard=None")
+        if check is not None:
+            check(got)
+        walls.append((f"{label} {shard_kw}", t_shard, t_base))
+        print(f"shard {label} {shard_kw}: equal to shard=None; "
+              f"{t_shard:.4f} s vs {t_base:.4f} s ({hw}); launches "
+              f"{ {n: c for n, c in counts.items() if c} }")
+        return got
+
+    # -- the 12^5 golden searches, both objectives ---------------------------
+    for objective, needs in (("edp", ("dse_search_padded",)),
+                             ("pareto", ("dse_pareto_padded",))):
+        def golden_all(out):
+            _check(all(golden_ok(out[n], n) for n in names),
+                   f"shard 12^5 {objective}: differs from the golden record")
+
+        for shard_kw in (dict(shard=4), dict(shard=2, chunk_size=65536)):
+            pair(f"search_workloads 12^5 hierarchical {objective}",
+                 lambda **kw: search_workloads(
+                     wls, cons, engine="cuda", hierarchical=True,
+                     objective=objective, device=dev, **kw),
+                 needs, shard_kw, golden_all)
+
+    # -- the n_z^5 BnB of deit-b, cuda and torch engines ----------------------
+    for engine in ("cuda", "torch"):
+        for objective in ("edp", "pareto"):
+            needs = (() if engine == "torch" else ("dse_search_decoded",)
+                     if objective == "edp" else ("dse_pareto_decoded",))
+            pair(f"search {n_z}^5 prune=bound {objective} deit-b {engine}",
+                 lambda **kw: search(
+                     wls["deit-b"], cons, engine=engine, factorized=True,
+                     space=space, prune="bound", objective=objective,
+                     device=dev, **kw),
+                 needs, dict(shard=4))
+
+    # -- the service ---------------------------------------------------------
+    one = SearchService(space=space, engine="cuda", device=dev)
+    four = SearchService(space=space, engine="cuda", device=dev, shard=4)
+    for label, box in (("cold", cons), ("warm", Constraints(power_w=4.5))):
+        want, t_base, _ = drive(f"service {label} shard=None",
+                                lambda: one.query(wls["deit-b"], box), ())
+        got, t_shard, counts = drive(
+            f"service {label} shard=4",
+            lambda: four.query(wls["deit-b"], box),
+            ("dse_search_decoded",) if label == "cold" else ())
+        _check(same(got, want), f"shard service {label}: {got.best_cfg} vs "
+                                f"{want.best_cfg}")
+        walls.append((f"service {label} shard=4", t_shard, t_base))
+        print(f"shard service {label}: equal to shard=None; {t_shard:.4f} s "
+              f"vs {t_base:.4f} s ({hw})")
+    _check(four.stats == one.stats,
+           f"shard service stats {four.stats} vs {one.stats}")
+
+    # -- the launcher ----------------------------------------------------------
+    def printed(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            launch.main(argv)
+        return re.sub(r"[0-9.]+ms", "ms", buf.getvalue())
+
+    for argv, shard in ((["dse", "--workload", "all", "--n-z", "12",
+                          "--scenario", "power_w=4.5"], "4"),
+                        (["scenarios"], "2")):
+        want, t_base, _ = drive(f"launch.serve {argv[0]}",
+                                lambda: printed(argv), ())
+        got, t_shard, _ = drive(f"launch.serve {argv[0]} --shard {shard}",
+                                lambda: printed(argv + ["--shard", shard]),
+                                ())
+        _check(got == want, f"launch.serve {argv[0]} --shard {shard}: the "
+                            f"printed answers differ from shard=None")
+        walls.append((f"launch.serve {argv[0]} --shard {shard}", t_shard,
+                      t_base))
+        print(f"shard launch.serve {argv[0]} --shard {shard}: "
+              f"{len(got.splitlines())} lines equal to shard=None's; "
+              f"{t_shard:.4f} s vs {t_base:.4f} s ({hw})")
+
+    # -- the k = 4 layout on one card: kernels 2, 3, 5 and 6 -----------------
+    mesh4 = (dev,) * 4
+    cons_np = ops._constraint_rows([cons])
+    search_carry = ops._search_carry_rows(None, 1)
+    front_carry = ops._front_carry_rows(None, 1, 3)
+    objs = ("area", "power", "edp")
+
+    def held(label, kernel, out4, base, idx_rows, col_base=None):
+        """The k = 4 columns against the unsharded launch's `base`."""
+        out4 = np.array(out4)
+        if col_base is not None:
+            idx = out4[idx_rows]
+            out4[idx_rows] = np.where(idx >= 0, idx + col_base, idx)
+        nb = base.shape[1]
+        extra = out4[:, nb:]
+        count_row = dse.SEARCH_ROWS - 1 if kernel.startswith("dse_search") \
+            else 1
+        _check(torch.equal(torch.from_numpy(out4[:, :nb]), base.cpu())
+               and (extra[count_row] == 0).all()
+               and (extra[idx_rows] < 0).all(),
+               f"shard k=4 {label}: the rebased columns differ from the "
+               f"unsharded launch")
+        print(f"shard k=4 {label}: {out4.shape[1]} columns in 4 launches, "
+              f"the first {nb} equal to the unsharded launch's, the rest "
+              f"empty")
+
+    def k4(label, kernel, fn):
+        out, wall, counts = drive(f"k=4 {label}", fn, (kernel,))
+        _check(counts[kernel] == 4, f"shard k=4 {label}: {counts[kernel]} "
+                                    f"launches of {kernel}, not 4")
+        walls.append((f"k=4 {label}", wall, None))
+        return out
+
+    out, ss, bps = k4("kernel 2 12^5 deit-b", "dse_search_padded",
+                      lambda: ops._sharded_padded(
+                          "search", inp.grid12, mesh4, inp.workloads,
+                          CONSTANTS, cons_np, search_carry))
+    base = dse.dse_search_padded(inp.cols, inp.mask, inp.cons_row, inp.carry,
+                                 workloads=inp.workloads, constants=CONSTANTS)
+    col_base = (np.arange(out.shape[1]) // bps) * ss
+    held("kernel 2 12^5 deit-b", "dse_search_padded", out, base, [1],
+         col_base)
+    out, ss, bps = k4("kernel 5 12^5 deit-b", "dse_pareto_padded",
+                      lambda: ops._sharded_padded(
+                          "pareto", inp.grid12, mesh4, inp.workloads,
+                          CONSTANTS, cons_np, front_carry, objs, False))
+    base = dse.dse_pareto_padded(inp.cols, inp.mask, inp.cons_row,
+                                 torch.from_numpy(front_carry).to(dev),
+                                 workloads=inp.workloads, objectives=objs,
+                                 has_carry=False, constants=CONSTANTS)
+    col_base = (np.arange(out.shape[1]) // bps) * ss
+    held("kernel 5 12^5 deit-b", "dse_pareto_padded", out, base,
+         slice(dse.PARETO_HEADER, dse.PARETO_ROWS), col_base)
+    for kind, kernel, carry_np, number in (
+            ("search", "dse_search_decoded", search_carry, 3),
+            ("pareto", "dse_pareto_decoded", front_carry, 6)):
+        extra = dict(objectives=objs, has_carry=False) \
+            if kind == "pareto" else {}
+        out, _ = k4(f"kernel {number} {n_z}^5 span deit-b", kernel,
+                    lambda: ops._decoded_launch(
+                        space, 0, space.size, kind, inp.workloads, CONSTANTS,
+                        cons_np, carry_np, dev, mesh=mesh4, **extra))
+        base, _ = ops._decoded_launch(space, 0, space.size, kind,
+                                      inp.workloads, CONSTANTS, cons_np,
+                                      carry_np, dev, **extra)
+        held(f"kernel {number} {n_z}^5 span deit-b", kernel, out,
+             torch.from_numpy(base),
+             [1] if kind == "search" else slice(dse.PARETO_HEADER,
+                                                dse.PARETO_ROWS))
     return walls
 
 
@@ -2537,6 +2778,12 @@ def main() -> None:
         worker_walls = workers_phase(dev, 24, smi.stdout.strip(),
                                      drive_into("workers"), float32_ties,
                                      by_thread)
+    # -- shard= on the main path (phase 4f) --------------------------------
+    t_shard = time.perf_counter()
+    shard_walls = shard_phase(dev, 24, smi.stdout.strip(),
+                              drive_into("shard"), inp)
+    print(f"phase 4f wall time: {time.perf_counter() - t_shard:.1f} s "
+          f"({smi.stdout.strip()})")
 
     # -- kernel 7: the photonic DDot GEMM, at the serving path's shapes ----
     gen = torch.Generator(device=dev)
@@ -2793,6 +3040,10 @@ def main() -> None:
                                  for k, v in wall.items())
                        if isinstance(wall, dict) else f"{wall:.4f} s")
         for label, wall in worker_walls))
+    print(f"shard wall times ({smi.stdout.strip()}): " + "; ".join(
+        f"{label} {wall:.4f} s"
+        + ("" if base is None else f" (shard=None {base:.4f} s)")
+        for label, wall, base in shard_walls))
     print(f"family serving ({smi.stdout.strip()}): " + "; ".join(
         f"{arch} ttft {t[0]:.4f} / {t[1]:.4f} s, decode {d[0]:.4f} / "
         f"{d[1]:.4f} s/token, peak {peak:.2f} GiB, built in {b_s:.2f} s"

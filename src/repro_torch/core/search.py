@@ -26,7 +26,13 @@ backends over the same cost model, all returning identical `SearchResult`s:
 torch float32 on the search's device) before the workload evaluation;
 `search_workloads` batches every workload into one cuda launch. `chunk_size=`
 streams the grid (or the factorized index space) with a running argmin
-carried across chunks — into the kernels on cuda. `objective="pareto"`
+carried across chunks — into the kernels on cuda. `shard=N` fans each
+evaluation out over the candidate mesh (`launch.mesh`): the cuda and torch
+engines launch one contiguous slice of the candidates per card (up to N
+cards, one device on the CPU) and combine the slices' reductions on the
+host; the python and numpy engines split the same way at any device count,
+so every engine runs the cross-shard reduction. Any (shard, chunk_size)
+returns the one-shot sweep's bytes. `objective="pareto"`
 returns the whole non-dominated feasible set (`ParetoResult`) instead: the
 python oracle grows it incrementally, numpy masks it exactly in float64,
 torch sorts and scans its float32 points against a bounded buffer, and
@@ -55,10 +61,8 @@ byte-identical to `workers=None` in its default deterministic mode.
 
 Every entry point takes `device=`: "cuda" (the default) launches the
 kernels and runs the prefilter on the card, and raises when no card is
-present; "cpu" runs the kernels' plain PyTorch versions. What the JAX
-package has beyond these slices — `shard>1` — raises NotImplementedError
-naming the ROADMAP item that ports it; `engine="jax"` raises a ValueError
-that names `torch`, its counterpart.
+present; "cpu" runs the kernels' plain PyTorch versions. `engine="jax"`
+raises a ValueError that names `torch`, its counterpart.
 """
 from __future__ import annotations
 
@@ -72,6 +76,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..launch.mesh import shard_mesh
 from .arch_params import Constraints, PTAConfig, config_grid
 from .calibration import RobustBand, as_calibration
 from .factorized import (FactorizedSpace, evaluate_space_tensors,
@@ -90,20 +95,6 @@ from .workload import Workload
 
 # Metric arrays reported per evaluated point (every evaluate_grid key).
 REPORT_METRICS = ("area", "power", "energy", "latency", "util", "edp")
-
-# What the JAX package supports beyond this slice, with the ROADMAP.md
-# Queue 1 item that ports it.
-_LATER = {
-    "shard": (8, "sharding across CUDA devices"),
-}
-
-
-def _not_ported(arg: str, value) -> NotImplementedError:
-    item, title = _LATER[arg]
-    return NotImplementedError(
-        f"{arg}={value!r} is not ported to repro_torch yet: ROADMAP.md "
-        f"Queue 1 item {item} ({title})")
-
 
 @dataclasses.dataclass
 class SearchResult:
@@ -587,13 +578,21 @@ def _torch_feasible(m, valid, cons):
     return ok if valid is None else valid & ok
 
 
-def _torch_argmin(m, ok):
-    """(index, its float32 EDP, n_feasible): the first lane of the least
-    feasible EDP (jnp.argmin's first hit; +inf everywhere when none)."""
+def _torch_argmin_t(m, ok):
+    """[index, its float32 EDP, n_feasible] as a (3,) float64 tensor left
+    on the device (exact: indices and counts stay below 2**53): the first
+    lane of the least feasible EDP (jnp.argmin's first hit; +inf
+    everywhere when none). A fan-out launches every shard's before any of
+    them waits."""
     edp = torch.where(ok, m["edp"], scalar_tensor(np.inf, ok.device))
     i = torch.argmin(edp)
-    i, nf = torch.stack([i, ok.sum()]).tolist()
-    return i, float(edp[i]), nf
+    return torch.stack([i.double(), edp[i].double(), ok.sum().double()])
+
+
+def _torch_argmin(m, ok):
+    """(index, its float32 EDP, n_feasible) of `_torch_argmin_t`."""
+    i, e, nf = _torch_argmin_t(m, ok).tolist()
+    return int(i), e, int(nf)
 
 
 def _torch_search_fn(sub, wl, constraints, c, device):
@@ -605,6 +604,37 @@ def _torch_search_fn(sub, wl, constraints, c, device):
     m = _torch_grid_metrics(cols, wl, c)
     return _torch_argmin(m, _torch_feasible(
         m, None, _constraint_vec(constraints, device)))
+
+
+def _combine_shard_argmins(parts, shard_size):
+    """(shard-order index or -1, EDP, n_feasible) of the shards' [index,
+    EDP, n_feasible] triples: the least EDP, the earliest shard on exact
+    ties (shards are contiguous slices, so that is the global first hit)."""
+    a = np.stack([p.cpu().numpy() for p in parts])
+    nf = int(a[:, 2].sum())
+    if nf == 0:
+        return -1, float("inf"), 0
+    s = int(np.lexsort((np.arange(len(a)), a[:, 1]))[0])
+    return s * shard_size + int(a[s, 0]), float(a[s, 1]), nf
+
+
+def _torch_sharded_argmin(sub, wl, constraints, c, mesh):
+    """The torch engine's argmin fanned out over `mesh` (the reference's
+    `_jax_sharded_argmin`): the rows padded to a k-multiple, each shard's
+    contiguous slice reduced to (argmin, EDP, n_feasible) on its device,
+    the shards combined on the host. Returns (index into `sub` or -1, its
+    float32 EDP, n_feasible)."""
+    k = len(mesh)
+    cols, valid = _padded_candidate_cols(sub, k, "cpu")
+    ss = cols.shape[1] // k
+    parts = []
+    for s, dev in enumerate(mesh):
+        cols_s = cols[:, s * ss:(s + 1) * ss].to(dev)
+        m = _torch_grid_metrics(cols_s, wl, c)
+        parts.append(_torch_argmin_t(m, _torch_feasible(
+            m, valid[s * ss:(s + 1) * ss].to(dev),
+            _constraint_vec(constraints, dev))))
+    return _combine_shard_argmins(parts, ss)
 
 
 def _torch_engine(grid, wl, constraints, c, hierarchical, device):
@@ -842,6 +872,27 @@ def _torch_front_mask(m, ok, objectives):
                               for k in objectives])
 
 
+def _torch_sharded_pareto_mask(sub, wl, constraints, c, mesh, objectives):
+    """The torch engine's frontier-candidate pass fanned out over `mesh`
+    (the reference's `_jax_sharded_pareto_mask`): the rows padded to k
+    shards of a TORCH_PARETO_CHUNK multiple, each shard reduced to its own
+    non-dominated mask on its device — a superset of that slice's frontier
+    members, so the union stays exact after the float64 refinement.
+    Returns (mask over `sub`, n_feasible)."""
+    k = len(mesh)
+    cols, valid = _padded_candidate_cols(sub, k * TORCH_PARETO_CHUNK, "cpu")
+    ss = cols.shape[1] // k
+    masks = []
+    nf = 0
+    for s, dev in enumerate(mesh):
+        m = _torch_grid_metrics(cols[:, s * ss:(s + 1) * ss].to(dev), wl, c)
+        ok = _torch_feasible(m, valid[s * ss:(s + 1) * ss].to(dev),
+                             _constraint_vec(constraints, dev))
+        masks.append(_torch_front_mask(m, ok, objectives))
+        nf += int(ok.sum())
+    return np.concatenate(masks)[:len(sub)], nf
+
+
 def _torch_pareto_fn(sub, wl, constraints, c, device, objectives):
     """(candidate mask over `sub`, n_feasible): the jax engine's fused
     frontier-candidate pass in plain torch float32 on `device`."""
@@ -868,9 +919,12 @@ PARETO_ENGINES = {"python": _pareto_python, "numpy": _pareto_numpy,
 
 
 # ---------------------------------------------------------------------------
-# Streamed evaluation (chunk_size=): a running argmin carried across chunks
-# of the grid — on cuda into the kernels' carry operand. Exact: any
-# chunk_size returns the one-shot sweep's bytes.
+# Streamed and sharded evaluation (chunk_size= / shard=): a running argmin
+# (or frontier) carried across chunks of the grid — on cuda into the
+# kernels' carry operands — and each chunk fanned out over the candidate
+# mesh (cuda, torch) or split as many ways on the host (python, numpy), so
+# every engine runs the same cross-shard reduction. Exact: any (shard,
+# chunk_size) returns the one-shot sweep's bytes.
 # ---------------------------------------------------------------------------
 
 def _iter_chunks(grid, chunk_size: int):
@@ -878,54 +932,86 @@ def _iter_chunks(grid, chunk_size: int):
         yield grid[s:s + chunk_size]
 
 
+def _host_shards(chunk, shard):
+    """The host engines' split of a chunk into `shard` contiguous parts
+    (np.array_split sizes; at most one part a row) — the host counterpart
+    of the device fan-out, at any device count."""
+    if not shard or int(shard) <= 1 or len(chunk) == 0:
+        return [chunk]
+    return np.array_split(chunk, min(int(shard), len(chunk)))
+
+
 def merge_running_best(carry, candidate):
-    """Cross-chunk running-argmin reduction over (row, edp) pairs.
+    """Cross-chunk and cross-shard running-argmin reduction over (row, edp)
+    pairs.
 
     Strict-< replacement: exact EDP ties keep the incumbent, which arrived
-    from an earlier chunk and therefore has the lower grid index."""
+    from an earlier chunk or shard and therefore has the lower grid index —
+    composed over any partition of the grid it reproduces the one-shot
+    engines' first-hit argmin."""
     row, edp = candidate
     if row is not None and edp < carry[1]:
         return (row, edp)
     return carry
 
 
-def _edp_chunk_python(chunk, wl, constraints, c, hierarchical, device):
-    r = _sequential_search(chunk, wl, constraints, prune=hierarchical,
-                           collect=False, c=c, edp_init=float("inf"))
-    row = None if r.best_cfg is None else r.best_cfg.as_array()
-    return row, r.edp, r.n_feasible, r.n_workload_evals
+def _edp_chunk_python(chunk, wl, constraints, c, hierarchical, device,
+                      shard):
+    best = (None, float("inf"))
+    nf = n_wl = 0
+    for part in _host_shards(chunk, shard):
+        r = _sequential_search(part, wl, constraints, prune=hierarchical,
+                               collect=False, c=c, edp_init=float("inf"))
+        nf += r.n_feasible
+        n_wl += r.n_workload_evals
+        row = None if r.best_cfg is None else r.best_cfg.as_array()
+        best = merge_running_best(best, (row, r.edp))
+    return best[0], best[1], nf, n_wl
 
 
-def _edp_chunk_numpy(chunk, wl, constraints, c, hierarchical, device):
-    sub, n_wl = _prefiltered(chunk, wl, constraints, c, hierarchical, device)
-    if len(sub) == 0:
-        return None, float("inf"), 0, n_wl
-    m = evaluate_grid(sub, wl, c)
-    ok = np.asarray(constraints.satisfied(m["area"], m["power"],
-                                          m["energy"], m["latency"]))
-    if not ok.any():
-        return None, float("inf"), 0, n_wl
-    edp = np.where(ok, m["edp"], np.inf)
-    i = int(np.argmin(edp))
-    return sub[i], float(edp[i]), int(ok.sum()), n_wl
+def _edp_chunk_numpy(chunk, wl, constraints, c, hierarchical, device,
+                     shard):
+    best = (None, float("inf"))
+    nf = n_wl = 0
+    for part in _host_shards(chunk, shard):
+        sub, nw = _prefiltered(part, wl, constraints, c, hierarchical,
+                               device)
+        n_wl += nw
+        if len(sub) == 0:
+            continue
+        m = evaluate_grid(sub, wl, c)
+        ok = np.asarray(constraints.satisfied(m["area"], m["power"],
+                                              m["energy"], m["latency"]))
+        nf += int(ok.sum())
+        if not ok.any():
+            continue
+        edp = np.where(ok, m["edp"], np.inf)
+        i = int(np.argmin(edp))
+        best = merge_running_best(best, (sub[i], float(edp[i])))
+    return best[0], best[1], nf, n_wl
 
 
-def _edp_chunk_cuda(chunk, wl, constraints, c, hierarchical, device,
+def _edp_chunk_cuda(chunk, wl, constraints, c, hierarchical, device, shard,
                     carry_edp):
     from ..kernels.ops import dse_search_grid
     sub, n_wl = _prefiltered(chunk, wl, constraints, c, hierarchical, device)
     if len(sub) == 0:
         return None, float("inf"), 0, n_wl
-    i, e, nf = dse_search_grid(sub, wl, constraints, c, device,
+    i, e, nf = dse_search_grid(sub, wl, constraints, c, device, shard=shard,
                                carry_edp=carry_edp)
     return (sub[i] if i >= 0 else None), e, nf, n_wl
 
 
-def _edp_chunk_torch(chunk, wl, constraints, c, hierarchical, device):
+def _edp_chunk_torch(chunk, wl, constraints, c, hierarchical, device,
+                     shard):
     sub, n_wl = _prefiltered(chunk, wl, constraints, c, hierarchical, device)
     if len(sub) == 0:
         return None, float("inf"), 0, n_wl
-    i, e, nf = _torch_search_fn(sub, wl, constraints, c, device)
+    mesh = shard_mesh(shard, device)
+    if mesh is not None:
+        i, e, nf = _torch_sharded_argmin(sub, wl, constraints, c, mesh)
+    else:
+        i, e, nf = _torch_search_fn(sub, wl, constraints, c, device)
     if nf == 0:
         return None, float("inf"), 0, n_wl
     return sub[i], e, nf, n_wl
@@ -935,38 +1021,41 @@ EDP_CHUNK_ENGINES = {"python": _edp_chunk_python, "numpy": _edp_chunk_numpy,
                      "torch": _edp_chunk_torch}
 
 
-def _rt_fp(tag, wl, constraints, engine, c, device, chunk_size, **extra):
+def _rt_fp(tag, wl, constraints, engine, c, device, shard, chunk_size,
+           **extra):
     """Search-signature fingerprint binding a checkpoint directory to one
-    exact search. Engine and device type are part of the signature: resume
-    re-runs the tail on the engine and device the head ran on (degradation
-    within a run is fine — engines are byte-identical — but resuming under
-    another engine= or device= is a different campaign)."""
+    exact search. Engine, device type and the (shard, chunk_size) shape are
+    part of the signature: resume re-runs the tail on the engine and device
+    the head ran on, cut the same way (degradation within a run is fine —
+    engines are byte-identical — but resuming under another engine=,
+    device= or shard= is a different campaign)."""
     return _fingerprint(tag=tag, wl=wl.name, gemms=wl.gemm_array,
                         act=int(wl.max_act_bytes), cons=repr(constraints),
                         engine=engine, c=repr(c), device=device.type,
-                        chunk=chunk_size, **extra)
+                        shard=shard, chunk=chunk_size, **extra)
 
 
-def _edp_chunk_thunks(chunk, wl, constraints, c, hierarchical, device, best):
+def _edp_chunk_thunks(chunk, wl, constraints, c, hierarchical, device, shard,
+                      best):
     """Byte-identical per-engine evaluations of one streamed EDP chunk for
     the resilient runtime's retry / fallback / quarantine guard. Each
     returns host values, so an attempt ends when its launches have."""
     def cuda():
         carry = best[1] if best[0] is not None else None
         return _edp_chunk_cuda(chunk, wl, constraints, c, hierarchical,
-                               device, carry)
+                               device, shard, carry)
 
     thunks = {"cuda": cuda}
     for eng, fn in EDP_CHUNK_ENGINES.items():
         thunks[eng] = functools.partial(fn, chunk, wl, constraints, c,
-                                        hierarchical, device)
+                                        hierarchical, device, shard)
     return thunks
 
 
 def _search_streamed(grid, wl, constraints, engine, hierarchical, c, device,
-                     chunk_size, rt=None) -> SearchResult:
-    """Chunked min-EDP driver, any engine; under a runtime each chunk is
-    one guarded, checkpointed unit."""
+                     shard, chunk_size, rt=None) -> SearchResult:
+    """Chunked (and sharded) min-EDP driver, any engine; under a runtime
+    each chunk is one guarded, checkpointed unit."""
     t0 = time.perf_counter()
     n = len(grid)
     cs = int(chunk_size) if chunk_size else max(n, 1)
@@ -976,7 +1065,7 @@ def _search_streamed(grid, wl, constraints, engine, hierarchical, c, device,
     fp = None
     if rt is not None:
         fp = _rt_fp("edp_stream", wl, constraints, engine, c, device,
-                    chunk_size, grid=np.ascontiguousarray(grid),
+                    shard, chunk_size, grid=np.ascontiguousarray(grid),
                     hier=bool(hierarchical))
         rec = rt.resume(fp)
         if rec is not None:
@@ -987,7 +1076,7 @@ def _search_streamed(grid, wl, constraints, engine, hierarchical, c, device,
         if u < start:
             continue
         thunks = _edp_chunk_thunks(chunk, wl, constraints, c, hierarchical,
-                                   device, best)
+                                   device, shard, best)
         # The cuda kernel folds the carried best into its own reduction
         # (carry wins ties), so per-chunk launches compose on device.
         row, e, cf, cw = (thunks[engine]() if rt is None
@@ -1003,21 +1092,36 @@ def _search_streamed(grid, wl, constraints, engine, hierarchical, c, device,
 
 
 def _pareto_chunk_python(chunk, wl, constraints, c, hierarchical, device,
-                         objectives):
-    rows, nf, n_wl = _sequential_pareto(chunk, wl, constraints, hierarchical,
-                                        c, objectives)
-    return np.asarray(rows, np.int64).reshape(-1, 5), nf, n_wl
+                         shard, objectives):
+    cands = []
+    nf = n_wl = 0
+    for part in _host_shards(chunk, shard):
+        rows, f, nw = _sequential_pareto(part, wl, constraints, hierarchical,
+                                         c, objectives)
+        cands += list(rows)
+        nf += f
+        n_wl += nw
+    return np.asarray(cands, np.int64).reshape(-1, 5), nf, n_wl
 
 
 def _pareto_chunk_numpy(chunk, wl, constraints, c, hierarchical, device,
-                        objectives):
-    sub, n_wl = _prefiltered(chunk, wl, constraints, c, hierarchical, device)
-    if len(sub) == 0:
-        return np.zeros((0, 5), np.int64), 0, n_wl
-    m = evaluate_grid(sub, wl, c)
-    front, _, nf = _pareto_from_rows(sub, wl, constraints, c, objectives,
-                                     m=m)
-    return front, nf, n_wl
+                        shard, objectives):
+    cands = []
+    nf = n_wl = 0
+    for part in _host_shards(chunk, shard):
+        sub, nw = _prefiltered(part, wl, constraints, c, hierarchical,
+                               device)
+        n_wl += nw
+        if len(sub) == 0:
+            continue
+        m = evaluate_grid(sub, wl, c)
+        front, _, f = _pareto_from_rows(sub, wl, constraints, c, objectives,
+                                        m=m)
+        nf += f
+        cands.append(front)
+    if not cands:
+        return np.zeros((0, 5), np.int64), nf, n_wl
+    return np.concatenate(cands, axis=0), nf, n_wl
 
 
 def _cuda_front_points(rows, wl, c, device, objectives):
@@ -1032,7 +1136,7 @@ def _cuda_front_points(rows, wl, c, device, objectives):
 
 
 def _pareto_chunk_cuda(chunk, wl, constraints, c, hierarchical, device,
-                       objectives, carry_rows):
+                       shard, objectives, carry_rows):
     from ..kernels.ops import dse_pareto_multi
     sub, n_wl = _prefiltered(chunk, wl, constraints, c, hierarchical, device)
     if len(sub) == 0:
@@ -1043,16 +1147,23 @@ def _pareto_chunk_cuda(chunk, wl, constraints, c, hierarchical, device,
                                            objectives)]
     (idx, nf, n_over), = dse_pareto_multi(sub, [wl], [constraints], c,
                                           device, objectives=objectives,
+                                          shard=shard,
                                           carry_points=carry_points)
     return sub[idx], nf, n_wl, n_over
 
 
 def _pareto_chunk_torch(chunk, wl, constraints, c, hierarchical, device,
-                        objectives):
+                        shard, objectives):
     sub, n_wl = _prefiltered(chunk, wl, constraints, c, hierarchical, device)
     if len(sub) == 0:
         return np.zeros((0, 5), np.int64), 0, n_wl
-    mask, nf = _torch_pareto_fn(sub, wl, constraints, c, device, objectives)
+    mesh = shard_mesh(shard, device)
+    if mesh is not None:
+        mask, nf = _torch_sharded_pareto_mask(sub, wl, constraints, c, mesh,
+                                              objectives)
+    else:
+        mask, nf = _torch_pareto_fn(sub, wl, constraints, c, device,
+                                    objectives)
     return sub[mask], nf, n_wl
 
 
@@ -1068,12 +1179,12 @@ def _empty_run_state():
 
 def _merge_running_front(run_rows, run_met, cand_rows, wl, constraints, c,
                          objectives):
-    """Fold one chunk's candidate rows into the bounded running frontier:
-    refine the candidates through the float64 reference model, then keep
-    the non-dominated union (`pareto.merge_fronts` — exact ties kept, so
-    duplicate grid rows survive streaming like they survive the one-shot
-    sweep). A strictly dominated point can never re-enter, so dropping it
-    is exact."""
+    """Fold one chunk's (or shard's) candidate rows into the bounded
+    running frontier: refine the candidates through the float64 reference
+    model, then keep the non-dominated union (`pareto.merge_fronts` — exact
+    ties kept, so duplicate grid rows survive streaming like they survive
+    the one-shot sweep). A strictly dominated point can never re-enter, so
+    dropping it is exact."""
     from .pareto import merge_fronts
     front_c, met_c, _ = _pareto_from_rows(cand_rows, wl, constraints, c,
                                           objectives)
@@ -1101,16 +1212,17 @@ def _front_result(run_rows, run_met, wl, constraints, c, objectives,
 
 
 def _pareto_chunk_thunks(chunk, wl, constraints, c, hierarchical, device,
-                         objectives, run_rows):
+                         shard, objectives, run_rows):
     """Per-engine streamed-frontier chunk evaluations, normalized to
     (cand_rows, n_feasible, n_wl, n_overflow) for the runtime guard."""
     def cuda():
         return _pareto_chunk_cuda(chunk, wl, constraints, c, hierarchical,
-                                  device, objectives, run_rows)
+                                  device, shard, objectives, run_rows)
 
     def host(eng):
         cand, cf, cw = PARETO_CHUNK_ENGINES[eng](
-            chunk, wl, constraints, c, hierarchical, device, objectives)
+            chunk, wl, constraints, c, hierarchical, device, shard,
+            objectives)
         return cand, cf, cw, 0
 
     thunks = {"cuda": cuda}
@@ -1120,9 +1232,10 @@ def _pareto_chunk_thunks(chunk, wl, constraints, c, hierarchical, device,
 
 
 def _pareto_streamed(grid, wl, constraints, engine, hierarchical, c, device,
-                     objectives, chunk_size, rt=None) -> ParetoResult:
-    """Chunked frontier search, any engine: a running (float64-refined)
-    frontier carried across chunks — into the kernels on cuda."""
+                     objectives, shard, chunk_size, rt=None) -> ParetoResult:
+    """Chunked (and sharded) frontier search, any engine: a running
+    (float64-refined) frontier carried across chunks — into the kernels on
+    cuda."""
     t0 = time.perf_counter()
     n = len(grid)
     cs = int(chunk_size) if chunk_size else max(n, 1)
@@ -1132,7 +1245,7 @@ def _pareto_streamed(grid, wl, constraints, engine, hierarchical, c, device,
     fp = None
     if rt is not None:
         fp = _rt_fp("pareto_stream", wl, constraints, engine, c, device,
-                    chunk_size, grid=np.ascontiguousarray(grid),
+                    shard, chunk_size, grid=np.ascontiguousarray(grid),
                     hier=bool(hierarchical), objectives=tuple(objectives))
         rec = rt.resume(fp)
         if rec is not None:
@@ -1144,7 +1257,7 @@ def _pareto_streamed(grid, wl, constraints, engine, hierarchical, c, device,
         if u < start:
             continue
         thunks = _pareto_chunk_thunks(chunk, wl, constraints, c, hierarchical,
-                                      device, objectives, run_rows)
+                                      device, shard, objectives, run_rows)
         cand, cf, cw, co = (thunks[engine]() if rt is None
                             else rt.eval_unit(engine, thunks, device))
         nf += cf
@@ -1195,6 +1308,21 @@ def _factorized_space(space, grid, n_z, engine, hierarchical
     return fspace
 
 
+def _span_parts(start: int, n: int, shard):
+    """Contiguous sub-spans of [start, start + n) for the host engines'
+    shard split — the sizes of np.array_split, as `_host_shards`."""
+    if not shard or int(shard) <= 1 or n == 0:
+        return [(start, start + n)]
+    k = min(int(shard), n)
+    base, rem = divmod(n, k)
+    parts, s = [], start
+    for i in range(k):
+        size = base + (1 if i < rem else 0)
+        parts.append((s, s + size))
+        s += size
+    return parts
+
+
 def _np_factorized_metrics(fspace, wl, c, start, stop):
     """Float64 factorized metrics for an index span (the whole space goes
     through the index-free broadcast combine)."""
@@ -1228,20 +1356,35 @@ def _edp_from_metrics(m, constraints, index_of):
     return index_of(i), float(edp[i]), int(ok.sum())
 
 
-def _edp_span_numpy_factorized(fspace, wl, constraints, c, start, n):
-    """(best gidx or -1, EDP, n_feasible) over an index span."""
-    m = _np_factorized_metrics(fspace, wl, c, start, start + n)
-    return _edp_from_metrics(m, constraints, lambda i: start + i)
+def _edp_span_numpy_factorized(fspace, wl, constraints, c, start, n,
+                               shard):
+    """(best gidx or -1, EDP, n_feasible) over an index span, split into
+    `shard` host parts."""
+    best = (-1, float("inf"))
+    nf = 0
+    for s0, s1 in _span_parts(start, n, shard):
+        m = _np_factorized_metrics(fspace, wl, c, s0, s1)
+        gi, e, f = _edp_from_metrics(m, constraints, lambda i: s0 + i)
+        nf += f
+        best = _merge_best_indexed(best, (gi, e))
+    return best[0], best[1], nf
 
 
-def _edp_idx_numpy(fspace, wl, constraints, c, idx_arr):
+def _edp_idx_numpy(fspace, wl, constraints, c, idx_arr, shard):
     """(best gidx or -1, EDP, n_feasible) over an explicit ascending
-    flat-index vector, float64 metrics — the numpy bound-guided leaf."""
-    part = np.asarray(idx_arr, np.int64)
-    if len(part) == 0:
-        return -1, float("inf"), 0
-    m = factorized_evaluate_grid(fspace, wl, c, idx=part)
-    return _edp_from_metrics(m, constraints, lambda i: int(part[i]))
+    flat-index vector, float64 metrics, split into `shard` host parts —
+    the numpy bound-guided leaf."""
+    best = (-1, float("inf"))
+    nf = 0
+    for part in _host_shards(np.asarray(idx_arr, np.int64), shard):
+        if len(part) == 0:
+            continue
+        m = factorized_evaluate_grid(fspace, wl, c, idx=part)
+        gi, e, f = _edp_from_metrics(m, constraints,
+                                     lambda i, part=part: int(part[i]))
+        nf += f
+        best = _merge_best_indexed(best, (gi, e))
+    return best[0], best[1], nf
 
 
 def _iter_spans(size: int, chunk_size):
@@ -1250,25 +1393,26 @@ def _iter_spans(size: int, chunk_size):
         yield s, min(cs, size - s)
 
 
-def _edp_span_thunks(fspace, wl, constraints, c, device, s, n, best):
+def _edp_span_thunks(fspace, wl, constraints, c, device, shard, s, n, best):
     """Per-engine factorized EDP span evaluations, normalized to
     (gidx or -1/CARRY_IDX, edp, n_feasible) for the runtime guard."""
     def cuda():
         from ..kernels.ops import dse_search_multi_factorized
         carry = best[1] if best[0] >= 0 else None
         (gi,), (e,), (cf,) = dse_search_multi_factorized(
-            fspace, s, n, [wl], [constraints], c, device,
+            fspace, s, n, [wl], [constraints], c, device, shard=shard,
             carry_edp=None if carry is None else [carry])
         return gi, e, cf
 
     return {"cuda": cuda,
             "torch": functools.partial(_edp_span_torch_factorized, fspace,
-                                       wl, constraints, c, device, s, n),
+                                       wl, constraints, c, device, s, n,
+                                       shard),
             "numpy": functools.partial(_edp_span_numpy_factorized, fspace,
-                                       wl, constraints, c, s, n)}
+                                       wl, constraints, c, s, n, shard)}
 
 
-def _search_factorized(fspace, wl, constraints, engine, c, device,
+def _search_factorized(fspace, wl, constraints, engine, c, device, shard,
                        chunk_size, rt=None) -> SearchResult:
     """Factorized min-EDP driver (one-shot is the single-span case)."""
     t0 = time.perf_counter()
@@ -1277,7 +1421,7 @@ def _search_factorized(fspace, wl, constraints, engine, c, device,
     start = 0
     fp = None
     if rt is not None:
-        fp = _rt_fp("edp_fact", wl, constraints, engine, c, device,
+        fp = _rt_fp("edp_fact", wl, constraints, engine, c, device, shard,
                     chunk_size, axes=fspace.axes)
         rec = rt.resume(fp)
         if rec is not None:
@@ -1287,8 +1431,8 @@ def _search_factorized(fspace, wl, constraints, engine, c, device,
     for u, (s, n) in enumerate(_iter_spans(fspace.size, chunk_size)):
         if u < start:
             continue
-        thunks = _edp_span_thunks(fspace, wl, constraints, c, device, s, n,
-                                  best)
+        thunks = _edp_span_thunks(fspace, wl, constraints, c, device, shard,
+                                  s, n, best)
         gi, e, cf = (thunks[engine]() if rt is None
                      else rt.eval_unit(engine, thunks, device))
         nf += cf
@@ -1316,25 +1460,42 @@ def _front_candidates_of(m, constraints, objectives, index_of):
     return index_of(np.where(ok)[0][pareto_mask(pts)]), f
 
 
-def _pareto_idx_numpy(fspace, wl, constraints, c, idx_arr, objectives):
+def _concat_candidates(cands):
+    return np.concatenate(cands) if cands else np.zeros(0, np.int64)
+
+
+def _pareto_idx_numpy(fspace, wl, constraints, c, idx_arr, shard,
+                      objectives):
     """Frontier candidates (gidx array) + feasible count over an explicit
-    ascending flat-index vector, float64 metrics — the numpy bound-guided
-    leaf."""
-    part = np.asarray(idx_arr, np.int64)
-    if len(part) == 0:
-        return np.zeros(0, np.int64), 0
-    m = factorized_evaluate_grid(fspace, wl, c, idx=part)
-    return _front_candidates_of(m, constraints, objectives,
-                                lambda i: part[i])
+    ascending flat-index vector, float64 metrics, split into `shard` host
+    parts — the numpy bound-guided leaf."""
+    cands = []
+    nf = 0
+    for part in _host_shards(np.asarray(idx_arr, np.int64), shard):
+        if len(part) == 0:
+            continue
+        m = factorized_evaluate_grid(fspace, wl, c, idx=part)
+        cand, f = _front_candidates_of(m, constraints, objectives,
+                                       lambda i, part=part: part[i])
+        nf += f
+        cands.append(cand)
+    return _concat_candidates(cands), nf
 
 
 def _pareto_span_numpy_factorized(fspace, wl, constraints, c, start, n,
-                                  objectives):
-    """(candidate gidx array, n_feasible) over a contiguous index span (the
-    whole-space span takes the index-free broadcast combine)."""
-    m = _np_factorized_metrics(fspace, wl, c, start, start + n)
-    return _front_candidates_of(m, constraints, objectives,
-                                lambda i: start + i)
+                                  shard, objectives):
+    """(candidate gidx array, n_feasible) over a contiguous index span,
+    split into `shard` host parts (the whole-space span takes the
+    index-free broadcast combine)."""
+    cands = []
+    nf = 0
+    for s0, s1 in _span_parts(start, n, shard):
+        m = _np_factorized_metrics(fspace, wl, c, s0, s1)
+        cand, f = _front_candidates_of(m, constraints, objectives,
+                                       lambda i, s0=s0: s0 + i)
+        nf += f
+        cands.append(cand)
+    return _concat_candidates(cands), nf
 
 
 def _torch_space_metrics(fspace, wl, c, device, idx=None):
@@ -1395,9 +1556,25 @@ def _torch_factorized_span_fn(fspace, wl, constraints, c, device, idx,
 
 
 def _torch_factorized_idx_argmin(fspace, wl, constraints, c, device,
-                                 idx_arr):
+                                 idx_arr, shard):
     """(best gidx or -1, its float32 EDP, n_feasible) over an explicit
-    ascending flat-index vector."""
+    ascending flat-index vector; under `shard=` each contiguous slice of
+    the (k-multiple padded) vector reduces on its own device of the mesh
+    and the host combines them (the reference's sharded idx argmin)."""
+    mesh = shard_mesh(shard, device)
+    if mesh is not None:
+        k = len(mesh)
+        idx, valid = _padded_idx_operands(idx_arr, k, "cpu")
+        ss = len(idx) // k
+        parts = []
+        for s, dev in enumerate(mesh):
+            m = _torch_space_metrics(fspace, wl, c, dev,
+                                     idx[s * ss:(s + 1) * ss].to(dev))
+            parts.append(_torch_argmin_t(m, _torch_feasible(
+                m, valid[s * ss:(s + 1) * ss].to(dev),
+                _constraint_vec(constraints, dev))))
+        i, e, nf = _combine_shard_argmins(parts, ss)
+        return (int(idx[i]) if nf > 0 else -1), e, nf
     idx, valid = _padded_idx_operands(idx_arr, 1, device)
     i, e, nf = _torch_factorized_span_fn(fspace, wl, constraints, c, device,
                                          idx, valid, None)
@@ -1407,41 +1584,60 @@ def _torch_factorized_idx_argmin(fspace, wl, constraints, c, device,
 
 
 def _edp_span_torch_factorized(fspace, wl, constraints, c, device, start,
-                               n):
-    """(best gidx or -1, its float32 EDP, n_feasible) over an index span."""
-    if (start, n) == (0, fspace.size):
+                               n, shard):
+    """(best gidx or -1, its float32 EDP, n_feasible) over an index span
+    (the whole unsharded space by the broadcast combine)."""
+    if (start, n) == (0, fspace.size) and shard_mesh(shard, device) is None:
         i, e, nf = _torch_factorized_full_fn(fspace, wl, constraints, c,
                                              device, None)
         return (i if nf > 0 else -1), e, nf
     return _torch_factorized_idx_argmin(
         fspace, wl, constraints, c, device,
-        np.arange(start, start + n, dtype=np.int64))
+        np.arange(start, start + n, dtype=np.int64), shard)
 
 
 def _torch_factorized_idx_mask(fspace, wl, constraints, c, device, idx_arr,
-                               objectives):
+                               shard, objectives):
     """(candidate gidx array, n_feasible) over an explicit ascending
-    flat-index vector; padding lanes are invalid, so never candidates."""
-    idx, valid = _padded_idx_operands(idx_arr, TORCH_PARETO_CHUNK, device)
-    mask, nf = _torch_factorized_span_fn(fspace, wl, constraints, c, device,
-                                         idx, valid, objectives)
-    return idx.cpu().numpy()[mask], nf
+    flat-index vector; padding lanes are invalid, so never candidates.
+    Under `shard=` each slice of k shards of a TORCH_PARETO_CHUNK multiple
+    is scanned on its own device of the mesh."""
+    mesh = shard_mesh(shard, device)
+    if mesh is None:
+        idx, valid = _padded_idx_operands(idx_arr, TORCH_PARETO_CHUNK,
+                                          device)
+        mask, nf = _torch_factorized_span_fn(fspace, wl, constraints, c,
+                                             device, idx, valid, objectives)
+        return idx.cpu().numpy()[mask], nf
+    k = len(mesh)
+    idx, valid = _padded_idx_operands(idx_arr, k * TORCH_PARETO_CHUNK, "cpu")
+    ss = len(idx) // k
+    masks = []
+    nf = 0
+    for s, dev in enumerate(mesh):
+        mask, f = _torch_factorized_span_fn(
+            fspace, wl, constraints, c, dev, idx[s * ss:(s + 1) * ss].to(dev),
+            valid[s * ss:(s + 1) * ss].to(dev), objectives)
+        masks.append(mask)
+        nf += f
+    return idx.numpy()[np.concatenate(masks)], nf
 
 
 def _pareto_span_torch_factorized(fspace, wl, constraints, c, device, start,
-                                  n, objectives):
-    """(candidate gidx array, n_feasible) over an index span."""
-    if (start, n) == (0, fspace.size):
+                                  n, shard, objectives):
+    """(candidate gidx array, n_feasible) over an index span (the whole
+    unsharded space by the broadcast combine)."""
+    if (start, n) == (0, fspace.size) and shard_mesh(shard, device) is None:
         mask, nf = _torch_factorized_full_fn(fspace, wl, constraints, c,
                                              device, objectives)
         return np.nonzero(mask)[0], nf
     return _torch_factorized_idx_mask(
         fspace, wl, constraints, c, device,
-        np.arange(start, start + n, dtype=np.int64), objectives)
+        np.arange(start, start + n, dtype=np.int64), shard, objectives)
 
 
-def _pareto_span_thunks(fspace, wl, constraints, c, device, objectives, s,
-                        n, run_rows):
+def _pareto_span_thunks(fspace, wl, constraints, c, device, objectives,
+                        shard, s, n, run_rows):
     """Per-engine factorized frontier span evaluations, normalized to
     (candidate gidx array, n_feasible, n_overflow)."""
     def cuda():
@@ -1452,24 +1648,26 @@ def _pareto_span_thunks(fspace, wl, constraints, c, device, objectives, s,
                                                objectives)]
         (idx, cf, co), = dse_pareto_multi_factorized(
             fspace, s, n, [wl], [constraints], c, device,
-            objectives=objectives, carry_points=carry_points)
+            objectives=objectives, shard=shard, carry_points=carry_points)
         return idx, cf, co
 
     def torch_():
         idx, cf = _pareto_span_torch_factorized(fspace, wl, constraints, c,
-                                                device, s, n, objectives)
+                                                device, s, n, shard,
+                                                objectives)
         return idx, cf, 0
 
     def numpy_():
         idx, cf = _pareto_span_numpy_factorized(fspace, wl, constraints, c,
-                                                s, n, objectives)
+                                                s, n, shard, objectives)
         return idx, cf, 0
 
     return {"cuda": cuda, "torch": torch_, "numpy": numpy_}
 
 
 def _pareto_factorized(fspace, wl, constraints, engine, c, device,
-                       objectives, chunk_size, rt=None) -> ParetoResult:
+                       objectives, shard, chunk_size, rt=None
+                       ) -> ParetoResult:
     """Factorized frontier search (one-shot is the single-span case): a
     running frontier across spans, carried into the kernel on cuda."""
     t0 = time.perf_counter()
@@ -1479,7 +1677,7 @@ def _pareto_factorized(fspace, wl, constraints, engine, c, device,
     fp = None
     if rt is not None:
         fp = _rt_fp("pareto_fact", wl, constraints, engine, c, device,
-                    chunk_size, axes=fspace.axes,
+                    shard, chunk_size, axes=fspace.axes,
                     objectives=tuple(objectives))
         rec = rt.resume(fp)
         if rec is not None:
@@ -1491,7 +1689,7 @@ def _pareto_factorized(fspace, wl, constraints, engine, c, device,
         if u < start:
             continue
         thunks = _pareto_span_thunks(fspace, wl, constraints, c, device,
-                                     objectives, s, n, run_rows)
+                                     objectives, shard, s, n, run_rows)
         idx, cf, co = (thunks[engine]() if rt is None
                        else rt.eval_unit(engine, thunks, device))
         nf += cf
@@ -1734,16 +1932,17 @@ def _bnb_leaf_items(fspace, ranges, chunk_size):
 
 
 def _bnb_eval_edp(engine, fspace, wl, constraints, c, device, ranges_list,
-                  chunk_size):
+                  shard, chunk_size):
     """(best gidx or -1, its engine EDP, n_feasible) over one batch of leaf
     slabs.
 
-    numpy evaluates the batch's ascending index vector (chunked by
-    `chunk_size`). cuda picks its launch form per batch: coarse slabs (the
-    probe phase) go through the decoded span-list driver — one decoded
-    launch per leaf over its bounding span, the slab meta masking
-    non-members — while batches of fine refined slabs materialize just the
-    survivor rows for the grid-operand kernel, one launch per chunk."""
+    numpy and torch evaluate the batch's ascending index vector (chunked by
+    `chunk_size`, fanned out by `shard`). cuda picks its launch form per
+    batch: coarse slabs (the probe phase) go through the decoded span-list
+    driver — one decoded launch per leaf over its bounding span, the slab
+    meta masking non-members — while batches of fine refined slabs
+    materialize just the survivor rows for the grid-operand kernel, one
+    launch per chunk (per shard under `shard=`)."""
     from .factorized import slab_indices_batch
     best = (-1, float("inf"))
     nf = 0
@@ -1752,7 +1951,7 @@ def _bnb_eval_edp(engine, fspace, wl, constraints, c, device, ranges_list,
         for ranges in ranges_list:
             items = _bnb_leaf_items(fspace, ranges, chunk_size)
             bi, be, bn = dse_search_spans_factorized(
-                fspace, items, [wl], [constraints], c, device)
+                fspace, items, [wl], [constraints], c, device, shard=shard)
             nf += int(bn[0])
             best = _merge_best_indexed(best, (int(bi[0]), float(be[0])))
         return best[0], best[1], nf
@@ -1764,21 +1963,22 @@ def _bnb_eval_edp(engine, fspace, wl, constraints, c, device, ranges_list,
             from ..kernels.ops import dse_search_multi
             rows = fspace.decode(part)
             (bi,), (be,), (bn,) = dse_search_multi(
-                rows, [wl], [constraints], c, device)
+                rows, [wl], [constraints], c, device, shard=shard)
             gi, e, f = (int(part[bi]) if bi >= 0 else -1), float(be), \
                 int(bn)
         elif engine == "torch":
             gi, e, f = _torch_factorized_idx_argmin(fspace, wl, constraints,
-                                                    c, device, part)
+                                                    c, device, part, shard)
         else:
-            gi, e, f = _edp_idx_numpy(fspace, wl, constraints, c, part)
+            gi, e, f = _edp_idx_numpy(fspace, wl, constraints, c, part,
+                                      shard)
         nf += f
         best = _merge_best_indexed(best, (gi, e))
     return best[0], best[1], nf
 
 
 def _bnb_eval_pareto(engine, fspace, wl, constraints, c, device,
-                     ranges_list, chunk_size, objectives, run_rows):
+                     ranges_list, shard, chunk_size, objectives, run_rows):
     """(candidate gidx array, n_feasible, n_overflow) over one batch of leaf
     slabs; launch forms as in `_bnb_eval_edp`, with the running frontier
     carried into every cuda launch."""
@@ -1795,7 +1995,8 @@ def _bnb_eval_pareto(engine, fspace, wl, constraints, c, device,
             items = _bnb_leaf_items(fspace, ranges, chunk_size)
             (idx, f, o), = dse_pareto_spans_factorized(
                 fspace, items, [wl], [constraints], c, device,
-                objectives=objectives, carry_points=carry_points)
+                objectives=objectives, shard=shard,
+                carry_points=carry_points)
             nf += f
             n_over += o
             if len(idx):
@@ -1810,15 +2011,17 @@ def _bnb_eval_pareto(engine, fspace, wl, constraints, c, device,
             from ..kernels.ops import dse_pareto_multi
             (local, f, o), = dse_pareto_multi(
                 fspace.decode(part), [wl], [constraints], c, device,
-                objectives=objectives, carry_points=carry_points)
+                objectives=objectives, shard=shard,
+                carry_points=carry_points)
             cand = part[local]
             n_over += o
         elif engine == "torch":
             cand, f = _torch_factorized_idx_mask(fspace, wl, constraints, c,
-                                                 device, part, objectives)
+                                                 device, part, shard,
+                                                 objectives)
         else:
             cand, f = _pareto_idx_numpy(fspace, wl, constraints, c, part,
-                                        objectives)
+                                        shard, objectives)
         nf += f
         if len(cand):
             cands.append(cand)
@@ -1833,7 +2036,7 @@ def _bnb_thunks(run):
 
 
 def _search_factorized_bnb(fspace, wl, constraints, engine, c, device,
-                           chunk_size, rt=None, led=None,
+                           shard, chunk_size, rt=None, led=None,
                            warm=None, executor=None) -> SearchResult:
     """Bound-guided min-EDP driver.
 
@@ -1875,7 +2078,7 @@ def _search_factorized_bnb(fspace, wl, constraints, engine, c, device,
     fp = None
     rec = None
     if rt is not None:
-        fp = _rt_fp("edp_bnb", wl, constraints, engine, c, device,
+        fp = _rt_fp("edp_bnb", wl, constraints, engine, c, device, shard,
                     chunk_size, axes=fspace.axes, leaf=BNB_LEAF,
                     batch=BNB_BATCH, fine=BNB_FINE)
         rec = rt.resume(fp)
@@ -1916,7 +2119,7 @@ def _search_factorized_bnb(fspace, wl, constraints, engine, c, device,
             if executor is not None:
                 return executor.eval_edp(eng, ranges_list)
             return _bnb_eval_edp(eng, fspace, wl, constraints, c, device,
-                                 ranges_list, chunk_size)
+                                 ranges_list, shard, chunk_size)
 
         gi, e, f = (run(engine) if rt is None
                     else rt.eval_unit(engine, _bnb_thunks(run), device))
@@ -2010,7 +2213,7 @@ def _search_factorized_bnb(fspace, wl, constraints, engine, c, device,
 
 
 def _pareto_factorized_bnb(fspace, wl, constraints, engine, c, device,
-                           objectives, chunk_size, rt=None, led=None,
+                           objectives, shard, chunk_size, rt=None, led=None,
                            warm=None, executor=None) -> ParetoResult:
     """Bound-guided frontier search: probe the objective-sorted leaves to
     seed the running (float64-refined) frontier, refine the remainder
@@ -2034,7 +2237,7 @@ def _pareto_factorized_bnb(fspace, wl, constraints, engine, c, device,
     rec = None
     if rt is not None:
         fp = _rt_fp("pareto_bnb", wl, constraints, engine, c, device,
-                    chunk_size, axes=fspace.axes,
+                    shard, chunk_size, axes=fspace.axes,
                     objectives=tuple(objectives), leaf=BNB_LEAF,
                     batch=BNB_BATCH, fine=BNB_FINE)
         rec = rt.resume(fp)
@@ -2079,8 +2282,8 @@ def _pareto_factorized_bnb(fspace, wl, constraints, engine, c, device,
             if executor is not None:
                 return executor.eval_pareto(eng, ranges_list, state["rows"])
             return _bnb_eval_pareto(eng, fspace, wl, constraints, c, device,
-                                    ranges_list, chunk_size, objectives,
-                                    state["rows"])
+                                    ranges_list, shard, chunk_size,
+                                    objectives, state["rows"])
 
         idx, f, o = (run(engine) if rt is None
                      else rt.eval_unit(engine, _bnb_thunks(run), device))
@@ -2168,7 +2371,7 @@ def _pareto_factorized_bnb(fspace, wl, constraints, engine, c, device,
 
 
 def _workloads_cuda_factorized(wls, names, cons_for, fspace, c, device,
-                               objective, metrics, chunk_size):
+                               objective, metrics, shard, chunk_size):
     """Batched factorized driver: every span is one all-workloads decoded
     launch, with per-workload carries (best EDP / running front) between
     spans."""
@@ -2185,7 +2388,7 @@ def _workloads_cuda_factorized(wls, names, cons_for, fspace, c, device,
             n_wl += n
             carry = [best[nm][1] for nm in names]
             bi, be, bn = dse_search_multi_factorized(
-                fspace, s, n, wl_list, cons_list, c, device,
+                fspace, s, n, wl_list, cons_list, c, device, shard=shard,
                 carry_edp=carry)
             for nm, i, e, f in zip(names, bi, be, bn):
                 nf[nm] += f
@@ -2207,7 +2410,7 @@ def _workloads_cuda_factorized(wls, names, cons_for, fspace, c, device,
             for nm in names]
         per_wl = dse_pareto_multi_factorized(
             fspace, s, n, wl_list, cons_list, c, device, objectives=metrics,
-            carry_points=carry_points)
+            shard=shard, carry_points=carry_points)
         for nm, (idx, f, o) in zip(names, per_wl):
             nf[nm] += f
             n_over[nm] += o
@@ -2222,8 +2425,8 @@ def _workloads_cuda_factorized(wls, names, cons_for, fspace, c, device,
             for nm in names}
 
 
-def _check_later_args(engine, shard):
-    """Refuse what the JAX package supports beyond these slices."""
+def _check_engine(engine):
+    """Refuse an unknown engine, naming `torch` for the reference's jax."""
     if engine == "jax":
         raise ValueError("engine='jax' is the reference's jit-compiled "
                          "engine; repro_torch's counterpart is "
@@ -2232,10 +2435,6 @@ def _check_later_args(engine, shard):
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; pick from "
                          f"{sorted(ENGINES)}")
-    if shard is not None and int(shard) < 1:
-        raise ValueError(f"shard must be >= 1, got {shard!r}")
-    if shard not in (None, 1):
-        raise _not_ported("shard", shard)
 
 
 def _check_workers_arg(workers, prune) -> Optional[int]:
@@ -2280,7 +2479,9 @@ def _check_pareto_metrics(engine: str, pareto_metrics) -> tuple:
     return metrics
 
 
-def _check_stream_args(chunk_size):
+def _check_stream_args(shard, chunk_size):
+    if shard is not None and int(shard) < 1:
+        raise ValueError(f"shard must be >= 1, got {shard!r}")
     if chunk_size is not None and int(chunk_size) < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size!r}")
 
@@ -2524,6 +2725,13 @@ def search(wl: Workload, constraints: Constraints = Constraints(), *,
       pareto_metrics: objectives minimized in "pareto" mode, a subset of
         REPORT_METRICS (the cuda kernels model all but "util"; torch
         models all six).
+      shard: fan each evaluation out over up to `shard` devices of the
+        candidate mesh (`launch.mesh.make_candidate_mesh`): on cuda and
+        torch one contiguous slice of the candidates a card, clamped to the
+        cards present (one device on the CPU); python and numpy split as
+        many ways on the host at any device count. Any (shard, chunk_size)
+        is byte-identical to the one-shot sweep; a checkpoint is bound to
+        its (shard, chunk_size).
       chunk_size: stream the grid (or index space) in chunks of this many
         candidates with a running argmin / frontier carried across chunks.
       factorized: evaluate a *product space* (`space=`, default the full
@@ -2576,12 +2784,10 @@ def search(wl: Workload, constraints: Constraints = Constraints(), *,
         The degenerate calibration returns an uncalibrated search's bytes.
         Calibrations with uncertified varying fields take a conservative
         host-side vertex sweep (which rejects prune/runtime/keep_ledger).
-      shard: accepted for signature parity with `repro`; shard > 1 raises
-        NotImplementedError naming the ROADMAP item that ports it.
     """
     dev = resolve_device(device)
-    _check_later_args(engine, shard)
-    _check_stream_args(chunk_size)
+    _check_engine(engine)
+    _check_stream_args(shard, chunk_size)
     _check_prune_arg(prune, factorized)
     _check_ledger_arg(keep_ledger, prune)
     workers = _check_workers_arg(workers, prune)
@@ -2627,22 +2833,22 @@ def _search_impl(wl, constraints, engine, grid, n_z, hierarchical, c, dev,
         if workers is not None:
             from ..parallel.slab_sched import parallel_bnb
             return parallel_bnb(fspace, wl, constraints, engine, c, dev,
-                                chunk_size, objective=objective,
+                                shard, chunk_size, objective=objective,
                                 metrics=metrics, workers=workers,
                                 deterministic=deterministic, rt=rt, led=led)
         if metrics is None:
             if prune == "bound":
                 return _search_factorized_bnb(fspace, wl, constraints,
-                                              engine, c, dev, chunk_size,
-                                              rt, led)
+                                              engine, c, dev, shard,
+                                              chunk_size, rt, led)
             return _search_factorized(fspace, wl, constraints, engine, c,
-                                      dev, chunk_size, rt)
+                                      dev, shard, chunk_size, rt)
         if prune == "bound":
             return _pareto_factorized_bnb(fspace, wl, constraints, engine,
-                                          c, dev, metrics, chunk_size, rt,
-                                          led)
+                                          c, dev, metrics, shard, chunk_size,
+                                          rt, led)
         return _pareto_factorized(fspace, wl, constraints, engine, c, dev,
-                                  metrics, chunk_size, rt)
+                                  metrics, shard, chunk_size, rt)
     if space is not None:
         raise ValueError("space= requires factorized=True (pass grid= for "
                          "materialized candidate sets)")
@@ -2655,11 +2861,12 @@ def _search_impl(wl, constraints, engine, grid, n_z, hierarchical, c, dev,
     if metrics is None:
         if streamed:
             return _search_streamed(grid, wl, constraints, engine,
-                                    hierarchical, c, dev, chunk_size, rt)
+                                    hierarchical, c, dev, shard, chunk_size,
+                                    rt)
         return ENGINES[engine](grid, wl, constraints, c, hierarchical, dev)
     if streamed:
         return _pareto_streamed(grid, wl, constraints, engine, hierarchical,
-                                c, dev, metrics, chunk_size, rt)
+                                c, dev, metrics, shard, chunk_size, rt)
     return PARETO_ENGINES[engine](grid, wl, constraints, c, hierarchical,
                                   dev, metrics)
 
@@ -2678,9 +2885,10 @@ def _union_prefiltered(chunk, wls, names, cons_for, c, hierarchical, device):
 
 
 def _workloads_cuda_streamed(wls, names, cons_for, grid, hierarchical, c,
-                             device, objective, metrics, chunk_size):
-    """Chunked batched driver: each chunk is one all-workloads launch, with
-    per-workload carries (best EDP / running front) between launches."""
+                             device, objective, metrics, shard, chunk_size):
+    """Chunked (and sharded) batched driver: each chunk is one
+    all-workloads launch (one per shard), with per-workload carries (best
+    EDP / running front) between launches."""
     from ..kernels.ops import dse_pareto_multi, dse_search_multi
     t0 = time.perf_counter()
     n = len(grid)
@@ -2699,7 +2907,7 @@ def _workloads_cuda_streamed(wls, names, cons_for, grid, hierarchical, c,
                 continue
             carry = [best[nm][1] for nm in names]
             bi, be, bn = dse_search_multi(sub, wl_list, cons_list, c, device,
-                                          carry_edp=carry)
+                                          shard=shard, carry_edp=carry)
             for nm, i, e, f in zip(names, bi, be, bn):
                 nf[nm] += f
                 if i >= 0:
@@ -2723,7 +2931,7 @@ def _workloads_cuda_streamed(wls, names, cons_for, grid, hierarchical, c,
             if len(run[nm][0]) else None
             for nm in names]
         per_wl = dse_pareto_multi(sub, wl_list, cons_list, c, device,
-                                  objectives=metrics,
+                                  objectives=metrics, shard=shard,
                                   carry_points=carry_points)
         for nm, (cand_idx, f, o) in zip(names, per_wl):
             nf[nm] += f
@@ -2766,7 +2974,8 @@ def search_workloads(wls: Union[Mapping[str, Workload], Sequence[Workload]],
     objective="edp", the frontier kernel for objective="pareto"; other
     engines loop per workload. With `hierarchical=True` the compacted grid
     is the union of the per-workload area/power survivor sets.
-    `chunk_size=` streams, each chunk one all-workloads launch;
+    `chunk_size=` streams, each chunk one all-workloads launch (one per
+    shard under `shard=`);
     `factorized=True` decodes the product `space` on device;
     `prune="bound"` runs the branch-and-bound search per workload. Each
     result reports the whole batch's wall time.
@@ -2786,8 +2995,8 @@ def search_workloads(wls: Union[Mapping[str, Workload], Sequence[Workload]],
     dev = resolve_device(device)
     if not isinstance(wls, Mapping):
         wls = {wl.name: wl for wl in wls}
-    _check_later_args(engine, shard)
-    _check_stream_args(chunk_size)
+    _check_engine(engine)
+    _check_stream_args(shard, chunk_size)
     _check_prune_arg(prune, factorized)
     _check_ledger_arg(keep_ledger, prune)
     workers = _check_workers_arg(workers, prune)
@@ -2867,7 +3076,8 @@ def _search_workloads_impl(wls, cons_for, engine, grid, n_z, hierarchical,
         fspace = _factorized_space(space, grid, n_z, engine, hierarchical)
         return _workloads_cuda_factorized(
             wls, list(wls), cons_for, fspace, c, dev, objective,
-            _check_objective(objective, engine, pareto_metrics), chunk_size)
+            _check_objective(objective, engine, pareto_metrics), shard,
+            chunk_size)
     if engine != "cuda" or rt0 is not None:
         # The runtime always takes the per-workload loop: the fused batched
         # launches return byte-identical results, and per-workload
@@ -2886,7 +3096,7 @@ def _search_workloads_impl(wls, cons_for, engine, grid, n_z, hierarchical,
     if shard is not None or chunk_size is not None:
         return _workloads_cuda_streamed(wls, names, cons_for, grid,
                                         hierarchical, c, dev, objective,
-                                        metrics, chunk_size)
+                                        metrics, shard, chunk_size)
 
     t0 = time.perf_counter()
     sub = _union_prefiltered(grid, wls, names, cons_for, c, hierarchical,

@@ -483,6 +483,16 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+def _launch(device: torch.device, entry: str, *args) -> int:
+    """Call the C entry point `entry` with `args` and the stream of
+    `device`, with `device` current: the entry points read the SM count of,
+    and set kernel attributes on, the current device, and a sharded search
+    launches each shard on the card its operands lie on."""
+    from ._build import load_library
+    with torch.cuda.device(device):
+        return getattr(load_library(), entry)(*args, _stream())
+
+
 class KernelLaunchError(RuntimeError):
     """A hand-written kernel's launch returned a CUDA error. The resilient
     runtime retries it; a bare RuntimeError, a programming error, it never
@@ -529,15 +539,15 @@ def dse_eval_padded(cfg_cols: torch.Tensor, *, gemms: tuple,
         return dse_eval_padded_plain(cfg_cols, gemms=gemms,
                                      wl_scalars=wl_scalars,
                                      constants=constants)
-    from ._build import count_launch, load_library
+    from ._build import count_launch
     _require([cfg_cols], [torch.float32], "dse_eval_padded")
     g = cfg_cols.shape[1]
     params = _device_params(((gemms, wl_scalars),), constants,
                             cfg_cols.device)
     out = torch.empty((4, g), dtype=torch.float32, device=cfg_cols.device)
-    rc = load_library().dse_eval_launch(
-        _ptr(cfg_cols), _ptr(out), ctypes.c_int(g), _ptr(params),
-        ctypes.c_int(params.numel()), _stream())
+    rc = _launch(cfg_cols.device, "dse_eval_launch",
+                 _ptr(cfg_cols), _ptr(out), ctypes.c_int(g), _ptr(params),
+                 ctypes.c_int(params.numel()))
     _check(rc, "dse_eval_padded")
     count_launch(LAUNCHES, "dse_eval_padded")
     return out
@@ -558,7 +568,7 @@ def dse_search_padded(cfg_cols, mask, cons, carry, *, workloads: tuple,
         return dse_search_padded_plain(cfg_cols, mask, cons, carry,
                                        workloads=workloads,
                                        constants=constants)
-    from ._build import count_launch, load_library
+    from ._build import count_launch
     _require([cfg_cols, mask, cons, carry], [torch.float32] * 4,
              "dse_search_padded")
     g = cfg_cols.shape[1]
@@ -569,10 +579,10 @@ def dse_search_padded(cfg_cols, mask, cons, carry, *, workloads: tuple,
     params = _device_params(workloads, constants, cfg_cols.device)
     out = torch.empty((SEARCH_ROWS * w, n_blocks), dtype=torch.float32,
                       device=cfg_cols.device)
-    rc = load_library().dse_search_padded_launch(
-        _ptr(cfg_cols), _ptr(mask), ctypes.c_int(g), _ptr(cons),
-        _ptr(carry), _ptr(params), ctypes.c_int(params.numel()), _ptr(out),
-        ctypes.c_int(n_blocks), _stream())
+    rc = _launch(cfg_cols.device, "dse_search_padded_launch",
+                 _ptr(cfg_cols), _ptr(mask), ctypes.c_int(g), _ptr(cons),
+                 _ptr(carry), _ptr(params), ctypes.c_int(params.numel()),
+                 _ptr(out), ctypes.c_int(n_blocks))
     _check(rc, "dse_search_padded")
     count_launch(LAUNCHES, "dse_search_padded")
     return out
@@ -591,7 +601,7 @@ def dse_search_decoded(axes, meta, cons, carry, *, radices: tuple,
                                         radices=radices, n_blocks=n_blocks,
                                         workloads=workloads,
                                         constants=constants)
-    from ._build import count_launch, load_library
+    from ._build import count_launch
     _require([axes, meta, cons, carry],
              [torch.float32, torch.int32, torch.float32, torch.float32],
              "dse_search_decoded")
@@ -602,11 +612,11 @@ def dse_search_decoded(axes, meta, cons, carry, *, radices: tuple,
     params = _device_params(workloads, constants, axes.device)
     out = torch.empty((SEARCH_ROWS * w, n_blocks), dtype=torch.float32,
                       device=axes.device)
-    rc = load_library().dse_search_decoded_launch(
-        _ptr(axes), ctypes.c_int(axes.shape[1]), _ptr(meta),
-        *_radix_args(radices, axes), _ptr(cons), _ptr(carry), _ptr(params),
-        ctypes.c_int(params.numel()), _ptr(out), ctypes.c_int(n_blocks),
-        _stream())
+    rc = _launch(axes.device, "dse_search_decoded_launch",
+                 _ptr(axes), ctypes.c_int(axes.shape[1]), _ptr(meta),
+                 *_radix_args(radices, axes), _ptr(cons), _ptr(carry),
+                 _ptr(params), ctypes.c_int(params.numel()), _ptr(out),
+                 ctypes.c_int(n_blocks))
     _check(rc, "dse_search_decoded")
     count_launch(LAUNCHES, "dse_search_decoded")
     return out
@@ -620,16 +630,16 @@ def dse_decode_rows(axes, meta, *, radices: tuple,
     if not axes.is_cuda:
         return dse_decode_rows_plain(axes, meta, radices=radices,
                                      n_blocks=n_blocks)
-    from ._build import count_launch, load_library
+    from ._build import count_launch
     _require([axes, meta], [torch.float32, torch.int32], "dse_decode_rows")
     if meta.shape != (META_COLS,):
         raise ValueError("dse_decode_rows: meta must be (META_COLS,) int32")
     out = torch.empty((6, n_blocks * BLOCK), dtype=torch.float32,
                       device=axes.device)
-    rc = load_library().dse_decode_rows_launch(
-        _ptr(axes), ctypes.c_int(axes.shape[1]), _ptr(meta),
-        *_radix_args(radices, axes), _ptr(out), ctypes.c_int(n_blocks),
-        _stream())
+    rc = _launch(axes.device, "dse_decode_rows_launch",
+                 _ptr(axes), ctypes.c_int(axes.shape[1]), _ptr(meta),
+                 *_radix_args(radices, axes), _ptr(out),
+                 ctypes.c_int(n_blocks))
     _check(rc, "dse_decode_rows")
     count_launch(LAUNCHES, "dse_decode_rows")
     return out
@@ -668,7 +678,7 @@ def dse_pareto_padded(cfg_cols, mask, cons, carry, *, workloads: tuple,
                                        objectives=objectives,
                                        has_carry=has_carry,
                                        constants=constants)
-    from ._build import count_launch, load_library
+    from ._build import count_launch
     _require([cfg_cols, mask, cons, carry], [torch.float32] * 4,
              "dse_pareto_padded")
     g = cfg_cols.shape[1]
@@ -680,10 +690,11 @@ def dse_pareto_padded(cfg_cols, mask, cons, carry, *, workloads: tuple,
     params = _device_params(workloads, constants, cfg_cols.device)
     out = torch.empty((PARETO_ROWS * w, n_blocks), dtype=torch.float32,
                       device=cfg_cols.device)
-    rc = load_library().dse_pareto_padded_launch(
-        _ptr(cfg_cols), _ptr(mask), ctypes.c_int(g), _ptr(cons),
-        _ptr(carry), *obj_args, _ptr(params), ctypes.c_int(params.numel()),
-        _ptr(out), ctypes.c_int(n_blocks), _stream())
+    rc = _launch(cfg_cols.device, "dse_pareto_padded_launch",
+                 _ptr(cfg_cols), _ptr(mask), ctypes.c_int(g), _ptr(cons),
+                 _ptr(carry), *obj_args, _ptr(params),
+                 ctypes.c_int(params.numel()), _ptr(out),
+                 ctypes.c_int(n_blocks))
     _check(rc, "dse_pareto_padded")
     count_launch(LAUNCHES, "dse_pareto_padded")
     return out
@@ -704,7 +715,7 @@ def dse_pareto_decoded(axes, meta, cons, carry, *, radices: tuple,
                                         objectives=objectives,
                                         has_carry=has_carry,
                                         constants=constants)
-    from ._build import count_launch, load_library
+    from ._build import count_launch
     _require([axes, meta, cons, carry],
              [torch.float32, torch.int32, torch.float32, torch.float32],
              "dse_pareto_decoded")
@@ -715,11 +726,11 @@ def dse_pareto_decoded(axes, meta, cons, carry, *, radices: tuple,
     params = _device_params(workloads, constants, axes.device)
     out = torch.empty((PARETO_ROWS * w, n_blocks), dtype=torch.float32,
                       device=axes.device)
-    rc = load_library().dse_pareto_decoded_launch(
-        _ptr(axes), ctypes.c_int(axes.shape[1]), _ptr(meta),
-        *_radix_args(radices, axes), _ptr(cons), _ptr(carry), *obj_args,
-        _ptr(params), ctypes.c_int(params.numel()), _ptr(out),
-        ctypes.c_int(n_blocks), _stream())
+    rc = _launch(axes.device, "dse_pareto_decoded_launch",
+                 _ptr(axes), ctypes.c_int(axes.shape[1]), _ptr(meta),
+                 *_radix_args(radices, axes), _ptr(cons), _ptr(carry),
+                 *obj_args, _ptr(params), ctypes.c_int(params.numel()),
+                 _ptr(out), ctypes.c_int(n_blocks))
     _check(rc, "dse_pareto_decoded")
     count_launch(LAUNCHES, "dse_pareto_decoded")
     return out

@@ -22,9 +22,21 @@ runs their plain PyTorch versions (see `kernels/dse_eval.py`). The LM
 wrappers run where their tensor operands lie; numpy operands go to
 `device=` ("cuda" unless the caller names another). The reference's
 power-of-two bucketing of launch widths existed only to bound JAX's jit
-cache; the port launches exactly ceil(G / block) blocks, which returns the
-same wrapper-level results (extra blocks are all-invalid and reduce to the
-carry).
+cache; the port's unsharded launches run exactly ceil(G / block) blocks,
+which returns the same wrapper-level results (extra blocks are all-invalid
+and reduce to the carry).
+
+`shard=N` on the search and frontier wrappers (kernels 2, 3, 5 and 6) fans
+the candidates out over the candidate mesh (`launch.mesh.shard_mesh`: up to
+N cards, one device on the CPU): each shard is one launch on its own
+device, and the per-block columns come back to the host in shard order.
+The sharded layout is the reference's `shard_map` layout, block for block:
+padded launches take a power-of-two block count per shard with no floor,
+and return shard-local indices that the host rebases in int64; decoded
+launches take ceil(count / k) lanes per shard bucketed to a power of two,
+and emit global indices from each shard's base in its meta row. The
+`_sharded_*` launchers take the device tuple itself, so the k-shard layout
+also runs on one device given k times.
 """
 from __future__ import annotations
 
@@ -41,6 +53,7 @@ from ..core.factorized import decode_digits, full_ranges
 from ..core.performance_model import workload_statics
 from ..core.photonic_model import CONSTANTS, DeviceConstants
 from ..core.workload import Workload
+from ..launch.mesh import shard_mesh
 from . import ddot_gemm as _ddot
 from . import dse_eval as _dse
 from .flash_attention import flash_attention_bhsd
@@ -66,21 +79,21 @@ def dse_eval_grid(grid: np.ndarray, wl: Workload,
     return out.cpu().numpy().T
 
 
-def _constraint_rows(constraints_seq, device) -> torch.Tensor:
-    return torch.tensor([[cc.area_mm2, cc.power_w, cc.energy_j, cc.latency_s]
-                         for cc in constraints_seq], dtype=torch.float32,
-                        device=device)
+def _constraint_rows(constraints_seq) -> np.ndarray:
+    """(W, 4) float32 [area, power, energy, latency] bounds."""
+    return np.asarray([[cc.area_mm2, cc.power_w, cc.energy_j, cc.latency_s]
+                       for cc in constraints_seq], np.float32)
 
 
-def _search_carry_rows(carry_edp, w: int, device) -> torch.Tensor:
+def _search_carry_rows(carry_edp, w: int) -> np.ndarray:
     """(W, 1) float32 carried-best-EDP operand (+inf = no carry)."""
     arr = np.full((w, 1), np.inf, np.float32)
     if carry_edp is not None:
         arr[:, 0] = np.asarray(carry_edp, np.float64).astype(np.float32)
-    return torch.from_numpy(arr).to(device)
+    return arr
 
 
-def _front_carry_rows(carry_points, w: int, d: int, device) -> torch.Tensor:
+def _front_carry_rows(carry_points, w: int, d: int) -> np.ndarray:
     """(W * CARRY_FRONT, d) float32 carried-front operand, +inf-padded.
 
     carry_points: per-workload (F, d) objective-point arrays (or None).
@@ -95,7 +108,11 @@ def _front_carry_rows(carry_points, w: int, d: int, device) -> torch.Tensor:
                 continue
             p = np.asarray(pts, np.float32)[:cf]
             arr[wi * cf:wi * cf + len(p)] = p
-    return torch.from_numpy(arr).to(device)
+    return arr
+
+
+def _to(arr: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
 def _has_carry(carry_points) -> bool:
@@ -112,20 +129,22 @@ def _check_finite(out: np.ndarray, what: str) -> None:
 
 
 def _front_candidates(out: np.ndarray, w: int, blk_lo: np.ndarray,
-                      limit: int, what: str, keep=None):
+                      limit: int, what: str, keep=None, col_base=None):
     """Per-workload (candidate indices, n_feasible, n_overflow) from a
     (PARETO_ROWS * W, n_blocks) frontier reduction. A block whose local
     front overflowed MAX_FRONT joins the candidates whole — [blk_lo,
     min(blk_lo + BLOCK, limit)), filtered by `keep` when given — so the
     emission bound never drops a frontier point; the caller's float64
-    refinement restores the exact frontier."""
+    refinement restores the exact frontier. `col_base` rebases a sharded
+    padded launch's shard-local indices, column by column."""
     _check_finite(out, what)
     results = []
     for wi in range(w):
         rows = out[_dse.PARETO_ROWS * wi:_dse.PARETO_ROWS * (wi + 1)]
         counts, nfeas_b = rows[0], rows[1]
         idx = rows[_dse.PARETO_HEADER:]
-        cand = idx[idx >= 0].astype(np.int64)
+        base = 0 if col_base is None else col_base[None, :]
+        cand = (idx.astype(np.int64) + base)[idx >= 0]
         overflowed = np.nonzero(counts > _dse.MAX_FRONT)[0]
         if len(overflowed):
             log.warning("%s: %d block(s) overflowed MAX_FRONT=%d; falling "
@@ -143,10 +162,13 @@ def _front_candidates(out: np.ndarray, w: int, blk_lo: np.ndarray,
     return results
 
 
-def _reduce_blocks(out: np.ndarray, w: int, carry_edp, what: str):
+def _reduce_blocks(out: np.ndarray, w: int, carry_edp, what: str,
+                   col_base=None):
     """Per-workload (best_idx, best_edp, n_feasible) from the (3W, n_blocks)
-    reduction: min EDP across blocks, ties to the lowest index (CARRY_IDX
-    sorts before every real index, so a carried tie wins)."""
+    reduction: min EDP across blocks, ties to the lowest global index
+    (CARRY_IDX sorts before every real index, so a carried tie wins).
+    `col_base` rebases a sharded padded launch's shard-local indices in
+    int64, column by column; the sentinels stay put."""
     _check_finite(out, what)
     best_idx, best_edp, n_feasible = [], [], []
     for wi in range(w):
@@ -154,6 +176,9 @@ def _reduce_blocks(out: np.ndarray, w: int, carry_edp, what: str):
                                  _dse.SEARCH_ROWS * (wi + 1)]
         nf = int(round(float(nf_b.sum())))
         n_feasible.append(nf)
+        if col_base is not None:
+            idx_b = idx_b.astype(np.int64)
+            idx_b = np.where(idx_b >= 0, idx_b + col_base, idx_b)
         jb = np.lexsort((idx_b, edp_b))[0]
         i = int(idx_b[jb])
         best_edp.append(float(edp_b[jb]))
@@ -164,22 +189,82 @@ def _reduce_blocks(out: np.ndarray, w: int, carry_edp, what: str):
     return best_idx, best_edp, n_feasible
 
 
+def _shard_blocks(count: int, k: int, block: int) -> int:
+    """Blocks per shard of a k-shard launch over `count` lanes: ceil(count
+    / k) lanes bucketed to a power-of-two block count with no floor (the
+    reference's sharded layout)."""
+    per_shard = -(-count // k)
+    n_blocks = max(1, -(-per_shard // block))
+    return 1 << (n_blocks - 1).bit_length()
+
+
+def _gather(outs) -> np.ndarray:
+    """The shards' per-block columns on the host, in shard order. Every
+    shard was launched before the first copy waits, so the shards on
+    different cards run at once."""
+    return np.concatenate([o.cpu().numpy() for o in outs], axis=1)
+
+
+def _sharded_padded(kind: str, grid: np.ndarray, devices, workloads: tuple,
+                    c: DeviceConstants, cons: np.ndarray, carry: np.ndarray,
+                    objectives=None, has_carry=False):
+    """A k-shard padded launch (kernel 2 for kind "search", 5 for
+    "pareto"), one per device of `devices` (k = its length): the candidate
+    axis padded to k shards of a power-of-two number of BLOCK-lane blocks,
+    all-ones padding configs masked invalid. Returns (out, shard_size,
+    blocks_per_shard); the indices in `out` are shard-local, so column j's
+    global base is (j // blocks_per_shard) * shard_size."""
+    from ..parallel.sharding import (CANDIDATE_AXIS, candidate_spec,
+                                     sanitize_spec)
+    k = len(devices)
+    g = np.asarray(grid)
+    n = len(g)
+    bps = _shard_blocks(n, k, _dse.BLOCK)
+    shard_size = bps * _dse.BLOCK
+    cols = np.ones((5, k * shard_size), np.float32)
+    cols[:, :n] = g.T
+    mask = np.zeros((1, k * shard_size), np.float32)
+    mask[:, :n] = 1.0
+    # The candidate axis was just padded to a k-multiple, so the spec can
+    # never degrade; assert rather than carry an untestable fallback.
+    spec = candidate_spec(2, 1)
+    assert sanitize_spec(cols.shape, spec, {CANDIDATE_AXIS: k}) == spec
+    outs = []
+    for s, dev in enumerate(devices):
+        part = slice(s * shard_size, (s + 1) * shard_size)
+        args = (_to(cols[:, part], dev), _to(mask[:, part], dev),
+                _to(cons, dev), _to(carry, dev))
+        if kind == "search":
+            outs.append(_dse.dse_search_padded(*args, workloads=workloads,
+                                               constants=c))
+        else:
+            outs.append(_dse.dse_pareto_padded(
+                *args, workloads=workloads, objectives=objectives,
+                has_carry=has_carry, constants=c))
+    return _gather(outs), shard_size, bps
+
+
+def _shard_col_base(n_cols: int, shard_size: int, bps: int) -> np.ndarray:
+    return (np.arange(n_cols, dtype=np.int64) // bps) * shard_size
+
+
 def dse_search_grid(grid: np.ndarray, wl: Workload, constraints,
                     c: DeviceConstants = CONSTANTS, device=None, *,
-                    carry_edp=None):
+                    shard=None, carry_edp=None):
     """Fused single-pass search: (best_idx, best_edp, n_feasible). best_idx
     is -1 when nothing is feasible, CARRY_IDX (-2) when the carried-in
     `carry_edp` beat (or tied) every feasible config."""
     best, edp, nf = dse_search_multi(
-        grid, [wl], [constraints], c, device,
+        grid, [wl], [constraints], c, device, shard=shard,
         carry_edp=None if carry_edp is None else [carry_edp])
     return best[0], edp[0], nf[0]
 
 
 def dse_search_multi(grid: np.ndarray, wls, constraints_seq,
                      c: DeviceConstants = CONSTANTS, device=None, *,
-                     carry_edp=None):
-    """Batched fused search: W workloads x one grid in a single launch.
+                     shard=None, carry_edp=None):
+    """Batched fused search: W workloads x one grid in a single launch (one
+    per shard under `shard=`).
 
     Returns (best_idx_per_wl, best_edp_per_wl, n_feasible_per_wl) lists;
     best_idx is -1 when no config satisfies that workload's constraints
@@ -188,19 +273,27 @@ def dse_search_multi(grid: np.ndarray, wls, constraints_seq,
     """
     dev = resolve_device(device)
     workloads = tuple(workload_statics(wl, c) for wl in wls)
+    cons = _constraint_rows(constraints_seq)
+    carry = _search_carry_rows(carry_edp, len(workloads))
+    mesh = shard_mesh(shard, dev)
+    if mesh is not None:
+        out, shard_size, bps = _sharded_padded("search", grid, mesh,
+                                               workloads, c, cons, carry)
+        return _reduce_blocks(out, len(workloads), carry_edp,
+                              "search kernel",
+                              _shard_col_base(out.shape[1], shard_size, bps))
     cols = _cols(grid, dev)
     mask = torch.ones((1, cols.shape[1]), dtype=torch.float32, device=dev)
     out = _dse.dse_search_padded(
-        cols, mask, _constraint_rows(constraints_seq, dev),
-        _search_carry_rows(carry_edp, len(workloads), dev),
-        workloads=workloads, constants=c).cpu().numpy()
+        cols, mask, _to(cons, dev), _to(carry, dev), workloads=workloads,
+        constants=c).cpu().numpy()
     return _reduce_blocks(out, len(workloads), carry_edp, "search kernel")
 
 
 def dse_pareto_multi(grid: np.ndarray, wls, constraints_seq,
                      c: DeviceConstants = CONSTANTS, device=None,
                      objectives: tuple = ("area", "power", "edp"), *,
-                     carry_points=None):
+                     shard=None, carry_points=None):
     """Batched frontier-candidate search: W workloads x one grid, one launch.
 
     The kernel reduces every block to its local non-dominated feasible set
@@ -208,7 +301,8 @@ def dse_pareto_multi(grid: np.ndarray, wls, constraints_seq,
     per-block lists, taking every row of a block whose front overflowed.
     `carry_points` (per-workload (F, d) running-front points in the
     kernel's float32 metric space) prunes candidates a carried point
-    strictly dominates. Returns a list of (candidate_indices, n_feasible,
+    strictly dominates. `shard=` launches once per shard, as
+    `dse_search_multi`. Returns a list of (candidate_indices, n_feasible,
     n_overflow) per workload: sorted int64 grid rows covering the
     workload's feasible frontier as the kernel's float32 metrics see it,
     and the number of overflowed blocks.
@@ -216,14 +310,25 @@ def dse_pareto_multi(grid: np.ndarray, wls, constraints_seq,
     dev = resolve_device(device)
     workloads = tuple(workload_statics(wl, c) for wl in wls)
     objectives = tuple(objectives)
+    cons = _constraint_rows(constraints_seq)
+    carry = _front_carry_rows(carry_points, len(workloads), len(objectives))
+    has_carry = _has_carry(carry_points)
+    mesh = shard_mesh(shard, dev)
+    if mesh is not None:
+        out, shard_size, bps = _sharded_padded(
+            "pareto", grid, mesh, workloads, c, cons, carry, objectives,
+            has_carry)
+        col_base = _shard_col_base(out.shape[1], shard_size, bps)
+        blk_lo = col_base + (np.arange(out.shape[1], dtype=np.int64)
+                             % bps) * _dse.BLOCK
+        return _front_candidates(out, len(workloads), blk_lo, len(grid),
+                                 "pareto kernel", col_base=col_base)
     cols = _cols(grid, dev)
     mask = torch.ones((1, cols.shape[1]), dtype=torch.float32, device=dev)
     out = _dse.dse_pareto_padded(
-        cols, mask, _constraint_rows(constraints_seq, dev),
-        _front_carry_rows(carry_points, len(workloads), len(objectives),
-                          dev),
-        workloads=workloads, objectives=objectives,
-        has_carry=_has_carry(carry_points), constants=c).cpu().numpy()
+        cols, mask, _to(cons, dev), _to(carry, dev), workloads=workloads,
+        objectives=objectives, has_carry=has_carry,
+        constants=c).cpu().numpy()
     blk_lo = np.arange(out.shape[1], dtype=np.int64) * _dse.BLOCK
     return _front_candidates(out, len(workloads), blk_lo, len(grid),
                              "pareto kernel")
@@ -281,32 +386,58 @@ def _slab_member_mask(radices, slab, idx: np.ndarray) -> np.ndarray:
     return ok
 
 
+def _decoded_one(kind: str, space, meta_row: np.ndarray, n_blocks: int,
+                 workloads: tuple, c: DeviceConstants, cons: np.ndarray,
+                 carry: np.ndarray, dev, objectives, has_carry):
+    """Launch one decoded kernel (3 for kind "search", 6 for "pareto") on
+    `dev` over the span of `meta_row`; returns its output tensor, not yet
+    copied to the host."""
+    axes_cols, radices = _axes_operand(space, dev)
+    meta = _to(meta_row, dev)
+    if kind == "search":
+        return _dse.dse_search_decoded(axes_cols, meta, _to(cons, dev),
+                                       _to(carry, dev), radices=radices,
+                                       n_blocks=n_blocks,
+                                       workloads=workloads, constants=c)
+    return _dse.dse_pareto_decoded(axes_cols, meta, _to(cons, dev),
+                                   _to(carry, dev), radices=radices,
+                                   n_blocks=n_blocks, workloads=workloads,
+                                   objectives=objectives,
+                                   has_carry=has_carry, constants=c)
+
+
 def _decoded_launch(space, start: int, count: int, kind: str,
                     workloads: tuple, c: DeviceConstants, cons, carry, dev,
-                    slab=None, objectives=None, has_carry=False):
-    """One decoded launch over [start, start + count), optionally masked to
-    a slab's digit ranges: kind "search" gives the (3W, n_blocks)
-    reduction over DECODE_BLOCK-lane blocks, "pareto" the (PARETO_ROWS * W,
-    n_blocks) frontier reduction over BLOCK-lane blocks (its dominance pass
-    is quadratic in the block). Returns (out, each block's first global
-    index)."""
-    axes_cols, radices = _axes_operand(space, dev)
+                    slab=None, objectives=None, has_carry=False,
+                    mesh=None):
+    """A decoded launch over [start, start + count), optionally masked to a
+    slab's digit ranges: kind "search" gives the (3W, n_blocks) reduction
+    over DECODE_BLOCK-lane blocks, "pareto" the (PARETO_ROWS * W, n_blocks)
+    frontier reduction over BLOCK-lane blocks (its dominance pass is
+    quadratic in the block). On a `mesh` (a device tuple) it is one launch
+    per shard: ceil(count / k) lanes a shard bucketed to a power-of-two
+    block count, each shard's base in its own meta row. Returns (out, each
+    block's first global index)."""
+    radices = space.radices
     limit = min(start + count, space.size)
     _check_decode_span(limit)
     block = _dse.DECODE_BLOCK if kind == "search" else _dse.BLOCK
+    if mesh is not None:
+        bps = _shard_blocks(count, len(mesh), block)
+        bases = start + np.arange(len(mesh)) * bps * block
+        meta = _meta_rows(radices, bases, limit, slab)
+        out = _gather([_decoded_one(kind, space, meta[s], bps, workloads, c,
+                                    cons, carry, dev_s, objectives,
+                                    has_carry)
+                       for s, dev_s in enumerate(mesh)])
+        blk_lo = (np.repeat(meta[:, 0].astype(np.int64), bps)
+                  + np.tile(np.arange(bps, dtype=np.int64), len(mesh))
+                  * block)
+        return out, blk_lo
     n_blocks = max(1, math.ceil(count / block))
-    meta = torch.from_numpy(_meta_rows(radices, [start], limit, slab)[0]) \
-        .to(dev)
-    if kind == "search":
-        out = _dse.dse_search_decoded(axes_cols, meta, cons, carry,
-                                      radices=radices, n_blocks=n_blocks,
-                                      workloads=workloads, constants=c)
-    else:
-        out = _dse.dse_pareto_decoded(axes_cols, meta, cons, carry,
-                                      radices=radices, n_blocks=n_blocks,
-                                      workloads=workloads,
-                                      objectives=objectives,
-                                      has_carry=has_carry, constants=c)
+    meta = _meta_rows(radices, [start], limit, slab)[0]
+    out = _decoded_one(kind, space, meta, n_blocks, workloads, c, cons,
+                       carry, dev, objectives, has_carry)
     blk_lo = start + np.arange(n_blocks, dtype=np.int64) * block
     return out.cpu().numpy(), blk_lo
 
@@ -314,22 +445,21 @@ def _decoded_launch(space, start: int, count: int, kind: str,
 def dse_search_multi_factorized(space, start: int, count: int, wls,
                                 constraints_seq,
                                 c: DeviceConstants = CONSTANTS, device=None,
-                                *, carry_edp=None, slab=None):
+                                *, shard=None, carry_edp=None, slab=None):
     """Batched fused search over an index span of a product space.
 
     Same contract as `dse_search_multi` — (best_idx, best_edp, n_feasible)
     lists with the -1 / CARRY_IDX sentinels — except candidates live only
     on device (decoded from `space`) and `best_idx` is a global flat-space
     index. `slab` (five [lo, hi) digit ranges) masks the span's lanes to
-    the slab's members in-kernel.
+    the slab's members in-kernel; `shard=` launches once per shard.
     """
     dev = resolve_device(device)
     workloads = tuple(workload_statics(wl, c) for wl in wls)
     out, _ = _decoded_launch(space, start, count, "search", workloads, c,
-                             _constraint_rows(constraints_seq, dev),
-                             _search_carry_rows(carry_edp, len(workloads),
-                                                dev),
-                             dev, slab)
+                             _constraint_rows(constraints_seq),
+                             _search_carry_rows(carry_edp, len(workloads)),
+                             dev, slab, mesh=shard_mesh(shard, dev))
     return _reduce_blocks(out, len(workloads), carry_edp,
                           "search decode kernel")
 
@@ -338,22 +468,22 @@ def dse_pareto_multi_factorized(space, start: int, count: int, wls,
                                 constraints_seq,
                                 c: DeviceConstants = CONSTANTS, device=None,
                                 objectives: tuple = ("area", "power", "edp"),
-                                *, carry_points=None, slab=None):
+                                *, shard=None, carry_points=None, slab=None):
     """Batched frontier-candidate search over an index span of a product
     space; same contract as `dse_pareto_multi` — (candidate_indices,
     n_feasible, n_overflow) triples — with global flat-space candidate
     indices. `slab` masks the span to a slab's members in-kernel, and an
     overflowing block's whole-block fallback is clipped back to the slab's
-    members."""
+    members. `shard=` launches once per shard."""
     dev = resolve_device(device)
     workloads = tuple(workload_statics(wl, c) for wl in wls)
     objectives = tuple(objectives)
     out, blk_lo = _decoded_launch(
         space, start, count, "pareto", workloads, c,
-        _constraint_rows(constraints_seq, dev),
-        _front_carry_rows(carry_points, len(workloads), len(objectives),
-                          dev),
-        dev, slab, objectives, _has_carry(carry_points))
+        _constraint_rows(constraints_seq),
+        _front_carry_rows(carry_points, len(workloads), len(objectives)),
+        dev, slab, objectives, _has_carry(carry_points),
+        shard_mesh(shard, dev))
     keep = None if slab is None else \
         functools.partial(_slab_member_mask, space.radices, slab)
     return _front_candidates(out, len(workloads), blk_lo,
@@ -363,7 +493,7 @@ def dse_pareto_multi_factorized(space, start: int, count: int, wls,
 
 def dse_search_spans_factorized(space, items, wls, constraints_seq,
                                 c: DeviceConstants = CONSTANTS, device=None,
-                                *, carry_edp=None):
+                                *, shard=None, carry_edp=None):
     """Compose `dse_search_multi_factorized` launches over a work list of
     (start, count, slab) triples in ascending index order. Each workload's
     running best EDP rides between launches through the kernels' carry
@@ -379,7 +509,7 @@ def dse_search_spans_factorized(space, items, wls, constraints_seq,
     for start, count, slab in items:
         bi, be, bn = dse_search_multi_factorized(
             space, start, count, wls, constraints_seq, c, device,
-            carry_edp=carry, slab=slab)
+            shard=shard, carry_edp=carry, slab=slab)
         for wi in range(w):
             n_feasible[wi] += bn[wi]
             if bi[wi] >= 0:  # beat the carry (ties stay with the carry)
@@ -391,7 +521,7 @@ def dse_search_spans_factorized(space, items, wls, constraints_seq,
 def dse_pareto_spans_factorized(space, items, wls, constraints_seq,
                                 c: DeviceConstants = CONSTANTS, device=None,
                                 objectives: tuple = ("area", "power", "edp"),
-                                *, carry_points=None):
+                                *, shard=None, carry_points=None):
     """Compose `dse_pareto_multi_factorized` launches over a work list of
     (start, count, slab) triples: per-workload (candidate-index union,
     summed feasible count, summed overflow count) triples. `carry_points`
@@ -406,7 +536,8 @@ def dse_pareto_spans_factorized(space, items, wls, constraints_seq,
     for start, count, slab in items:
         per_wl = dse_pareto_multi_factorized(
             space, start, count, wls, constraints_seq, c, device,
-            objectives=objectives, carry_points=carry_points, slab=slab)
+            objectives=objectives, shard=shard, carry_points=carry_points,
+            slab=slab)
         for wi, (idx, f, n_over) in enumerate(per_wl):
             n_feasible[wi] += f
             n_overflow[wi] += n_over
@@ -427,8 +558,7 @@ def decode_rows_device(space, start: int, count: int, device=None,
     n_blocks = max(1, -(-count // _dse.BLOCK))
     limit = min(start + count, space.size)
     _check_decode_span(limit)
-    meta = torch.from_numpy(_meta_rows(radices, [start], limit, slab)[0]) \
-        .to(dev)
+    meta = _to(_meta_rows(radices, [start], limit, slab)[0], dev)
     out = _dse.dse_decode_rows(axes_cols, meta, radices=radices,
                                n_blocks=n_blocks).cpu().numpy()
     return out[:5, out[5] > 0.0].T.astype(np.int64)

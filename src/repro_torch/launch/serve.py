@@ -25,7 +25,8 @@ and the resident DSE service.
 
     runs on the card with the cuda engine (``--device cpu`` runs the
     kernels' plain versions); ``--workers N`` fans every search out over N
-    leased slab workers (byte-identical answers).
+    leased slab workers and ``--shard N`` every evaluation over up to N
+    cards (byte-identical answers either way).
 
   * ``scenarios`` — sweep a model-zoo scenario grid (models x train /
     prefill / decode x shapes) through one resident service, twice by
@@ -36,7 +37,8 @@ and the resident DSE service.
             --model qwen2.5-3b --model rwkv6-7b --box decode:latency_ms=2
 
     runs on the card with the cuda engine (``--device cpu --reduced`` sweeps
-    tiny same-family configs with the kernels' plain versions).
+    tiny same-family configs with the kernels' plain versions; ``--shard
+    N`` as for ``dse``).
 """
 from __future__ import annotations
 
@@ -97,7 +99,7 @@ def _dse_main(args) -> None:
     names = (list(paper_workloads.PAPER_WORKLOADS) if args.workload == "all"
              else [args.workload])
     svc = SearchService(n_z=args.n_z, engine=args.engine, device=args.device,
-                        chunk_size=args.chunk_size,
+                        shard=args.shard, chunk_size=args.chunk_size,
                         checkpoint_root=args.checkpoint_root,
                         workers=args.workers)
     boxes = [("paper defaults", Constraints())]
@@ -154,7 +156,7 @@ def _scenarios_main(args) -> None:
     cons = {spec.split(":", 1)[0]: _parse_scenario(spec.split(":", 1)[1])
             for spec in args.box} if args.box else {}
     svc = SearchService(n_z=args.n_z, engine=args.engine, device=args.device,
-                        chunk_size=args.chunk_size)
+                        shard=args.shard, chunk_size=args.chunk_size)
     print(f"service: {args.engine} engine on {svc.device}, {args.n_z}^5 "
           f"space; grid: {len(models)} model(s) x {len(args.kind)} kind(s) "
           f"-> {grid.size} scenarios")
@@ -196,6 +198,9 @@ def main(argv=None) -> None:
     ds.add_argument("--scenario", action="append", default=[],
                     metavar="FIELD=VAL[,FIELD=VAL...]",
                     help="constraint box for one delta query (repeatable)")
+    ds.add_argument("--shard", type=int, default=None,
+                    help="fan each evaluation out over up to N cards "
+                         "(byte-identical answers)")
     ds.add_argument("--chunk-size", type=int, default=None)
     ds.add_argument("--checkpoint-root", default=None,
                     help="service-owned checkpoint root (resume per query)")
@@ -236,6 +241,9 @@ def main(argv=None) -> None:
                     choices=("numpy", "torch", "cuda"))
     sc.add_argument("--objective", default="edp",
                     choices=("edp", "pareto"))
+    sc.add_argument("--shard", type=int, default=None,
+                    help="fan each evaluation out over up to N cards "
+                         "(byte-identical answers)")
     sc.add_argument("--chunk-size", type=int, default=None)
     sc.add_argument("--device", default="cuda",
                     help="torch device the service runs on (default cuda; "

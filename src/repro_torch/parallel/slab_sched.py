@@ -195,7 +195,7 @@ class SlabScheduler:
 
     WAVE_BID_BASE = 1 << 40
 
-    def __init__(self, fspace, wl, constraints, c, device, chunk_size,
+    def __init__(self, fspace, wl, constraints, c, device, shard, chunk_size,
                  workers, *, objective="edp", objectives=None,
                  deterministic=True, rt=None, led=None):
         self.fspace = fspace
@@ -203,6 +203,7 @@ class SlabScheduler:
         self.constraints = constraints
         self.c = c
         self.device = torch.device(device)
+        self.shard = shard
         self.chunk_size = chunk_size
         self.workers = max(1, int(workers))
         self.objective = objective
@@ -419,11 +420,11 @@ class SlabScheduler:
         if self.objective == "edp":
             return _bnb_eval_edp(engine, self.fspace, self.wl,
                                  self.constraints, self.c, self.device,
-                                 ranges, self.chunk_size)
+                                 ranges, self.shard, self.chunk_size)
         return _bnb_eval_pareto(engine, self.fspace, self.wl,
                                 self.constraints, self.c, self.device,
-                                ranges, self.chunk_size, self.objectives,
-                                run_rows)
+                                ranges, self.shard, self.chunk_size,
+                                self.objectives, run_rows)
 
     def _evaluate(self, batch):
         if batch.mode == "wave":
@@ -718,7 +719,7 @@ def _finish_accounting(fspace, stats, shared):
         f"!= |space| = {fspace.size}")
 
 
-def _async_search_edp(fspace, wl, constraints, engine, c, device,
+def _async_search_edp(fspace, wl, constraints, engine, c, device, shard,
                       chunk_size, workers, rt=None, led=None):
     """Async work-stealing min-EDP driver (see the module docstring for
     the soundness argument; structure mirrors
@@ -740,7 +741,7 @@ def _async_search_edp(fspace, wl, constraints, engine, c, device,
     fp = rec = None
     if rt is not None:
         fp = _rt_fp("edp_bnb_async", wl, constraints, engine, c, device,
-                    chunk_size, axes=fspace.axes, leaf=BNB_LEAF,
+                    shard, chunk_size, axes=fspace.axes, leaf=BNB_LEAF,
                     batch=BNB_BATCH, fine=BNB_FINE)
         rec = rt.resume(fp)
     unit = 0
@@ -765,8 +766,8 @@ def _async_search_edp(fspace, wl, constraints, engine, c, device,
         leaves, lbs = _bnb_frontier(fspace, ev, constraints, c, stats, led)
     resumed_sweep = phase == "sweep"
 
-    sched = SlabScheduler(fspace, wl, constraints, c, device, chunk_size,
-                          workers, objective="edp",
+    sched = SlabScheduler(fspace, wl, constraints, c, device, shard,
+                          chunk_size, workers, objective="edp",
                           deterministic=False, rt=rt, led=led)
     try:
         def snapshot(done=()):
@@ -876,7 +877,7 @@ def _async_search_edp(fspace, wl, constraints, engine, c, device,
 
 
 def _async_search_pareto(fspace, wl, constraints, engine, c, device,
-                         objectives, chunk_size, workers, rt=None,
+                         objectives, shard, chunk_size, workers, rt=None,
                          led=None):
     """Async work-stealing frontier driver (mirrors
     `core.search._pareto_factorized_bnb`; slabs die only when their
@@ -900,7 +901,7 @@ def _async_search_pareto(fspace, wl, constraints, engine, c, device,
     fp = rec = None
     if rt is not None:
         fp = _rt_fp("pareto_bnb_async", wl, constraints, engine, c,
-                    device, chunk_size, axes=fspace.axes,
+                    device, shard, chunk_size, axes=fspace.axes,
                     objectives=tuple(objectives), leaf=BNB_LEAF,
                     batch=BNB_BATCH, fine=BNB_FINE)
         rec = rt.resume(fp)
@@ -930,8 +931,8 @@ def _async_search_pareto(fspace, wl, constraints, engine, c, device,
         leaves, lbs = _bnb_frontier(fspace, ev, constraints, c, stats, led)
     resumed_sweep = phase == "sweep"
 
-    sched = SlabScheduler(fspace, wl, constraints, c, device, chunk_size,
-                          workers, objective="pareto",
+    sched = SlabScheduler(fspace, wl, constraints, c, device, shard,
+                          chunk_size, workers, objective="pareto",
                           objectives=objectives, deterministic=False,
                           rt=rt, led=led)
     try:
@@ -1055,8 +1056,8 @@ def _async_search_pareto(fspace, wl, constraints, engine, c, device,
 # Entry point used by core.search._search_impl
 # ---------------------------------------------------------------------------
 
-def parallel_bnb(fspace, wl, constraints, engine, c, device, chunk_size, *,
-                 objective, metrics, workers, deterministic,
+def parallel_bnb(fspace, wl, constraints, engine, c, device, shard,
+                 chunk_size, *, objective, metrics, workers, deterministic,
                  rt=None, led=None):
     """Run one bound-guided search across `workers` leased executors.
 
@@ -1068,26 +1069,27 @@ def parallel_bnb(fspace, wl, constraints, engine, c, device, chunk_size, *,
     from ..core.search import (_pareto_factorized_bnb,
                                _search_factorized_bnb)
     if deterministic:
-        sched = SlabScheduler(fspace, wl, constraints, c, device,
+        sched = SlabScheduler(fspace, wl, constraints, c, device, shard,
                               chunk_size, workers, objective=objective,
                               objectives=metrics, deterministic=True,
                               rt=rt, led=led)
         with sched:
             if objective == "edp":
                 res = _search_factorized_bnb(fspace, wl, constraints,
-                                             engine, c, device, chunk_size,
-                                             rt, led, executor=sched)
+                                             engine, c, device, shard,
+                                             chunk_size, rt, led,
+                                             executor=sched)
             else:
                 res = _pareto_factorized_bnb(fspace, wl, constraints,
                                              engine, c, device, metrics,
-                                             chunk_size, rt, led,
+                                             shard, chunk_size, rt, led,
                                              executor=sched)
         res.sched = sched.stats
         return res
     if objective == "edp":
         return _async_search_edp(fspace, wl, constraints, engine, c,
-                                 device, chunk_size, workers,
+                                 device, shard, chunk_size, workers,
                                  rt=rt, led=led)
     return _async_search_pareto(fspace, wl, constraints, engine, c,
-                                device, metrics, chunk_size, workers,
+                                device, metrics, shard, chunk_size, workers,
                                 rt=rt, led=led)

@@ -10,8 +10,8 @@ engine layer:
      (`core.factorized.cached_bound_evaluator`); the decode kernels' axis
      operand stays resident on the card per space. A standing service
      pays each of these once.
-  2. **Answers are canonical.** Every engine x chunk_size combination
-     returns byte-identical winners/frontiers, so a memo
+  2. **Answers are canonical.** Every engine x (shard, chunk_size)
+     combination returns byte-identical winners/frontiers, so a memo
      keyed on the canonicalized (workload fingerprint, constraint box,
      space, objective) — `serve.cache` — can return the stored result
      object for any respelling of the same question.
@@ -52,7 +52,7 @@ from ..core.runtime import (QueryTimeout, RuntimePolicy, SearchRuntime,
                             fingerprint, query_policy)
 from ..core.search import (DEFAULT_OBJECTIVES, ParetoResult, SearchResult,
                            WarmStart, _bnb_dominated_vs,
-                           _bnb_infeasible_mask, _check_later_args,
+                           _bnb_infeasible_mask, _check_engine,
                            _check_pareto_metrics, _measure_band,
                            _pareto_factorized_bnb, _pareto_from_rows,
                            _resolve_robust, _search_factorized_bnb, search,
@@ -88,7 +88,8 @@ class SearchService:
 
     Construction fixes the *space side* of every query — the factorized
     product space, the engine, the device, the device constants and the
-    streaming shape — because those are what the resident caches key on.
+    sharding/streaming shape — because those are what the resident caches
+    key on.
     The *question side* (workload, constraint box, objective) arrives per
     query.
 
@@ -102,7 +103,9 @@ class SearchService:
       device: "cuda" (default; raises at construction without a card,
         whatever the engine — the service never carries on without the
         card unless asked) or "cpu" (the kernels' plain PyTorch versions).
-      chunk_size: forwarded to every search (see `search`).
+      shard / chunk_size: forwarded to every cold, warm, batched and worker
+        search (see `search`): `shard=N` fans each evaluation out over up
+        to N cards of the candidate mesh.
       checkpoint_root: when set, every cold search runs under a
         `core.runtime` policy checkpointing into a service-owned
         per-query-fingerprint directory (`runtime.query_checkpoint_dir`),
@@ -150,7 +153,8 @@ class SearchService:
     """
 
     def __init__(self, *, space=None, n_z: int = 12, engine: str = "cuda",
-                 device=None, chunk_size: Optional[int] = None,
+                 device=None, shard: Optional[int] = None,
+                 chunk_size: Optional[int] = None,
                  checkpoint_root: Optional[str] = None,
                  c: DeviceConstants = CONSTANTS,
                  calibration=None, robust: Optional[str] = None,
@@ -159,10 +163,11 @@ class SearchService:
                  workers: Optional[int] = None,
                  deterministic: bool = True):
         self.device = resolve_device(device)
-        _check_later_args(engine, None)
+        _check_engine(engine)
         self.space = (FactorizedSpace.full(n_z) if space is None
                       else FactorizedSpace.from_space(space))
         self.engine = engine
+        self.shard = shard
         self.chunk_size = chunk_size
         self.checkpoint_root = checkpoint_root
         c, cal, fallback = _resolve_robust(calibration, robust, c, engine)
@@ -352,7 +357,8 @@ class SearchService:
 
     def _cold_kwargs(self, mkey: str) -> dict:
         kw = dict(engine=self.engine, c=self.c, device=self.device,
-                  objective="edp", chunk_size=self.chunk_size,
+                  objective="edp", shard=self.shard,
+                  chunk_size=self.chunk_size,
                   factorized=True, space=self.space, prune="bound",
                   keep_ledger=True)
         if self.workers is not None:
@@ -457,7 +463,7 @@ class SearchService:
             return contextlib.nullcontext(None)
         from ..parallel.slab_sched import SlabScheduler
         return SlabScheduler(self.space, wl, cons, self.c, self.device,
-                             self.chunk_size, self.workers,
+                             self.shard, self.chunk_size, self.workers,
                              objective=objective, objectives=metrics,
                              deterministic=True)
 
@@ -486,7 +492,8 @@ class SearchService:
             with self._maybe_executor(q.wl, cons, "edp", None) as ex:
                 res = _search_factorized_bnb(
                     self.space, q.wl, cons, self.engine, self.c,
-                    self.device, self.chunk_size, warm=warm, executor=ex)
+                    self.device, self.shard, self.chunk_size, warm=warm,
+                    executor=ex)
         else:
             metrics = self._metrics(q)
             front, met, nf = _pareto_from_rows(base.rows, q.wl, cons,
@@ -502,8 +509,8 @@ class SearchService:
             with self._maybe_executor(q.wl, cons, "pareto", metrics) as ex:
                 res = _pareto_factorized_bnb(
                     self.space, q.wl, cons, self.engine, self.c,
-                    self.device, metrics, self.chunk_size, warm=warm,
-                    executor=ex)
+                    self.device, metrics, self.shard, self.chunk_size,
+                    warm=warm, executor=ex)
         if self.calibration is not None:
             res.band = _measure_band(res, self.calibration, q.wl)
         self.stats["slabs_repriced"] += len(base.ledger.pruned)

@@ -42,6 +42,7 @@ MODULES = ("repro_torch", "repro_torch.core", "repro_torch.core.search",
            "repro_torch.serve.dse_service", "repro_torch.scenarios",
            "repro_torch.scenarios.grid", "repro_torch.scenarios.sweep",
            "repro_torch.parallel", "repro_torch.parallel.slab_sched",
+           "repro_torch.parallel.sharding", "repro_torch.launch.mesh",
            "repro_torch.models.layers", "repro_torch.models.moe",
            "repro_torch.models.mla", "repro_torch.models.ssd",
            "repro_torch.models.rwkv", "repro_torch.models.encdec",

@@ -400,3 +400,19 @@ def test_launch_scenarios_defaults_on_the_cpu(capsys):
     assert "-> 12 scenarios" in out and "12 scenarios (12 cold" in out
     r_main(["scenarios", "--reduced", "--n-z", "6"])
     assert _sweeps(out) == _sweeps(capsys.readouterr().out)
+
+
+def test_launch_scenarios_shard_equals_unsharded(capsys):
+    """`scenarios --shard 2`: the same sweeps, winners and report as the
+    unsharded launcher and the reference's `--shard 2`."""
+    from repro.launch.serve import main as r_main
+    from repro_torch.launch.serve import main
+    args = ["scenarios", "--model", "qwen2.5-3b", "--model", "rwkv6-7b",
+            "--reduced", "--n-z", "4", "--seq-len", "64", "--batch", "1",
+            "--repeat", "1"]
+    main(args + ["--device", "cpu"])
+    base = capsys.readouterr().out
+    main(args + ["--device", "cpu", "--shard", "2"])
+    assert _sweeps(capsys.readouterr().out) == _sweeps(base)
+    r_main(args + ["--engine", "numpy", "--shard", "2"])
+    assert _sweeps(capsys.readouterr().out) == _sweeps(base)

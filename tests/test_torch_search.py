@@ -228,19 +228,14 @@ def test_kernel_wrappers_match_reference_oracles():
     dict(robust="worst_case")],
     ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
 def test_later_slices_raise_not_implemented(kw):
-    """What a later slice ports (shard > 1, workers=) raises
-    NotImplementedError naming its ROADMAP item; what is ported behaves as
-    the reference does — the same error for the same misuse (a runtime
-    that is not a policy, a ledger without prune="bound", robust= without
-    a calibration), the same result otherwise."""
+    """Every keyword the reference's search takes is ported (shard=, the
+    last, ROADMAP Queue 1 item 8): each behaves as the reference does — the
+    same error for the same misuse (a runtime that is not a policy, a
+    ledger without prune="bound", robust= without a calibration), the same
+    result otherwise."""
     pw = from_reference(load("deit-t"))
     kw.setdefault("engine", "numpy")
-    if next(iter(kw)) in p_search._LATER:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            P.search(pw, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            P.search_workloads([pw], device="cpu", **kw)
-        return
+    assert not hasattr(p_search, "_LATER")
     wl = load("deit-t")
     try:
         want = R.search(wl, **kw)

@@ -337,10 +337,12 @@ def test_warm_excludes_runtime_and_ledger():
     dev = torch.device("cpu")
     with pytest.raises(ValueError, match="warm.*runtime"):
         _search_factorized_bnb(SPACE, PW, P.Constraints(), "numpy",
-                               CONSTANTS, dev, None, rt=object(), warm=warm)
+                               CONSTANTS, dev, None, None, rt=object(),
+                               warm=warm)
     with pytest.raises(ValueError, match="warm.*ledger"):
         _search_factorized_bnb(SPACE, PW, P.Constraints(), "numpy",
-                               CONSTANTS, dev, None, led=object(), warm=warm)
+                               CONSTANTS, dev, None, None, led=object(),
+                               warm=warm)
 
 
 # ---------------------------------------------------------------------------
@@ -459,3 +461,54 @@ def test_workers_and_unknown_engines_are_refused():
     with pytest.raises(ValueError, match="positive integer"):
         launch.main(["dse", "--device", "cpu", "--n-z", "4", "--workers",
                      "0"])
+
+
+# ---------------------------------------------------------------------------
+# shard= (ROADMAP Queue 1 item 8): the service and the launcher
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_sharded_service_equals_unsharded_and_the_reference(engine):
+    """`SearchService(shard=2)` forwards shard= to every cold, warm and
+    batched search: answers, work counters and `stats` equal a shard=None
+    service's and the reference's shard=2 service's."""
+    boxes = [P.Constraints(), P.Constraints(power_w=4.5)]
+    r_boxes = [R.Constraints(), R.Constraints(power_w=4.5)]
+    one, two = _svc(engine=engine), _svc(engine=engine, shard=2)
+    ref = _r_svc(shard=2)
+    for box, r_box in zip(boxes, r_boxes):
+        for objective in ("edp", "pareto"):
+            want = ref.query(WL, r_box, objective=objective)
+            a = one.query(PW, box, objective=objective)
+            b = two.query(PW, box, objective=objective)
+            same = _same_edp if objective == "edp" else _same_pareto
+            same(a, b, (engine, objective), WORK)
+            same(want, b, (engine, objective), WORK)
+    bert = load("bert-b")
+    for svc, pkg, wls in ((one, P, (PW, from_reference(bert))),
+                          (two, P, (PW, from_reference(bert))),
+                          (ref, R, (WL, bert))):
+        for wl in wls:
+            svc.submit(wl, pkg.Constraints(power_w=5.0))
+    drained = [svc.drain() for svc in (one, two, ref)]
+    for a, b, want in zip(*drained):
+        _same_edp(a, b, "drain", WORK)
+        _same_edp(want, b, "drain", WORK)
+    assert one.stats == two.stats == ref.stats
+    assert two.shard == 2
+
+
+def test_launch_dse_shard_equals_unsharded(capsys):
+    from repro_torch.launch import serve as launch
+
+    def printed(extra):
+        launch.main(["dse", "--device", "cpu", "--n-z", "6", "--workload",
+                     "all", "--scenario", "power_w=4.5"] + extra)
+        return [ln.split("ms", 1)[-1] if "ms" in ln else ln
+                for ln in capsys.readouterr().out.splitlines()]
+
+    base = printed([])
+    assert printed(["--shard", "4"]) == base
+    assert "served 10 queries: 5 cold, 5 warm, 0 memoized" in base[-1]
+    with pytest.raises(ValueError, match="shard"):
+        printed(["--shard", "0"])

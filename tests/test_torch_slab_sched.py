@@ -42,7 +42,6 @@ from repro.parallel.slab_sched import canonical_counters as r_canonical
 from repro.testing import FaultSpec as RSpec
 from repro.testing import inject as r_inject
 import repro_torch.core as P
-from repro_torch.core.search import _LATER
 from repro_torch.interop import from_reference
 from repro_torch.kernels import _build
 from repro_torch.kernels import dse_eval as p_dse
@@ -223,10 +222,13 @@ def test_workers_validation():
     with pytest.raises(ValueError, match="prune='bound'"):
         P.search_workloads([PW], CONS, engine="numpy", workers=2,
                            device="cpu")
-    # what is still to port keeps raising, naming its ROADMAP item
-    assert set(_LATER) == {"shard"}
-    with pytest.raises(NotImplementedError, match="item 8"):
-        P.search(PW, CONS, engine="numpy", shard=2, device="cpu")
+    # shard= (ROADMAP item 8) composes with workers=: the reference's bytes
+    kw = dict(engine="numpy", factorized=True, prune="bound", workers=2,
+              shard=2)
+    ref = R.search(WL, R_CONS, space=R_SPACE, **kw)
+    got = P.search(PW, CONS, space=SPACE, device="cpu", **kw)
+    _assert_same("edp", ref, got, "shard=2 workers=2")
+    assert canonical_counters(got) == r_canonical(ref)
 
 
 # ---------------------------------------------------------------------------
