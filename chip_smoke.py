@@ -136,7 +136,26 @@ From the root of a checkout, with one CUDA card visible. It
      time, tokens/s, peak device memory, the device busy share of a
      profiled step and its top kernels, and the step split into forward,
      backward and the optimizer pass; no hand-written kernel may launch;
-  7. prints one JSON line with every kernel's launches (counted per
+  8. the sharding rules and the multi-pod dry-run (`dryrun_phase`): (a)
+     the four cells of the reference's integration tests at published
+     widths on abstract "cuda" meshes of 256 or 512 placeholder H100s,
+     each `python -m repro_torch.launch.dryrun` in a subprocess (the four
+     at once): granite-3-2b decode_32k (256), h2o-danube-1.8b train_4k
+     (512), qwen2.5-3b long_500k (skipped by policy) and rwkv6-7b
+     long_500k (256), held to the reference tests' assertions, each cell's
+     status, trace seconds, FLOPs, per-device bytes, collectives by kind,
+     roofline terms and bottleneck printed; (b) qwen2.5-3b at its published
+     width, phase 6c's step (one sequence of 4096 tokens, AdamW f32
+     moments, remat) traced as an abstract cell on the host mesh, its GEMM
+     FLOPs equal to the same counter's count around one real step on the
+     card, its roofline terms (and the compute term at the f32 rate)
+     beside phase 6c's measured step time, its argument + temp bytes
+     beside the measured peak memory; (c) qwen2.5-3b at its published width
+     with DTensor parameters from `param_specs` on a one-card mesh over an
+     NCCL group of one rank (a FileStore, no network): its prefill logits,
+     and a decode step's logits and cache from the prefill's cache, equal
+     the NULL_RULES ones bit for bit; no hand-written kernel may launch;
+  9. prints one JSON line with every kernel's launches (counted per
      entry-point call, the counts set to 0 just before each call and read
      just after it), its largest difference from its plain version, its
      time, its plain version's time, its bound (bytes at the HBM rate, or
@@ -1829,6 +1848,239 @@ def train_phase(dev, hw, drive, counters):
     return summary
 
 
+DRYRUN_CELLS = (("granite-3-2b", "decode_32k", "single"),
+                ("h2o-danube-1.8b", "train_4k", "multi"),
+                ("qwen2.5-3b", "long_500k", "single"),
+                ("rwkv6-7b", "long_500k", "single"))
+
+
+def _gib(n: float) -> str:
+    return f"{n / 2**30:.3f} GiB"
+
+
+def one_card_rules(dev, hw, run, cfg):
+    """Phase 8(c): `cfg` with DTensor parameters from `param_specs` on a
+    one-card mesh over a real NCCL group of one rank (a FileStore, no
+    network): its prefill logits, and a decode step's logits and cache from
+    the prefill's cache, bit-equal to the NULL_RULES ones. `run(label, fn)`
+    drives `fn` and fails if a kernel launched."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import models
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.specs import (cache_specs, distribute_params,
+                                            distribute_tensors, param_specs)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            str(Path(tmp) / "store"), 1), rank=0, world_size=1)
+        try:
+            def one_card():
+                from torch.distributed.tensor import DTensor
+
+                def full(t):
+                    return t.full_tensor() if isinstance(t, DTensor) else t
+
+                mesh1 = make_host_mesh("cuda")
+                plain = models.init_params(
+                    cfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+                toks = torch.randint(0, cfg.vocab, (4, 24), device=dev,
+                                     generator=torch.Generator(
+                                         device=dev).manual_seed(1),
+                                     dtype=torch.int32)
+                same, n_dt = {}, {}
+                shd.GATHERED.clear()
+                with torch.no_grad():
+                    want, cache = models.prefill(plain, cfg,
+                                                 {"tokens": toks})
+                    cache = {k: torch.nn.functional.pad(
+                        v, (0, 0) * (v.ndim - 3) + (0, 4))
+                        for k, v in cache.items()}
+                    for kind, rs in (("prefill", shd.PREFILL_RULES),
+                                     ("decode", shd.DECODE_RULES)):
+                        rules = shd.for_mesh(rs, mesh1)
+                        sharded = distribute_params(
+                            copy.deepcopy(plain),
+                            param_specs(cfg, rules, plain), mesh1)
+                        n_dt[kind] = sum(isinstance(p, DTensor)
+                                         for p in sharded.parameters())
+                        if kind == "prefill":
+                            got, _ = models.prefill(sharded, cfg,
+                                                    {"tokens": toks},
+                                                    rules=rules)
+                            same[kind] = torch.equal(want, full(got))
+                        else:
+                            c = distribute_tensors(
+                                {k: v.clone() for k, v in cache.items()},
+                                cache_specs(cfg, rules), mesh1)
+                            got, c = models.decode_step(
+                                sharded, cfg, toks[:, :1], 24, c,
+                                rules=rules)
+                            want_d, cache = models.decode_step(
+                                plain, cfg, toks[:, :1], 24, cache)
+                            same[kind] = torch.equal(want_d, full(got))
+                            same["cache"] = all(torch.equal(
+                                cache[k], full(c[k])) for k in cache)
+                        del sharded, got
+                        torch.cuda.empty_cache()
+                return same, dict(shd.GATHERED), n_dt
+            (same, gathered, n_dt), _ = run("one-card DTensor prefill and "
+                                            "decode", one_card)
+        finally:
+            dist.destroy_process_group()
+    print(f"one-card mesh (NCCL, 1 rank, {hw}): qwen2.5-3b at its published "
+          f"width, 4 x 24 tokens, {n_dt['prefill']} DTensor parameters: "
+          f"prefill logits bit-equal to NULL_RULES: {same['prefill']}; "
+          f"decode step logits: {same['decode']}, cache: {same['cache']} "
+          f"(ops gathered: {gathered})")
+    _check(all(same.values()), f"one-card DTensor run differs from "
+                               f"NULL_RULES: {same}")
+
+
+def dryrun_phase(dev, hw, drive, counters, train):
+    """Phase 8: the sharding rules and the multi-pod dry-run (module
+    docstring, item 8). `train` is phase 6c's summary (step times, peak
+    memory)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch import models
+    from repro_torch.analysis.op_cost import flops
+    from repro_torch.analysis.roofline import F32_OPS_PER_S
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticTokenSource
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (destroy_fake_world, init_fake_world,
+                                         make_host_mesh)
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import batch_to, make_train_step
+
+    t_phase = time.perf_counter()
+
+    def run(label, fn):
+        out, wall = drive(label, fn, needs=())
+        launched = {k: n for c in counters for k, n in c.items() if n}
+        _check(not launched, f"{label}: launched {launched}; the dry-run "
+                             f"and the rules call no kernel")
+        return out, wall
+
+    # (a) the integration tests' cells, one subprocess each, all at once
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        def cells():
+            procs = []
+            for arch, shape, mesh in DRYRUN_CELLS:
+                out = Path(tmp) / f"{arch}-{shape}-{mesh}.json"
+                procs.append((out, subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--mesh", mesh,
+                     "--out", str(out)], env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)))
+            got = []
+            for out, p in procs:
+                log, _ = p.communicate(timeout=600)
+                _check(p.returncode == 0, f"dry-run cell failed:\n{log}")
+                got.append(json.loads(out.read_text())[0])
+            return got
+        got, wall = run("dryrun integration cells", cells)
+    for c in got:
+        line = f"dryrun {c['arch']} x {c['shape']} x {c['mesh']} " \
+               f"({c['chips']} cards, {hw}): {c['status']}"
+        if c["status"] == "ok":
+            rl, mem = c["roofline"], c["memory"]
+            line += (f", trace {c['compile_s']:.1f} s, FLOPs "
+                     f"{rl['flops']:.4g} (GEMM {c['gemm_flops']:.4g}), "
+                     f"per-device arguments "
+                     f"{_gib(mem['argument_size_in_bytes'])}, outputs "
+                     f"{_gib(mem['output_size_in_bytes'])}, donated "
+                     f"{_gib(mem['alias_size_in_bytes'])}, temp (lower "
+                     f"bound) {_gib(mem['temp_size_in_bytes'])}, "
+                     f"collectives/card {c['collectives']} counts "
+                     f"{c['collective_counts']}, t_compute "
+                     f"{rl['t_compute_s']:.4g} s, t_memory "
+                     f"{rl['t_memory_s']:.4g} s, t_collective "
+                     f"{rl['t_collective_s']:.4g} s, bottleneck "
+                     f"{rl['bottleneck']}, useful FLOPs "
+                     f"{rl['useful_flops_ratio']:.4f}, roofline fraction "
+                     f"{rl['roofline_fraction']:.3g}, gathered ops "
+                     f"{c['replicated_ops']}")
+        print(line)
+    by = {(c["arch"], c["shape"]): c for c in got}
+    c = by[("granite-3-2b", "decode_32k")]
+    _check(c["status"] == "ok" and c["chips"] == 256
+           and c["roofline"]["flops"] > 0 and c["roofline"]["t_memory_s"] > 0
+           and c["roofline"]["bottleneck"] in ("compute", "memory",
+                                               "collective"),
+           "dry-run: the single-pod decode cell")
+    c = by[("h2o-danube-1.8b", "train_4k")]
+    _check(c["status"] == "ok" and c["chips"] == 512
+           and c["collectives"]["total"] > 0
+           and c["roofline"]["useful_flops_ratio"] > 0.05,
+           "dry-run: the multi-pod train cell")
+    _check(by[("qwen2.5-3b", "long_500k")]["status"] == "skipped"
+           and by[("rwkv6-7b", "long_500k")]["status"] == "ok",
+           "dry-run: the long-context skip policy")
+    print(f"dryrun cells: {wall:.1f} s for the four subprocesses at once")
+
+    # (b) phase 6c's step: the abstract cell on the host mesh against the
+    # same counter around one real step on the card
+    cfg = get_config("qwen2.5-3b")
+    shape = ShapeConfig("train_4k_batch_1", TRAIN_SEQ, TRAIN_BATCH, "train")
+    init_fake_world()
+    try:
+        mesh = make_host_mesh("cuda")
+        cell, t_cell = run("dryrun qwen2.5-3b step on the host mesh",
+                           lambda: dryrun.measure_cell(cfg, shape, mesh))
+    finally:
+        destroy_fake_world()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = models.init_params(cfg, gen, device=dev)
+    opt_cfg = adamw.AdamWConfig(moment_dtype=torch.float32)
+    state = adamw.init(opt_cfg, dict(model.named_parameters()))
+    batch = batch_to(SyntheticTokenSource(cfg, shape, seed=0).batch_at(0),
+                     dev)
+    real, t_real = run("counted qwen2.5-3b step on the card", lambda: flops(
+        make_train_step(cfg, opt_cfg, remat=True), model, state, batch))
+    del model, state, batch
+    torch.cuda.empty_cache()
+    rl, mem = cell["roofline"], cell["memory"]
+    print(f"qwen2.5-3b step ({hw}): abstract cell (host mesh "
+          f"{tuple(mesh.mesh.shape)}, traced in {t_cell:.1f} s) GEMM FLOPs "
+          f"{cell['gemm_flops']}, total {rl['flops']}; one real step counted "
+          f"({t_real:.1f} s): GEMM {real.gemm}, total {real.total}")
+    _check(cell["gemm_flops"] == real.gemm,
+           f"abstract GEMM FLOPs {cell['gemm_flops']} != the real step's "
+           f"{real.gemm}")
+    t_f32 = rl["flops"] / (rl["chips"] * F32_OPS_PER_S)
+    med = statistics.median(train["step_s"])
+    print(f"qwen2.5-3b step roofline ({hw}): t_compute {rl['t_compute_s']:.4f}"
+          f" s at bf16 peak, {t_f32:.4f} s at the f32 rate, t_memory "
+          f"{rl['t_memory_s']:.4f} s, t_collective {rl['t_collective_s']:.4f}"
+          f" s, bottleneck {rl['bottleneck']}; measured step (phase 6c) "
+          f"{med:.3f} s = {med / t_f32:.2f}x the f32 compute term")
+    print(f"qwen2.5-3b step memory ({hw}): arguments "
+          f"{_gib(mem['argument_size_in_bytes'])} + temp lower bound "
+          f"{_gib(mem['temp_size_in_bytes'])} = "
+          f"{_gib(mem['argument_size_in_bytes'] + mem['temp_size_in_bytes'])}"
+          f"; measured peak (phase 6c) {train['peak_gib']:.2f} GiB")
+
+    # (c) the rules on one card, at qwen2.5-3b's published width
+    one_card_rules(dev, hw, run, cfg)
+    print(f"phase 8 wall time: {time.perf_counter() - t_phase:.1f} s ({hw})")
+    return got
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3030,6 +3282,8 @@ def main() -> None:
     family_rows = families_phase(dev, smi.stdout.strip(), drive, counters)
     # -- training on the card (phase 6c) -----------------------------------
     train = train_phase(dev, smi.stdout.strip(), drive, counters)
+    # -- the sharding rules and the multi-pod dry-run (phase 8) -------------
+    dryrun_phase(dev, smi.stdout.strip(), drive, counters, train)
 
     print(f"service wall times ({smi.stdout.strip()}): " + "; ".join(
         f"{label} {kind} {wall:.4f} s" for label, kind, wall in service_walls))

@@ -7,8 +7,8 @@ the reference's draws, so the two packages see the same batch at every
 step, bit for bit; a trainer moves them to its device. The pipeline is
 stateful by step index only: resuming from a checkpoint replays nothing
 and skips nothing (the step index is part of the checkpoint's extra).
-`shard_batch` (the reference's device_put with per-input shardings) waits
-for the port's sharding (ROADMAP item 8).
+`shard_batch` lays a host batch out as DTensors on a mesh (the reference's
+device_put with per-input shardings).
 """
 from __future__ import annotations
 
@@ -74,3 +74,20 @@ class SyntheticTokenSource:
 
     def load_state_dict(self, d: Dict) -> None:
         self.state = PipelineState(**d)
+
+
+def shard_batch(batch: Dict[str, np.ndarray], placements_by_key, mesh) -> Dict:
+    """A host batch as DTensors on `mesh`: each array distributed with its
+    key's placements (`placements_by_key` a dict by key, or one placements
+    tuple for every key; `parallel.sharding.placements` turns a spec into
+    one)."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    out = {}
+    for k, v in batch.items():
+        pl = placements_by_key[k] if isinstance(placements_by_key, dict) \
+            else placements_by_key
+        out[k] = distribute_tensor(torch.from_numpy(np.ascontiguousarray(v)),
+                                   mesh, pl)
+    return out

@@ -75,7 +75,9 @@ def _tensor(a, device) -> torch.Tensor:
 
 def _host(t: torch.Tensor, numpy: bool):
     """A tensor on the host: numpy (bf16 as its uint16 bits) or a CPU
-    tensor."""
+    tensor; a DTensor's full value."""
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if not numpy:
         return t

@@ -6,8 +6,10 @@
 trains on the card ("cuda"; `--device cpu` runs here); without `--reduced`
 it trains the published config at `--shape` (`train_4k` by default).
 Checkpoints land in `--ckpt-dir`, and a rerun with the same directory
-resumes from the latest one. Multi-host training (`--coordinator`) waits
-for the port's sharding (ROADMAP item 8).
+resumes from the latest one. The port has its sharding rules
+(`parallel.sharding`, `Trainer(rules=, shardings=)`), but multi-card
+execution of them (`--coordinator`: `torch.distributed` over an explicit
+`tcp://` address) is ROADMAP item 23.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--coordinator", default=None,
                     help="host:port of a multi-host run (not in the port "
-                         "yet: ROADMAP item 8)")
+                         "yet: ROADMAP item 23)")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--device", default="cuda",
@@ -42,8 +44,9 @@ def main(argv=None):
 
     if args.coordinator:
         raise NotImplementedError(
-            "multi-host training (--coordinator) needs the port's sharding, "
-            "ROADMAP item 8; the port trains on one device")
+            "multi-host training (--coordinator) is ROADMAP item 23, the "
+            "multi-card part of ROADMAP item 8: the sharding rules run on "
+            "one device or on abstract meshes only")
 
     from ..optim import adamw
     from ..train.trainer import Trainer, TrainerConfig

@@ -7,7 +7,12 @@ others run where the parameters lie.
 Parameters are built with `requires_grad=False` (serving takes no
 gradient); a trainer turns them on (`model.requires_grad_(True)`), and
 `forward`/`lm_loss` then rematerialise each layer body (`remat=True`, the
-reference's default).
+reference's default). `rules` (`parallel.sharding.Rules`, None for
+`NULL_RULES`) constrains the layouts of DTensor parameters and activations
+where the reference's GSPMD constraints sit; on plain tensors every
+constraint is the identity. With DTensor parameters each entry point runs
+under `parallel.sharding.dtensor_run` (implicit replication of the plain
+tensors the models make, and a gather for ops DTensor cannot shard).
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 
 from .._device import resolve_device
 from ..configs.base import ModelConfig
+from ..parallel.sharding import NULL_RULES, dtensor_run
 from . import encdec, lm
 from .layers import DTYPE
 
@@ -41,20 +47,28 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return _module(cfg).init_params(cfg, generator, dev)
 
 
-def forward(params, cfg: ModelConfig, batch, remat: bool = True):
-    return _module(cfg).forward(params, cfg, batch, remat)
+def forward(params, cfg: ModelConfig, batch, rules=None, remat: bool = True):
+    with dtensor_run(params, batch):
+        return _module(cfg).forward(params, cfg, batch, rules or NULL_RULES,
+                                    remat)
 
 
-def lm_loss(params, cfg: ModelConfig, batch, **kw):
-    return _module(cfg).lm_loss(params, cfg, batch, **kw)
+def lm_loss(params, cfg: ModelConfig, batch, rules=None, remat: bool = True,
+            **kw):
+    with dtensor_run(params, batch):
+        return _module(cfg).lm_loss(params, cfg, batch, rules or NULL_RULES,
+                                    remat, **kw)
 
 
-def prefill(params, cfg: ModelConfig, batch):
-    return _module(cfg).prefill(params, cfg, batch)
+def prefill(params, cfg: ModelConfig, batch, rules=None):
+    with dtensor_run(params, batch):
+        return _module(cfg).prefill(params, cfg, batch, rules or NULL_RULES)
 
 
-def decode_step(params, cfg: ModelConfig, tokens, pos, cache):
-    return _module(cfg).decode_step(params, cfg, tokens, pos, cache)
+def decode_step(params, cfg: ModelConfig, tokens, pos, cache, rules=None):
+    with dtensor_run(params, tokens, cache):
+        return _module(cfg).decode_step(params, cfg, tokens, pos, cache,
+                                        rules or NULL_RULES)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, src_len: int = 0,

@@ -15,12 +15,17 @@ then casts back to the activation dtype. TF32 must stay off for that
 (`torch.backends.cuda.matmul.allow_tf32` False, float32 matmul precision
 "highest", PyTorch's defaults).
 
-The GSPMD layout knobs (`set_gqa_mode`, `set_xent_mode`, sharding rules)
-have no counterpart: the port runs on one card, attention is the default
-"grouped" GQA evaluation and `softmax_xent` the default "gather" form.
+Sharding goes through `rules` (`parallel.sharding.Rules`; `NULL_RULES`, the
+default, makes every `shard()` the identity) at the reference's places;
+`attention_specs` and `mlp_specs` give the parameters' specs. The GSPMD
+layout knobs `set_gqa_mode` and `set_xent_mode` have no counterpart:
+attention is the default "grouped" GQA evaluation and `softmax_xent` the
+default "gather" form.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 from typing import Optional
 
@@ -28,8 +33,21 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.sharding import NULL_RULES, move_shards, shard, unshard
+
 DTYPE = torch.bfloat16
 NEG_INF = -1e30
+
+
+def set_exec_safe(v: bool) -> None:
+    """The reference's switch between its exec-safe products (operands cast
+    to f32) and bf16 x bf16 -> f32 ones. The port's products are always
+    the exec-safe f32 ones: True changes nothing, and the bf16 path is
+    ROADMAP item 21."""
+    if not v:
+        raise NotImplementedError(
+            "bf16 x bf16 -> f32 products are not in the port (ROADMAP item "
+            "21); its products are always the exec-safe f32 ones")
 
 
 def einsum32(eq: str, *ops: torch.Tensor) -> torch.Tensor:
@@ -44,6 +62,41 @@ def matmul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with f32 accumulation, output in x.dtype."""
     return matmul32(x, w).to(x.dtype)
+
+
+# A trace that charges a loop's body once, times its trip count, sets this
+# to a context-manager factory `hook(n)` (`analysis.op_cost.Tracer`).
+_SCAN_HOOK: contextvars.ContextVar = contextvars.ContextVar("scan_hook",
+                                                            default=None)
+
+
+@contextlib.contextmanager
+def scan_hook(hook):
+    """Run `scan` loops under `hook` while the context is open."""
+    token = _SCAN_HOOK.set(hook)
+    try:
+        yield
+    finally:
+        _SCAN_HOOK.reset(token)
+
+
+def scan(step, carry, n: int, dim: int = 0):
+    """`jax.lax.scan` as a Python loop: `step(carry, t) -> (carry, y)` for
+    t in range(n); returns (the last carry, the ys stacked on `dim`). Under
+    a `scan_hook` (the dry-run's trace) the body runs once, inside
+    `hook(n)`, which charges its cost n times, and its y stands for every
+    step's (same shape and layout, a copy of the one step's)."""
+    hook = _SCAN_HOOK.get()
+    if hook is None or n <= 1:
+        ys = []
+        for t in range(n):
+            carry, y = step(carry, t)
+            ys.append(y)
+        return carry, torch.stack(ys, dim=dim)
+    with hook(n):
+        carry, y = step(carry, 0)
+    y = y.unsqueeze(dim)
+    return carry, y.expand(*y.shape[:dim], n, *y.shape[dim + 1:]).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -137,9 +190,31 @@ def attn_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, window: int = 0,
     return causal & in_win
 
 
+def positions_like(x: torch.Tensor) -> torch.Tensor:
+    """(B, S) positions 0..S-1 of x (B, S, ...). For a DTensor x, a DTensor
+    sharded like x's batch (replicated elsewhere), so that the masks and
+    rope tables built from it are split over the batch, not whole on every
+    device."""
+    from torch.distributed.tensor import DTensor, Replicate
+    b, s = x.shape[:2]
+    if not isinstance(x, DTensor):
+        return torch.arange(s, device=x.device).expand(b, s)
+    pl = [p if p.is_shard(0) else Replicate() for p in x.placements]
+    n = 1
+    for size, p in zip(x.device_mesh.mesh.shape, pl):
+        n *= size if p.is_shard(0) else 1
+    local = torch.arange(s, device=x.to_local().device).expand(b // n, s)
+    return DTensor.from_local(local, x.device_mesh, pl, run_check=False,
+                              shape=torch.Size((b, s)), stride=(0, 1))
+
+
 def gqa_attend(q, k, v, mask, softcap: float = 0.0):
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); mask: (B, Sq, Skv) bool.
-    Grouped evaluation on the (B, S, Hkv, G, D) view (no KV copy)."""
+    Grouped evaluation on the (B, S, Hkv, G, D) view (no KV copy). On
+    DTensors the keys' sequence is gathered first (a sequence-sharded K/V
+    would otherwise make the softmax gather the scores, S_q times
+    larger)."""
+    k, v = unshard(k, (1,)), unshard(v, (1,))
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
@@ -156,11 +231,36 @@ def gqa_attend(q, k, v, mask, softcap: float = 0.0):
         probs = probs_of(einsum32("bqhd,bkhd->bhqk", q, k) * scale,
                          mask[:, None, :, :])
         return einsum32("bhqk,bkhd->bqhd", probs, v).to(v.dtype)
-    qg = q.reshape(b, sq, hkv, g, d)
+    qg = _split_heads(q, hkv, g)
     probs = probs_of(einsum32("bqhgd,bkhd->bhgqk", qg, k) * scale,
                      mask[:, None, None, :, :])
     out = einsum32("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(b, sq, hq, d).to(v.dtype)
+
+
+def attention_specs(rules):
+    return {"wq": rules.w_qkv, "wk": rules.w_qkv, "wv": rules.w_qkv,
+            "wo": rules.w_out, "bq": rules.b_model, "bk": rules.replicated,
+            "bv": rules.replicated}
+
+
+def _split_heads(q, hkv: int, g: int):
+    """(B, S, Hkv G, D) -> (B, S, Hkv, G, D). DTensor can split a sharded
+    dimension only along its leading factor: a head axis sharded over more
+    devices than Hkv divides into moves its sharding to the query sequence
+    (then the scores stay split), or, when that does not divide either (a
+    decode step), is gathered."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        k = 1
+        for n, p in zip(q.device_mesh.mesh.shape, q.placements):
+            if p.is_shard(2):
+                k *= n
+        if hkv % k:
+            q = move_shards(q, 2, 1) if q.shape[1] % k == 0 \
+                else unshard(q, (2,))
+    b, sq, _, d = q.shape
+    return q.reshape(b, sq, hkv, g, d)
 
 
 class Attention(nn.Module):
@@ -201,7 +301,8 @@ class Attention(nn.Module):
         return rope(k, positions, cfg.rope_theta), v
 
     def forward(self, cfg, x, positions, *, kv=None, kv_positions=None,
-                is_local: Optional[bool] = None, causal: bool = True):
+                is_local: Optional[bool] = None, causal: bool = True,
+                rules=NULL_RULES):
         """Self-attention over x, or attention against the given (k, v)
         (decode: the whole cache, `kv_positions` masking unwritten slots);
         `causal=False` is the encoder's bidirectional attention over the
@@ -209,9 +310,11 @@ class Attention(nn.Module):
         q = einsum32("bsd,dhk->bshk", x, self.wq).to(x.dtype)
         if self.has_bias:
             q = q + self.bq
-        q = rope(q, positions, cfg.rope_theta)
+        q = shard(rope(q, positions, cfg.rope_theta), rules.heads)
         if kv is None:
             k, v = self.project_kv(cfg, x, positions)
+            kv_spec = getattr(rules, "kv_heads", None) or rules.heads
+            k, v = shard(k, kv_spec), shard(v, kv_spec)
             kv_positions = positions
         else:
             k, v = kv
@@ -229,6 +332,10 @@ class Attention(nn.Module):
 # Gated MLP (SwiGLU / GeGLU)
 # --------------------------------------------------------------------------
 
+def mlp_specs(rules):
+    return {"wi": rules.w_col, "wg": rules.w_col, "wo": rules.w_row}
+
+
 class MLP(nn.Module):
     def __init__(self, d: int, d_ff: int, act: str = "silu", device=None):
         super().__init__()
@@ -244,8 +351,8 @@ class MLP(nn.Module):
             _normal_(self.wg, generator, d ** -0.5)
             _normal_(self.wo, generator, d_ff ** -0.5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = dense(x, self.wi)
+    def forward(self, x: torch.Tensor, rules=NULL_RULES) -> torch.Tensor:
+        h = shard(dense(x, self.wi), rules.ffn_hidden)
         g = dense(x, self.wg)
         # gelu is PyTorch's tanh form, not jax.nn.gelu op for op: no
         # ported config uses it
@@ -291,14 +398,29 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return einsum32("bsd,vd->bsv", x, table)
 
 
+def _gold(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """logits[..., target]. On a DTensor: the vocabulary gathered, then a
+    masked sum over it, which picks the same value exactly (one nonzero
+    term) — DTensor zero-fills a gather's gradient as a full-size
+    replicated tensor (`new_zeros` has no sharded strategy), where the
+    mask keeps the batch's sharding."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, targets[..., None])[..., 0]
+    logits = unshard(logits, (-1,))
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    hit = vocab == targets[..., None]
+    return torch.where(hit, logits, torch.zeros((), device=logits.device)
+                       ).sum(-1)
+
+
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross-entropy of f32 logits (B, S, V) against int
     targets (B, S); with `mask`, the mean over its nonzero positions. The
     gold logit is gathered (the reference's default "gather" form)."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    nll = logz - gold
+    nll = logz - _gold(logits, targets.long())
     if mask is None:
         return torch.mean(nll)
     mask = mask.float()

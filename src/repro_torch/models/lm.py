@@ -25,8 +25,10 @@ modules, and the caches keep the reference's layer-stacked layouts:
 
 `decode_step` writes the new cache rows and states into the cache in place
 (the reference returns an updated copy) and returns the same dict. The
-enc-dec family is `encdec.py`'s. `forward` takes no sharding rules (the
-port runs on one card). With `remat=True` (the default, as in the
+enc-dec family is `encdec.py`'s. Every entry point takes `rules`
+(`parallel.sharding.Rules`; `NULL_RULES` by default, which changes
+nothing) and constrains the residual stream, the K/V rows and the logits
+where the reference does. With `remat=True` (the default, as in the
 reference) and gradients enabled, each layer body runs under
 `torch.utils.checkpoint` where the reference puts `jax.checkpoint`: every
 layer of a stack, each hybrid group (its shared attention and Mamba layers,
@@ -42,12 +44,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..parallel.sharding import NULL_RULES, shard
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from . import ssd as ssd_mod
 from .layers import (DTYPE, MLP, Attention, Embedding, RMSNorm, _param,
-                     embed, softmax_xent, unembed)
+                     embed, positions_like, softmax_xent, unembed)
 
 DECODER_FAMILIES = ("dense", "vlm", "moe", "mla_moe", "hybrid_ssm", "rwkv")
 
@@ -219,61 +222,87 @@ def _layer_flags(cfg):
 # Blocks
 # --------------------------------------------------------------------------
 
-def _ffn(blk, cfg, h):
+def _moe_groups(rules) -> int:
+    return getattr(rules, "moe_groups", 1) or 1
+
+
+def _ffn(blk, cfg, h, rules=NULL_RULES):
     """(the block's FFN output, its MoE aux loss or None)."""
     if isinstance(blk, MoEBlock):
-        return moe_mod.apply_moe_dispatch(blk.moe, cfg, h)
-    return blk.mlp(h), None
+        return moe_mod.apply_moe_dispatch(
+            blk.moe, cfg, h, rules, groups=_moe_groups(rules),
+            mode=getattr(rules, "moe_dispatch", None) or "sort")
+    return blk.mlp(h, rules), None
 
 
-def _block_fwd(blk, cfg, x, positions, is_local=None):
+def _block_fwd(blk, cfg, x, positions, is_local=None, rules=NULL_RULES):
     h = blk.ln1(x)
     if isinstance(blk.attn, mla_mod.MLA):
-        x = x + mla_mod.apply_mla(blk.attn, cfg, h, positions)
+        x = x + mla_mod.apply_mla(blk.attn, cfg, h, positions, rules)
     else:
-        x = x + blk.attn(cfg, h, positions, is_local=is_local)
-    y, aux = _ffn(blk, cfg, blk.ln2(x))
-    return x + y, aux
+        x = x + blk.attn(cfg, h, positions, is_local=is_local, rules=rules)
+    x = shard(x, rules.resid)
+    y, aux = _ffn(blk, cfg, blk.ln2(x), rules)
+    return shard(x + y, rules.resid), aux
 
 
-def _attn_prefill(blk, cfg, x, positions, is_local=None):
-    """A GQA block over the prompt: (x, its K and V rows)."""
+def _attn_prefill(blk, cfg, x, positions, is_local=None, rules=NULL_RULES,
+                  kv_spec=None):
+    """A GQA block over the prompt: (x, its K and V rows, constrained to
+    `kv_spec`)."""
     h = blk.ln1(x)
     k, v = blk.attn.project_kv(cfg, h, positions)
+    k, v = shard(k, kv_spec), shard(v, kv_spec)
     x = x + blk.attn(cfg, h, positions, kv=(k, v), kv_positions=positions,
-                     is_local=is_local)
-    return x + _ffn(blk, cfg, blk.ln2(x))[0], k, v
+                     is_local=is_local, rules=rules)
+    return shard(x + _ffn(blk, cfg, blk.ln2(x), rules)[0], rules.resid), k, v
 
 
-def _mla_prefill(blk, cfg, x, positions):
+def _mla_prefill(blk, cfg, x, positions, rules=NULL_RULES):
     """An MLA block over the prompt: (x, its latent and rope-key rows)."""
     h = blk.ln1(x)
     c, r = mla_mod.latent_kv(blk.attn, cfg, h, positions)
-    x = x + mla_mod.apply_mla(blk.attn, cfg, h, positions)
-    return x + _ffn(blk, cfg, blk.ln2(x))[0], c, r
+    x = x + mla_mod.apply_mla(blk.attn, cfg, h, positions, rules)
+    return shard(x + _ffn(blk, cfg, blk.ln2(x), rules)[0], rules.resid), c, r
+
+
+def write_row(rows, pos: int, new):
+    """`rows` (B, T, ...) with `new` (B, 1, ...) at `pos`: written in place
+    into a plain tensor (the card's cache), by `slice_scatter` into a new
+    DTensor (a sharded cache cannot take an in-place slice write; the
+    reference's `dynamic_update_slice` is functional too)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(rows, DTensor):
+        return torch.slice_scatter(rows, new, dim=1, start=pos, end=pos + 1)
+    rows[:, pos:pos + 1] = new
+    return rows
 
 
 def _attn_decode(blk, cfg, x, pos, q_pos, kv_pos, k_row, v_row,
-                 is_local=None):
-    """One token through a GQA block, its K/V row written at `pos`."""
+                 is_local=None, rules=NULL_RULES):
+    """One token through a GQA block, its K/V row written at `pos`.
+    Returns (x, the K rows, the V rows)."""
     h = blk.ln1(x)
     k1, v1 = blk.attn.project_kv(cfg, h, q_pos)
-    k_row[:, pos:pos + 1] = k1
-    v_row[:, pos:pos + 1] = v1
+    k_row = shard(write_row(k_row, pos, k1), rules.kv_cache)
+    v_row = shard(write_row(v_row, pos, v1), rules.kv_cache)
     x = x + blk.attn(cfg, h, q_pos, kv=(k_row, v_row), kv_positions=kv_pos,
-                     is_local=is_local)
-    return x + _ffn(blk, cfg, blk.ln2(x))[0]
+                     is_local=is_local, rules=rules)
+    return x + _ffn(blk, cfg, blk.ln2(x), rules)[0], k_row, v_row
 
 
-def _mla_decode(blk, cfg, x, pos, q_pos, kv_pos, c_row, r_row):
+def _mla_decode(blk, cfg, x, pos, q_pos, kv_pos, c_row, r_row,
+                rules=NULL_RULES):
     """One token through an MLA block (absorbed form), its latent and
-    rope-key rows written at `pos`."""
+    rope-key rows written at `pos`. Returns (x, the latent rows, the
+    rope-key rows)."""
     h = blk.ln1(x)
     c1, r1 = mla_mod.latent_kv(blk.attn, cfg, h, q_pos)
-    c_row[:, pos:pos + 1] = c1
-    r_row[:, pos:pos + 1] = r1
-    x = x + mla_mod.decode_mla(blk.attn, cfg, h, q_pos, c_row, r_row, kv_pos)
-    return x + _ffn(blk, cfg, blk.ln2(x))[0]
+    c_row = write_row(c_row, pos, c1)
+    r_row = write_row(r_row, pos, r1)
+    x = x + mla_mod.decode_mla(blk.attn, cfg, h, q_pos, c_row, r_row, kv_pos,
+                               rules)
+    return x + _ffn(blk, cfg, blk.ln2(x), rules)[0], c_row, r_row
 
 
 def _mamba_groups(params: DecoderLM, cfg):
@@ -283,14 +312,17 @@ def _mamba_groups(params: DecoderLM, cfg):
                   for j in range(a)]) for gi in range(g)]
 
 
-def _rwkv_layer(layer, cfg, x, last_t=None, state=None, last_c=None):
-    """(x, new state, last time-mix input, last channel-mix input)."""
-    y, (lt, s) = rwkv_mod.apply_rwkv_time(layer.time, cfg, layer.ln1(x),
-                                          last=last_t, state=state)
-    x = x + y
+def _rwkv_layer(layer, cfg, x, last_t=None, state=None, last_c=None,
+                rules=NULL_RULES, resid=None):
+    """(x, new state, last time-mix input, last channel-mix input); the
+    residual stream constrained to `resid` after each half."""
+    y, (lt, s) = rwkv_mod.apply_rwkv_time(
+        layer.time, cfg, layer.ln1(x), last=last_t, state=state,
+        wkv_mode=getattr(rules, "wkv_mode", None) or "scan", rules=rules)
+    x = shard(x + y, resid)
     y, lc = rwkv_mod.apply_rwkv_channel(layer.channel, cfg, layer.ln2(x),
-                                        last=last_c)
-    return x + y, s, lt, lc
+                                        last=last_c, rules=rules)
+    return shard(x + y, resid), s, lt, lc
 
 
 # --------------------------------------------------------------------------
@@ -304,9 +336,7 @@ def _embed_inputs(params: DecoderLM, cfg, batch):
     if cfg.n_prefix_embeds and "embeds" in batch:
         x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
         n_prefix = batch["embeds"].shape[1]
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
-    return x, positions, n_prefix
+    return x, positions_like(x), n_prefix
 
 
 def _logits(params: DecoderLM, x):
@@ -323,19 +353,23 @@ def remat_fn(fn, remat: bool):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
-def forward(params: DecoderLM, cfg: ModelConfig, batch, remat: bool = True):
+def forward(params: DecoderLM, cfg: ModelConfig, batch, rules=NULL_RULES,
+            remat: bool = True):
     """Full-sequence forward. Returns dict(logits (B, S, V) f32, aux_moe
     (the MoE layers' summed aux loss, 0.0 without MoE), n_prefix, and for
     mla_moe with MTP, mtp_logits)."""
     x, positions, n_prefix = _embed_inputs(params, cfg, batch)
+    x = shard(x, rules.resid)
     fam = cfg.family
     auxs = []
     if fam == "hybrid_ssm":
         def mamba_body(layer, x):
-            return x + ssd_mod.apply_mamba(layer.m, cfg, layer.ln(x))
+            y = ssd_mod.apply_mamba(layer.m, cfg, layer.ln(x), rules=rules)
+            return shard(x + y, rules.resid)
 
         def group_body(layers, x):
-            x, _ = _block_fwd(params.shared_attn, cfg, x, positions)
+            x, _ = _block_fwd(params.shared_attn, cfg, x, positions,
+                              rules=rules)
             for _, layer in layers:
                 x = mamba_body(layer, x)
             return x
@@ -346,12 +380,13 @@ def forward(params: DecoderLM, cfg: ModelConfig, batch, remat: bool = True):
         for layer in params.mamba_tail:
             x = tail(layer, x)
     elif fam == "rwkv":
-        body = remat_fn(lambda layer, x: _rwkv_layer(layer, cfg, x)[0], remat)
+        body = remat_fn(lambda layer, x: _rwkv_layer(
+            layer, cfg, x, rules=rules, resid=rules.resid)[0], remat)
         for layer in params.layers:
             x = body(layer, x)
     else:
         body = remat_fn(lambda blk, x, fl: _block_fwd(blk, cfg, x, positions,
-                                                      fl), remat)
+                                                      fl, rules), remat)
         for blk, fl in zip(params.blocks(), _layer_flags(cfg)):
             x, aux = body(blk, x, fl)
             if aux is not None:
@@ -359,7 +394,7 @@ def forward(params: DecoderLM, cfg: ModelConfig, batch, remat: bool = True):
 
     x = params.final_norm(x)
     table = params.head_table()
-    out = {"logits": unembed(table, x),
+    out = {"logits": shard(unembed(table, x), rules.logits),
            "aux_moe": torch.stack(auxs).sum() if auxs else 0.0,
            "n_prefix": n_prefix}
     if params.mtp is not None:
@@ -370,16 +405,17 @@ def forward(params: DecoderLM, cfg: ModelConfig, batch, remat: bool = True):
                               dims=1)
         h = torch.cat([mtp.norm_h(x), mtp.norm_e(emb_next)], dim=-1) \
             @ mtp.proj
-        h, _ = _block_fwd(mtp.block, cfg, h.to(x.dtype), positions)
-        out["mtp_logits"] = unembed(table, h)
+        h, _ = _block_fwd(mtp.block, cfg, h.to(x.dtype), positions,
+                          rules=rules)
+        out["mtp_logits"] = shard(unembed(table, h), rules.logits)
     return out
 
 
-def lm_loss(params: DecoderLM, cfg: ModelConfig, batch, remat: bool = True,
-            aux_coeff=0.01, mtp_coeff=0.3):
+def lm_loss(params: DecoderLM, cfg: ModelConfig, batch, rules=NULL_RULES,
+            remat: bool = True, aux_coeff=0.01, mtp_coeff=0.3):
     """Next-token loss (+ the MoE aux loss + MTP). Returns (loss, the
     forward's dict)."""
-    out = forward(params, cfg, batch, remat)
+    out = forward(params, cfg, batch, rules, remat)
     tokens = batch["tokens"]
     npre = out["n_prefix"]
     # predict tokens[:, 1:] from positions [npre : -1]
@@ -432,22 +468,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     raise ValueError(f"init_cache: family {fam!r} is not a decoder family")
 
 
-def prefill(params: DecoderLM, cfg: ModelConfig, batch):
+def prefill(params: DecoderLM, cfg: ModelConfig, batch, rules=NULL_RULES):
     """Returns (last-position f32 logits (B, V), the cache of the prompt's
     length, laid out as `init_cache`'s)."""
     x, positions, _ = _embed_inputs(params, cfg, batch)
+    x = shard(x, rules.resid)
     fam = cfg.family
     if fam in ("dense", "vlm", "moe"):
         ks, vs = [], []
         for blk, fl in zip(params.layers, _layer_flags(cfg)):
-            x, k, v = _attn_prefill(blk, cfg, x, positions, fl)
+            x, k, v = _attn_prefill(blk, cfg, x, positions, fl, rules,
+                                    rules.kv_cache)
             ks.append(k)
             vs.append(v)
         cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
     elif fam == "mla_moe":
         cs, rs = [], []
         for blk in params.blocks():
-            x, c, r = _mla_prefill(blk, cfg, x, positions)
+            x, c, r = _mla_prefill(blk, cfg, x, positions, rules)
             cs.append(c)
             rs.append(r)
         cache = {"c": torch.stack(cs), "rope": torch.stack(rs)}
@@ -456,13 +494,14 @@ def prefill(params: DecoderLM, cfg: ModelConfig, batch):
 
         def mamba(layer, x, hs, convs):
             y, st = ssd_mod.apply_mamba(layer.m, cfg, layer.ln(x),
-                                        return_state=True)
+                                        return_state=True, rules=rules)
             hs.append(st["h"])
             convs.append(st["conv"])
-            return x + y
+            return shard(x + y, rules.resid)
 
         for _, layers in _mamba_groups(params, cfg):
-            x, k, v = _attn_prefill(params.shared_attn, cfg, x, positions)
+            x, k, v = _attn_prefill(params.shared_attn, cfg, x, positions,
+                                    rules=rules)
             ks.append(k)
             vs.append(v)
             for _, layer in layers:
@@ -478,7 +517,8 @@ def prefill(params: DecoderLM, cfg: ModelConfig, batch):
     else:  # rwkv
         ss, lts, lcs = [], [], []
         for layer in params.layers:
-            x, s, lt, lc = _rwkv_layer(layer, cfg, x)
+            x, s, lt, lc = _rwkv_layer(layer, cfg, x, rules=rules,
+                                       resid=rules.resid)
             ss.append(s)
             lts.append(lt)
             lcs.append(lc)
@@ -495,16 +535,41 @@ def _decode_positions(batch_size: int, max_len: int, pos: int, device):
 
 
 def _mamba_decode(layer, cfg, x, h_row, conv_row):
-    """One token through a Mamba layer; its state rows updated in place."""
+    """One token through a Mamba layer. Returns (x, its new state rows)."""
     y, st = ssd_mod.decode_mamba(layer.m, cfg, layer.ln(x),
                                  {"h": h_row, "conv": conv_row})
-    h_row.copy_(st["h"])
-    conv_row.copy_(st["conv"])
-    return x + y
+    return x + y, st["h"], st["conv"]
+
+
+class _Rows:
+    """A decode step's view of one layer-stacked cache: row i read as
+    `cache[name][i]`; `set` writes a layer's new rows back, in place into a
+    plain cache (the card's), and on DTensors (the dry-run's sharded
+    caches, which take no in-place write) restacked into a new cache entry
+    at the end of the step, as the reference's layer scan returns it."""
+
+    def __init__(self, cache):
+        from torch.distributed.tensor import DTensor
+        self.cache = cache
+        self.functional = any(isinstance(t, DTensor) for t in cache.values())
+        self.new = {}
+
+    def set(self, name, i, row):
+        if self.functional:
+            self.new.setdefault(name, {})[i] = row
+        elif row is not self.cache[name][i] and \
+                row.data_ptr() != self.cache[name][i].data_ptr():
+            self.cache[name][i].copy_(row)
+
+    def result(self):
+        for name, rows in self.new.items():
+            self.cache[name] = torch.stack([rows[i]
+                                            for i in range(len(rows))])
+        return self.cache
 
 
 def decode_step(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
-                pos: int, cache: Dict[str, torch.Tensor]):
+                pos: int, cache: Dict[str, torch.Tensor], rules=NULL_RULES):
     """tokens: (B, 1) int; pos: the current write index. Writes the new
     cache rows (and recurrent states) into `cache` and returns (f32 logits
     (B, V), cache)."""
@@ -514,29 +579,42 @@ def decode_step(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
     if rows is not None:
         q_pos, kv_pos = _decode_positions(x.shape[0], rows.shape[2], pos,
                                           x.device)
+    out = _Rows(cache)
     if fam in ("dense", "vlm", "moe"):
         for i, (blk, fl) in enumerate(zip(params.layers, _layer_flags(cfg))):
-            x = _attn_decode(blk, cfg, x, pos, q_pos, kv_pos, cache["k"][i],
-                             cache["v"][i], fl)
+            x, k, v = _attn_decode(blk, cfg, x, pos, q_pos, kv_pos,
+                                   cache["k"][i], cache["v"][i], fl, rules)
+            out.set("k", i, k)
+            out.set("v", i, v)
     elif fam == "mla_moe":
         for i, blk in enumerate(params.blocks()):
-            x = _mla_decode(blk, cfg, x, pos, q_pos, kv_pos, cache["c"][i],
-                            cache["rope"][i])
+            x, c, r = _mla_decode(blk, cfg, x, pos, q_pos, kv_pos,
+                                  cache["c"][i], cache["rope"][i], rules)
+            out.set("c", i, c)
+            out.set("rope", i, r)
     elif fam == "hybrid_ssm":
         for gi, layers in _mamba_groups(params, cfg):
-            x = _attn_decode(params.shared_attn, cfg, x, pos, q_pos, kv_pos,
-                             cache["k"][gi], cache["v"][gi])
+            x, k, v = _attn_decode(params.shared_attn, cfg, x, pos, q_pos,
+                                   kv_pos, cache["k"][gi], cache["v"][gi],
+                                   rules=rules)
+            out.set("k", gi, k)
+            out.set("v", gi, v)
             for i, layer in layers:
-                x = _mamba_decode(layer, cfg, x, cache["h"][i],
-                                  cache["conv"][i])
+                x, h, conv = _mamba_decode(layer, cfg, x, cache["h"][i],
+                                           cache["conv"][i])
+                out.set("h", i, h)
+                out.set("conv", i, conv)
         for i, layer in enumerate(params.mamba_tail):
-            x = _mamba_decode(layer, cfg, x, cache["h_tail"][i],
-                              cache["conv_tail"][i])
+            x, h, conv = _mamba_decode(layer, cfg, x, cache["h_tail"][i],
+                                       cache["conv_tail"][i])
+            out.set("h_tail", i, h)
+            out.set("conv_tail", i, conv)
     else:  # rwkv
         for i, layer in enumerate(params.layers):
             x, s, lt, lc = _rwkv_layer(layer, cfg, x, cache["last_t"][i],
-                                       cache["s"][i], cache["last_c"][i])
-            cache["s"][i].copy_(s)
-            cache["last_t"][i].copy_(lt)
-            cache["last_c"][i].copy_(lc)
-    return _logits(params, x)[:, 0], cache
+                                       cache["s"][i], cache["last_c"][i],
+                                       rules)
+            out.set("s", i, s)
+            out.set("last_t", i, lt)
+            out.set("last_c", i, lc)
+    return _logits(params, x)[:, 0], out.result()

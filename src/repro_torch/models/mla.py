@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.sharding import NULL_RULES, shard
 from .layers import (NEG_INF, RMSNorm, _f32, _normal_, _param, attn_mask,
                      einsum32, matmul32, rms_norm, rope)
 
@@ -53,7 +54,14 @@ class MLA(nn.Module):
                 _normal_(self.wq, generator, d ** -0.5)
 
 
-def _queries(p: MLA, cfg, x, positions):
+def mla_specs(cfg, rules):
+    return {"wkv_a": rules.w_col, "kv_norm": {"scale": rules.replicated},
+            "wk_b": rules.w_qkv, "wv_b": rules.w_qkv, "wo": rules.w_out,
+            "wq_a": rules.w_col, "q_norm": {"scale": rules.replicated},
+            "wq_b": rules.w_qkv, "wq": rules.w_qkv}
+
+
+def _queries(p: MLA, cfg, x, positions, rules=NULL_RULES):
     m = cfg.mla
     if m.q_lora_rank:
         ql = rms_norm(p.q_norm.scale, matmul32(x, p.wq_a).to(x.dtype),
@@ -62,7 +70,8 @@ def _queries(p: MLA, cfg, x, positions):
     else:
         q = einsum32("bsd,dhk->bshk", x, p.wq).to(x.dtype)
     q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
-    return q_nope, rope(q_rope, positions, cfg.rope_theta)
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    return shard(q_nope, rules.heads), shard(q_rope, rules.heads)
 
 
 def latent_kv(p: MLA, cfg, x, positions):
@@ -87,12 +96,14 @@ def _scale(cfg, device):
     return _f32((m.nope_head_dim + m.rope_head_dim) ** -0.5, device)
 
 
-def apply_mla(p: MLA, cfg, x, positions):
+def apply_mla(p: MLA, cfg, x, positions, rules=NULL_RULES):
     """Full-sequence causal MLA, the expanded form (prefill, scoring)."""
-    q_nope, q_rope = _queries(p, cfg, x, positions)
+    q_nope, q_rope = _queries(p, cfg, x, positions, rules)
     c_kv, k_rope = latent_kv(p, cfg, x, positions)
-    k_nope = einsum32("bsr,rhk->bshk", c_kv, p.wk_b).to(x.dtype)
-    v = einsum32("bsr,rhk->bshk", c_kv, p.wv_b).to(x.dtype)
+    k_nope = shard(einsum32("bsr,rhk->bshk", c_kv, p.wk_b).to(x.dtype),
+                   rules.heads)
+    v = shard(einsum32("bsr,rhk->bshk", c_kv, p.wv_b).to(x.dtype),
+              rules.heads)
     scores = (einsum32("bqhn,bkhn->bhqk", q_nope, k_nope)
               + einsum32("bqhr,bkr->bhqk", q_rope, k_rope)) \
         * _scale(cfg, x.device)
@@ -102,10 +113,10 @@ def apply_mla(p: MLA, cfg, x, positions):
 
 
 def decode_mla(p: MLA, cfg, x, positions, cache_c, cache_rope,
-               kv_positions):
+               kv_positions, rules=NULL_RULES):
     """The absorbed form against the rank-compressed cache.
     cache_c: (B, Smax, R); cache_rope: (B, Smax, rope_dim); x: (B, 1, D)."""
-    q_nope, q_rope = _queries(p, cfg, x, positions)
+    q_nope, q_rope = _queries(p, cfg, x, positions, rules)
     # W_UK absorbed: the query in latent space
     q_c = einsum32("bqhn,rhn->bqhr", q_nope, p.wk_b).to(x.dtype)
     scores = (einsum32("bqhr,bkr->bhqk", q_c, cache_c)

@@ -7,7 +7,10 @@ drop to the residual path), run through batched expert GEMMs and combined
 back with their routing weights. Two dispatches, as in the reference: the
 stable sort (`apply_moe`, the default) and GShard's per-group cumsum
 (`apply_moe_cumsum`); `apply_moe_dispatch(..., mode=)` picks one per call
-(the reference's module global `DISPATCH_MODE` has no counterpart).
+(the reference's module global `DISPATCH_MODE` has no counterpart). Under
+sharding rules the (E, C, D) buffer and the experts' output are constrained
+to `rules.expert_tokens` (the cumsum dispatch's (G, E, C, D) ones to groups
+over the data axes and experts over the EP axes), as in the reference.
 
 Bit-level choices, each the reference's:
   * top-k keeps the lower expert id first on ties (`jax.lax.top_k`): a
@@ -28,7 +31,9 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from .layers import DTYPE, MLP, _normal_, _param, einsum32, sigmoid, silu
+from ..parallel.sharding import NULL_RULES, replicated, shard
+from .layers import (DTYPE, MLP, _normal_, _param, einsum32, mlp_specs,
+                     sigmoid, silu)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -62,6 +67,15 @@ class MoE(nn.Module):
             _normal_(self.wo, generator, d_expert ** -0.5)
             if self.route_bias is not None:
                 self.route_bias.zero_()
+
+
+def moe_specs(cfg, rules):
+    s = {"router": rules.replicated, "wi": rules.w_expert_in,
+         "wg": rules.w_expert_in, "wo": rules.w_expert_out,
+         "route_bias": rules.replicated}
+    if cfg.moe.n_shared:
+        s["shared"] = mlp_specs(rules)
+    return s
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -109,6 +123,17 @@ def _or_spare(keep, dest, spare: int):
     return torch.where(keep, dest, torch.full_like(dest, spare))
 
 
+def _put_rows(buf, index, rows):
+    """`buf[index] = rows`: in place on a plain tensor; on a DTensor the
+    out-of-place `index_put` (DTensor has no strategy for the in-place
+    one, and the dry-run's gather fallback retries functional ops only)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(buf, DTensor):
+        return buf.index_put(index, rows)
+    buf[index] = rows
+    return buf
+
+
 def _combine(contrib: torch.Tensor) -> torch.Tensor:
     """(T, k, D) bf16 -> (T, D): each token's k contributions added in
     order into a zero bf16 row, rounding at each add (the reference's
@@ -119,11 +144,12 @@ def _combine(contrib: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _shared(p: MoE, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    return out if p.shared is None else out + p.shared(x)
+def _shared(p: MoE, x: torch.Tensor, out: torch.Tensor,
+            rules) -> torch.Tensor:
+    return out if p.shared is None else out + p.shared(x, rules)
 
 
-def apply_moe(p: MoE, cfg, x: torch.Tensor):
+def apply_moe(p: MoE, cfg, x: torch.Tensor, rules=NULL_RULES):
     """The sort dispatch. x: (B, S, D) -> ((B, S, D), aux scalar)."""
     mo = cfg.moe
     b, s, d = x.shape
@@ -138,24 +164,29 @@ def apply_moe(p: MoE, cfg, x: torch.Tensor):
     w_sorted = w.reshape(t * k).to(DTYPE)[order]
 
     cap = _round_up(int(t * k / n_e * mo.capacity_factor) or 1, 8)
-    starts = torch.searchsorted(e_sorted, torch.arange(n_e, device=x.device))
+    # searchsorted has no DTensor sharding strategy: under sharding rules
+    # it runs replicated (`replicated`, DTensor's local_map)
+    starts = replicated(torch.searchsorted, e_sorted,
+                        torch.arange(n_e, device=x.device))
     pos_in_e = torch.arange(t * k, device=x.device) - starts[e_sorted]
     keep = pos_in_e < cap
     dest = e_sorted * cap + torch.clamp(pos_in_e, 0, cap - 1)
 
-    buf = xf.new_zeros((n_e * cap + 1, d))
-    buf[_or_spare(keep, dest, n_e * cap)] = xf[tok_sorted]
-    y = _experts(p, buf[:-1].reshape(n_e, cap, d)).reshape(n_e * cap, d)
+    buf = _put_rows(xf.new_zeros((n_e * cap + 1, d)),
+                    (_or_spare(keep, dest, n_e * cap),), xf[tok_sorted])
+    buf = shard(buf[:-1].reshape(n_e, cap, d), rules.expert_tokens)
+    y = shard(_experts(p, buf), rules.expert_tokens).reshape(n_e * cap, d)
 
     y_sorted = y[dest] * (w_sorted * keep.to(DTYPE))[:, None]
     # Back to (token, k) in ascending expert order: a token's k assignments
     # lie in the sorted list in that order (distinct ids, stable sort).
     by_token = torch.argsort(tok_sorted, stable=True)
     out = _combine(y_sorted[by_token].reshape(t, k, d))
-    return _shared(p, x, out.reshape(b, s, d).to(x.dtype)), aux
+    return _shared(p, x, out.reshape(b, s, d).to(x.dtype), rules), aux
 
 
-def apply_moe_cumsum(p: MoE, cfg, x: torch.Tensor, groups: int = 1):
+def apply_moe_cumsum(p: MoE, cfg, x: torch.Tensor, rules=NULL_RULES,
+                     groups: int = 1):
     """GShard-style capacity dispatch: tokens stay in `groups` fixed groups,
     and an assignment's position in its expert comes from a per-group
     cumsum over one-hot assignments (no sort)."""
@@ -180,8 +211,10 @@ def apply_moe_cumsum(p: MoE, cfg, x: torch.Tensor, groups: int = 1):
     xg = xf.reshape(groups, t // groups, d)
     buf = xf.new_zeros((groups, n_e * cap + 1, d))
     g_ids = torch.arange(groups, device=x.device)[:, None]
-    buf[g_ids, _or_spare(keep, dest, n_e * cap)] = xg[:, tok_local]
-    y = _experts(p, buf[:, :-1].reshape(groups, n_e, cap, d)).reshape(
+    buf = _put_rows(buf, (g_ids, _or_spare(keep, dest, n_e * cap)),
+                    xg[:, tok_local])
+    buf = shard(buf[:, :-1].reshape(groups, n_e, cap, d), _group_spec(rules))
+    y = shard(_experts(p, buf), _group_spec(rules)).reshape(
         groups, n_e * cap, d)
 
     y_tok = torch.gather(y, 1, dest[..., None].expand(groups, g_sz, d))
@@ -190,14 +223,25 @@ def apply_moe_cumsum(p: MoE, cfg, x: torch.Tensor, groups: int = 1):
     # a group's assignments are (token, j) in flat order: the reference's
     # scatter adds a token's k outputs in top-k order
     out = _combine(y_tok.reshape(t, k, d))
-    return _shared(p, x, out.reshape(b, s, d).to(x.dtype)), aux
+    return _shared(p, x, out.reshape(b, s, d).to(x.dtype), rules), aux
 
 
-def apply_moe_dispatch(p: MoE, cfg, x: torch.Tensor, groups: int = 1,
-                       mode: str = "sort"):
+def _group_spec(rules):
+    """(G, E, C, D) spec: groups over the data axes, experts over the EP
+    axes (an axis EP uses leaves the group dim: serving-time EP can span
+    the whole mesh, and a mesh axis shards one dim)."""
+    if rules.model_axis is None:
+        return None
+    ep = rules.ep_axes
+    d_axes = tuple(a for a in (rules._d() or ()) if a not in ep)
+    return (d_axes or None, ep, None, None)
+
+
+def apply_moe_dispatch(p: MoE, cfg, x: torch.Tensor, rules=NULL_RULES,
+                       groups: int = 1, mode: str = "sort"):
     """The MoE FFN by the dispatch `mode` names ("sort" or "cumsum")."""
     if mode == "cumsum":
-        return apply_moe_cumsum(p, cfg, x, groups)
+        return apply_moe_cumsum(p, cfg, x, rules, groups)
     if mode != "sort":
         raise ValueError(f"unknown MoE dispatch mode {mode!r}")
-    return apply_moe(p, cfg, x)
+    return apply_moe(p, cfg, x, rules)

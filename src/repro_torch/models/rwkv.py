@@ -26,7 +26,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .layers import RMSNorm, _normal_, _param, matmul32, rms_norm, sigmoid, silu
+from ..parallel.sharding import NULL_RULES, shard
+from .layers import (RMSNorm, _normal_, _param, matmul32, rms_norm, scan,
+                     sigmoid, silu)
 
 _LOG_W_MIN = -8.0  # chunked-mode decay clamp (exp(-8) a token at least)
 
@@ -85,6 +87,19 @@ class RWKVChannel(nn.Module):
             _normal_(self.wr, generator, d ** -0.5)
 
 
+def rwkv_time_specs(rules):
+    return {"mu": rules.replicated, "wr": rules.w_col, "wk": rules.w_col,
+            "wv": rules.w_col, "wg": rules.w_col, "w_base": rules.replicated,
+            "w_lora_a": rules.replicated, "w_lora_b": rules.replicated,
+            "u": rules.replicated, "ln_out": {"scale": rules.replicated},
+            "wo": rules.w_row}
+
+
+def rwkv_channel_specs(rules):
+    return {"mu": rules.replicated, "wk": rules.w_col, "wv": rules.w_row,
+            "wr": rules.w_col}
+
+
 def _shift(x, last: Optional[torch.Tensor]):
     """Token shift: x_{t-1}, with `last` (B, 1, D) (zeros if None) at
     t = 0."""
@@ -101,13 +116,14 @@ def _wkv_scan(r, k, v, w, u, s0):
     """The exact recurrence. r/k/w: (B, T, H, K); v: (B, T, H, V).
     Returns (out (B, T, H, V) f32, s_final (B, H, K, V) f32)."""
     r, k, v, w = (t.float() for t in (r, k, v, w))
-    s, outs = s0, []
-    for t in range(k.shape[1]):
+
+    def step(s, t):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]      # (B, H, K, V)
-        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
-                                 s + u[..., None] * kv))
-        s = w[:, t, :, :, None] * s + kv
-    return torch.stack(outs, dim=1), s
+        out = torch.einsum("bhk,bhkv->bhv", r[:, t], s + u[..., None] * kv)
+        return w[:, t, :, :, None] * s + kv, out
+
+    s, outs = scan(step, s0, k.shape[1], dim=1)
+    return outs, s
 
 
 def _wkv_chunked(r, k, v, w, u, s0, chunk: int = 64):
@@ -163,7 +179,7 @@ def _decay(p: RWKVTime, xw):
 
 
 def apply_rwkv_time(p: RWKVTime, cfg, x, *, last=None, state=None,
-                    wkv_mode: str = "scan"):
+                    wkv_mode: str = "scan", rules=NULL_RULES):
     """The time mix over a sequence (or one step, x (B, 1, D), with the
     carried `last` and `state`). Returns (out, (last x, state))."""
     b, t, d = x.shape
@@ -171,9 +187,9 @@ def apply_rwkv_time(p: RWKVTime, cfg, x, *, last=None, state=None,
     kd = d // h
     xs = _shift(x, last)
     xr, xk, xv, xg, xw = (_lerp(x, xs, p.mu[i]) for i in range(5))
-    r = (xr @ p.wr).reshape(b, t, h, kd)
-    k = (xk @ p.wk).reshape(b, t, h, kd)
-    v = (xv @ p.wv).reshape(b, t, h, kd)
+    r = shard((xr @ p.wr).reshape(b, t, h, kd), rules.heads)
+    k = shard((xk @ p.wk).reshape(b, t, h, kd), rules.heads)
+    v = shard((xv @ p.wv).reshape(b, t, h, kd), rules.heads)
     g = xg @ p.wg
     w = _decay(p, xw)
     if state is None:
@@ -192,11 +208,12 @@ def apply_rwkv_time(p: RWKVTime, cfg, x, *, last=None, state=None,
     return out, (x[:, -1:], s_new)
 
 
-def apply_rwkv_channel(p: RWKVChannel, cfg, x, *, last=None):
+def apply_rwkv_channel(p: RWKVChannel, cfg, x, *, last=None,
+                       rules=NULL_RULES):
     """The channel mix. Returns (out, last x)."""
     xs = _shift(x, last)
     xk = _lerp(x, xs, p.mu[0])
     xr = _lerp(x, xs, p.mu[1])
-    k = torch.square(torch.relu(xk @ p.wk))
+    k = shard(torch.square(torch.relu(xk @ p.wk)), rules.ffn_hidden)
     kv = matmul32(k, p.wv).to(x.dtype)
     return sigmoid((xr @ p.wr).float()).to(x.dtype) * kv, x[:, -1:]

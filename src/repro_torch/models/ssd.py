@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.sharding import NULL_RULES, shard
 from .layers import (DTYPE, RMSNorm, _normal_, _param, matmul32, rms_norm,
                      silu)
 
@@ -61,6 +62,22 @@ class Mamba(nn.Module):
             _normal_(self.out_proj, generator, d_in ** -0.5)
 
 
+def mamba_specs(rules):
+    return {"in_proj": rules.w_col, "conv_w": _conv_spec(rules),
+            "conv_b": rules.b_model, "a_log": rules.replicated,
+            "d_skip": rules.replicated, "dt_bias": rules.replicated,
+            "norm": {"scale": rules.b_model},
+            "out_proj": rules.w_row}
+
+
+def _conv_spec(rules):
+    """(K, C) conv taps: channels over the model axis (None under
+    NULL_RULES)."""
+    if rules.model_axis is None:
+        return None
+    return (None, rules.model_axis)
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """`jax.nn.softplus`: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))."""
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
@@ -96,7 +113,8 @@ def _gated_out(p: Mamba, cfg, y, z, dtype):
     return matmul32(y, p.out_proj).to(dtype)
 
 
-def apply_mamba(p: Mamba, cfg, x, return_state: bool = False):
+def apply_mamba(p: Mamba, cfg, x, return_state: bool = False,
+                rules=NULL_RULES):
     """Full-sequence chunked SSD. x: (B, S, D) -> (B, S, D), or (out,
     {"h", "conv"}) with `return_state` (prefill)."""
     s, d_in, n_heads, _ = _dims(cfg)
@@ -113,6 +131,7 @@ def apply_mamba(p: Mamba, cfg, x, return_state: bool = False):
         dt = torch.where(valid, dt, torch.full_like(dt, -30.0))
     xbc = _causal_conv(xbc_raw, p.conv_w, p.conv_b)
     xs, bmat, cmat, dt, a = _ssm_inputs(cfg, p, xbc, dt)
+    xs = shard(xs, rules.heads)
 
     nch = seq // q
     xs_c = xs.reshape(b, nch, q, n_heads, s.head_dim).float()

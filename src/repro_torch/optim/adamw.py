@@ -72,9 +72,9 @@ def init(cfg: AdamWConfig, params: Dict[str, torch.Tensor]) -> OptState:
     device = next(iter(params.values())).device
     return OptState(
         step=torch.zeros((), dtype=torch.int32, device=device),
-        mu={n: torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+        mu={n: torch.zeros_like(p, dtype=cfg.moment_dtype)
             for n, p in params.items()},
-        nu={n: torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+        nu={n: torch.zeros_like(p, dtype=cfg.moment_dtype)
             for n, p in params.items()})
 
 
@@ -94,7 +94,7 @@ def global_norm(tree: Dict[str, torch.Tensor], model_cfg=None):
     for _, names in _leaves(tree, model_cfg):
         parts = [torch.sum(torch.square(tree[n].to(torch.float32)))
                  for n in names]
-        leaf = parts[0] if len(parts) == 1 else torch.sum(torch.stack(parts))
+        leaf = torch.sum(torch.stack(parts))
         total = leaf if total is None else total + leaf
     return torch.sqrt(total)
 

@@ -1,18 +1,182 @@
-"""Candidate-axis sharding specs (the candidate part of the port of
-`repro/parallel/sharding.py`).
+"""Logical sharding rules (the port of `repro/parallel/sharding.py`): DP /
+FSDP / TP / SP / EP over a (pod, data, model) or (data, model) mesh.
 
 A spec is a plain tuple with one entry per dimension: None (replicated), a
-mesh axis name, or a tuple of axis names. The DSE fan-out shards one
-dimension over `CANDIDATE_AXIS`; `sanitize_spec` guards a spec against a
-concrete shape. The LM side's `Rules`, `shard()` and `for_mesh` wait for
-the dry-run's slice (ROADMAP item 15).
+mesh axis name, or a tuple of axis names sharding that dimension over
+several mesh axes (listed in mesh order, major to minor). The layout the
+rule sets choose, as in the reference:
+
+  * batch            -> ("pod", "data")   pure DP across pods
+  * residual stream  -> sequence-parallel over "model" between blocks
+  * attention heads / FFN hidden / experts -> "model" (TP / EP)
+  * vocab (embedding + logits)            -> "model"
+  * params           -> TP axis + optionally FSDP over "data" (train)
+  * decode KV cache  -> sequence-sharded over "model" (over every mesh
+                        axis at 500k context, where the batch is 1)
+
+`shard(x, spec)` is the model code's one sharding statement: the identity
+on a plain tensor and under `NULL_RULES`, and on a DTensor a redistribution
+to the spec's placements (`placements`), the counterpart of GSPMD's
+`with_sharding_constraint`. A `Partial` DTensor (a product contracted over
+a sharded dimension) is reduced there, as the constraint forces it.
+
+The DSE fan-out shards one dimension over `CANDIDATE_AXIS`;
+`sanitize_spec` guards a spec against a concrete shape.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import sys
+import threading
 from typing import Mapping, Optional, Sequence, Tuple, Union
+
+from torch.utils._python_dispatch import TorchDispatchMode
 
 Spec = Tuple[Optional[Union[str, Tuple[str, ...]]], ...]
 
+
+@dataclasses.dataclass(frozen=True)
+class Rules:
+    """The reference's rule set, property for property; every spec is a
+    tuple. `data_axes` are the flattened batch axes, `all_axes` the mesh's
+    (set by `for_mesh`), `expert_axes` the EP axes (None: the model axis
+    alone; huge-E MoE decode spans the mesh), `moe_groups` the cumsum
+    dispatch's token groups (the product of the data axes' sizes, set by
+    the launchers)."""
+    data_axes: Tuple[str, ...] = ("pod", "data")
+    model_axis: str = "model"
+    fsdp: bool = True               # shard params over data axes too (train)
+    seq_parallel: bool = True       # sequence-shard the residual stream
+    seq_shard_kv: bool = True       # decode: shard KV cache along sequence
+    batch_over_model: bool = False  # long_500k (batch 1): the KV sequence
+                                    # shards over every mesh axis
+    all_axes: Tuple[str, ...] = ("pod", "data", "model")
+    expert_axes: Optional[Tuple[str, ...]] = None
+    moe_groups: int = 1
+    context_parallel: bool = False  # prefill: shard the query sequence
+    # the numeric variants the reference's dry-run sets as module globals
+    # (`moe.DISPATCH_MODE`, `rwkv.WKV_MODE`), carried to the per-call
+    # arguments `apply_moe_dispatch(mode=)` and `apply_rwkv_time(wkv_mode=)`
+    moe_dispatch: str = "sort"
+    wkv_mode: str = "scan"
+
+    def _d(self):
+        """Batch axes, or None when the batch is unsharded (long_500k)."""
+        return self.data_axes if self.data_axes else None
+
+    @property
+    def ep_axes(self) -> Tuple[str, ...]:
+        return self.expert_axes or (self.model_axis,)
+
+    # ---- activations ----
+    @property
+    def batch(self) -> Spec:
+        return (self._d(),)
+
+    @property
+    def resid(self) -> Spec:          # (B, S, D) between blocks
+        if self.seq_parallel:
+            return (self._d(), self.model_axis, None)
+        return (self._d(), None, None)
+
+    @property
+    def heads(self) -> Spec:          # (B, S, H, Dh) inside attention
+        if self.context_parallel:
+            return (self._d(), self.model_axis, None, None)
+        return (self._d(), None, self.model_axis, None)
+
+    @property
+    def ffn_hidden(self) -> Spec:     # (B, S, F)
+        if self.context_parallel:
+            return (self._d(), self.model_axis, None)
+        return (self._d(), None, self.model_axis)
+
+    @property
+    def kv_heads(self) -> Spec:       # K/V in self-attention
+        if self.context_parallel:
+            return (self._d(), None, None, None)
+        return self.heads
+
+    @property
+    def logits(self) -> Spec:         # (B, S, V)
+        return (self._d(), None, self.model_axis)
+
+    @property
+    def kv_cache(self) -> Spec:       # (B, S, Hkv, Dh) decode cache
+        if not self.seq_shard_kv:
+            return (self._d(), None, self.model_axis, None)
+        if self.batch_over_model:
+            return (None, self.all_axes, None, None)
+        return (self._d(), self.model_axis, None, None)
+
+    @property
+    def ssm_state(self) -> Spec:      # (B, heads, Dh, N) recurrent state
+        return (self._d(), self.model_axis, None, None)
+
+    @property
+    def expert_tokens(self) -> Spec:  # (E, C, D) grouped expert batches
+        if self.expert_axes:
+            return (self.ep_axes, None, None)
+        return (self.model_axis, self._d(), None)
+
+    # ---- params (w: 2D (in, out) unless noted) ----
+    def _maybe_fsdp(self, *spec) -> Spec:
+        """FSDP data-sharding on the first None axis, if enabled."""
+        if not self.fsdp:
+            return tuple(spec)
+        out = list(spec)
+        for i, s in enumerate(out):
+            if s is None:
+                out[i] = self.data_axes
+                break
+        return tuple(out)
+
+    @property
+    def w_col(self) -> Spec:          # (D, F): output dim model-sharded
+        return self._maybe_fsdp(None, self.model_axis)
+
+    @property
+    def w_row(self) -> Spec:          # (F, D): input dim model-sharded
+        return self._maybe_fsdp(self.model_axis, None)
+
+    @property
+    def w_qkv(self) -> Spec:          # (D, H, Dh)
+        return self._maybe_fsdp(None, self.model_axis, None)
+
+    @property
+    def w_out(self) -> Spec:          # (H, Dh, D)
+        return self._maybe_fsdp(self.model_axis, None, None)
+
+    @property
+    def w_expert_in(self) -> Spec:    # (E, D, F)
+        return self._maybe_fsdp(self.ep_axes, None, None)
+
+    @property
+    def w_expert_out(self) -> Spec:   # (E, F, D)
+        return self._maybe_fsdp(self.ep_axes, None, None)
+
+    @property
+    def embed(self) -> Spec:          # (V, D)
+        return self._maybe_fsdp(self.model_axis, None)
+
+    @property
+    def b_model(self) -> Spec:        # (F,) bias on a model-sharded dim
+        return (self.model_axis,)
+
+    @property
+    def replicated(self) -> Spec:
+        return ()
+
+
+# The rule sets per step kind.
+TRAIN_RULES = Rules(fsdp=True, seq_parallel=True)
+PREFILL_RULES = Rules(fsdp=False, seq_parallel=True)
+DECODE_RULES = Rules(fsdp=False, seq_parallel=False, seq_shard_kv=True)
+LONG_DECODE_RULES = Rules(fsdp=False, seq_parallel=False, seq_shard_kv=True,
+                          batch_over_model=True, data_axes=())
+
+# The 1-D DSE candidate axis (launch.mesh.make_candidate_mesh).
 CANDIDATE_AXIS = "candidates"
 
 
@@ -24,6 +188,256 @@ def candidate_spec(rank: int, dim: int) -> Spec:
     parts = [None] * rank
     parts[dim] = CANDIDATE_AXIS
     return tuple(parts)
+
+
+def for_mesh(rules: Rules, mesh) -> Rules:
+    """Restrict the axis names to the ones `mesh` (anything with
+    `mesh_dim_names` or `axis_names`) has."""
+    names = _axis_names(mesh)
+    axes = tuple(a for a in rules.data_axes if a in names)
+    ep = (tuple(a for a in rules.expert_axes if a in names)
+          if rules.expert_axes else None)
+    return dataclasses.replace(
+        rules, data_axes=axes if rules.batch_over_model else (axes or ("data",)),
+        all_axes=tuple(names), expert_axes=ep)
+
+
+def _axis_names(mesh) -> Tuple[str, ...]:
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names if names is not None else mesh.axis_names)
+
+
+def axis_sizes(mesh) -> dict:
+    """{axis name: size} of a DeviceMesh."""
+    return dict(zip(_axis_names(mesh), mesh.mesh.shape))
+
+
+_ACTIVE_AXIS_SIZES = None
+
+
+def set_active_axis_sizes(sizes) -> None:
+    """Mesh axis sizes for `shard()`'s sanitization while a program is
+    traced (set by the dry-run around a cell; None disables it)."""
+    global _ACTIVE_AXIS_SIZES
+    _ACTIVE_AXIS_SIZES = dict(sizes) if sizes else None
+
+
+_RESHARDING = threading.local()
+
+
+def resharding() -> bool:
+    """True while `shard()` redistributes a DTensor: the FLOP counter
+    charges nothing to the redistribution's own local ops."""
+    return getattr(_RESHARDING, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def _resharding():
+    _RESHARDING.depth = getattr(_RESHARDING, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _RESHARDING.depth -= 1
+
+
+def shard(x, spec: Optional[Spec]):
+    """The sharding constraint: the identity on a plain tensor or a None
+    spec (`NULL_RULES`); a DTensor is redistributed to `spec` on its own
+    mesh, the spec first sanitized against its shape when mesh axis sizes
+    are active (so 'model' moves off a 2-KV-head axis onto head_dim)."""
+    if spec is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    if _ACTIVE_AXIS_SIZES:
+        spec = sanitize_spec(x.shape, spec, _ACTIVE_AXIS_SIZES)
+    target = placements(spec, x.device_mesh)
+    if tuple(x.placements) == target:
+        return x
+    with _resharding():
+        return x.redistribute(x.device_mesh, target)
+
+
+def sharded_dim(p):
+    """The tensor dimension a placement shards (a strided shard's too), or
+    None."""
+    return p.dim if p.is_shard() or type(p).__name__ == "_StridedShard" \
+        else None
+
+
+def move_shards(x, src: int, dst: int):
+    """`x` with the mesh dimensions that shard its dimension `src` sharding
+    `dst` instead (an all-to-all); the identity on a plain tensor."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(x, DTensor):
+        return x
+    target = tuple(Shard(dst) if sharded_dim(p) == src else p
+                   for p in x.placements)
+    with _resharding():
+        return x.redistribute(x.device_mesh, target)
+
+
+def unshard(x, dims):
+    """`x` with tensor dimensions `dims` unsharded (each mesh dimension that
+    shards one of them replicated instead), for an op DTensor cannot run
+    on a sharded dimension: the identity on a plain tensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return x
+    dims = {d % x.ndim for d in dims}
+    target = tuple(Replicate() if sharded_dim(p) in dims else p
+                   for p in x.placements)
+    if target == tuple(x.placements):
+        return x
+    with _resharding():
+        return x.redistribute(x.device_mesh, target)
+
+
+def replicated(fn, *args):
+    """`fn(*args)` with every DTensor argument replicated and every tensor
+    result a replicated DTensor: the replicate-in/replicate-out path of an
+    op DTensor has no sharding strategy for, run as `local_map` runs it
+    (`fn` on the local tensors, which are whole). Plain tensor arguments
+    count as replicated; with no DTensor argument it is `fn(*args)`. The
+    inputs' redistributions are `shard()`'s kind (the FLOP counter charges
+    them nothing)."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    mesh = next((a.device_mesh for a in tree_leaves(args)
+                 if isinstance(a, DTensor)), None)
+    if mesh is None:
+        return fn(*args)
+    rep = [Replicate()] * mesh.ndim
+    with _resharding():
+        local = tree_map(lambda a: a.redistribute(mesh, rep).to_local()
+                         if isinstance(a, DTensor) else a, args)
+    return tree_map(lambda t: DTensor.from_local(t, mesh, rep,
+                                                 run_check=False)
+                    if isinstance(t, torch.Tensor) else t, fn(*local))
+
+
+# What DTensor raises when it cannot shard an op: no strategy
+# (NotImplementedError), a view or shape it refuses (RuntimeError), and, in
+# some torch versions, an IndexError or KeyError from its propagation rules.
+_SHARDING_ERRORS = (RuntimeError, NotImplementedError, IndexError, KeyError)
+
+
+def _gathered_retry(func, args, kwargs):
+    """`func` again after the least gathering that lets DTensor run it:
+    one sharded dimension of one DTensor argument unsharded (the last
+    dimensions first), else every argument replicated."""
+    from torch.distributed.tensor import DTensor
+    for i, a in enumerate(args):
+        if not isinstance(a, DTensor):
+            continue
+        dims = sorted({d for d in map(sharded_dim, a.placements)
+                       if d is not None}, reverse=True)
+        for d in dims:
+            trial = list(args)
+            trial[i] = unshard(a, (d,))
+            try:
+                return func(*trial, **kwargs)
+            except _SHARDING_ERRORS:
+                continue
+    return replicated(lambda *a: func(*a, **kwargs), *args)
+
+
+# Every GatherFallback's retried ops by name, summed over all instances
+# (the caller clears it, as the kernels' LAUNCHES counts).
+GATHERED: dict = {}
+
+
+class GatherFallback(TorchDispatchMode):
+    """A dispatch mode under which a functional op on DTensors that DTensor
+    cannot shard — no sharding strategy, or a view it cannot split on a
+    sharded dimension (refused even on a mesh of one device) — runs again
+    on gathered inputs (`_gathered_retry`), the layout GSPMD reaches by
+    resharding. `counts` holds this instance's retried ops by name (and
+    `GATHERED` every instance's); in-place and out= ops are never
+    retried."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        kwargs = kwargs or {}
+        try:
+            return func(*args, **kwargs)
+        except _SHARDING_ERRORS:
+            if func._schema.is_mutable or not any(
+                    issubclass(t, DTensor) for t in types):
+                raise
+        out = _gathered_retry(func, args, kwargs)
+        for c in (self.counts, GATHERED):
+            c[str(func)] = c.get(str(func), 0) + 1
+        return out
+
+
+def _has_dtensor(trees) -> bool:
+    # no DTensor can exist before torch.distributed.tensor is imported
+    dt = sys.modules.get("torch.distributed.tensor")
+    if dt is None:
+        return False
+    import torch
+    from torch.utils._pytree import tree_leaves
+    return any(isinstance(t, dt.DTensor) for tree in trees
+               for t in (tree.parameters() if isinstance(tree, torch.nn.Module)
+                         else tree_leaves(tree)))
+
+
+_DTENSOR_RUN = threading.local()
+
+
+@contextlib.contextmanager
+def dtensor_run(*trees):
+    """The context an entry point runs in: when any tensor of `trees` (a
+    module's parameters, or trees of tensors) is a DTensor,
+    `implicit_replication` (the plain tensors made inside the models —
+    rope tables, masks, constants, scan states — meet DTensors as
+    replicated) and a `GatherFallback` (unless one is active already, as
+    under `analysis.op_cost.Tracer`, which places its own); else nothing.
+    Nested calls leave the outermost's contexts open
+    (`implicit_replication` itself does not nest)."""
+    depth = getattr(_DTENSOR_RUN, "depth", 0)
+    if depth or not _has_dtensor(trees):
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(implicit_replication())
+        if not any(isinstance(m, GatherFallback)
+                   for m in _get_current_dispatch_mode_stack()):
+            stack.enter_context(GatherFallback())
+        _DTENSOR_RUN.depth = 1
+        try:
+            yield
+        finally:
+            _DTENSOR_RUN.depth = 0
+
+
+class _NullRules:
+    """Stand-in for single-device runs: every spec resolves to None, so every
+    `shard()` call is the identity. Lets model code be written once."""
+
+    fsdp = False
+    seq_parallel = False
+    seq_shard_kv = False
+    batch_over_model = False
+
+    def __getattr__(self, name):
+        return None
+
+    def _maybe_fsdp(self, *spec):
+        return None
+
+
+NULL_RULES = _NullRules()
 
 
 def _prod(axes, sizes: Mapping[str, int]) -> int:
@@ -70,3 +484,48 @@ def sanitize_spec(shape: Sequence[int], spec: Sequence,
                 break
     return tuple(None if not a else (a[0] if len(a) == 1 else tuple(a))
                  for a in out)
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """DTensor placements of `spec` on `mesh`, one per mesh dimension:
+    Shard(i) where tensor dimension i names that mesh axis, Replicate()
+    elsewhere. An entry naming several axes must list them in mesh order
+    (JAX's major-to-minor, which DTensor's left-to-right chunking of one
+    dimension over several mesh dimensions reproduces); otherwise, and for
+    an axis the mesh lacks or one named twice, it raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = _axis_names(mesh)
+    dim_of = {}
+    for i, entry in enumerate(spec):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        idx = []
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"spec {spec}: mesh {names} has no axis "
+                                 f"{a!r}")
+            if a in dim_of:
+                raise ValueError(f"spec {spec}: axis {a!r} shards two "
+                                 f"dimensions")
+            dim_of[a] = i
+            idx.append(names.index(a))
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: entry {entry} is not in mesh "
+                             f"order {names}")
+    return tuple(Shard(dim_of[n]) if n in dim_of else Replicate()
+                 for n in names)
+
+
+def local_shape(shape: Sequence[int], spec: Spec,
+                axis_sizes_: Mapping[str, int]) -> Tuple[int, ...]:
+    """Per-device shape of `shape` under a spec that divides it."""
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for n, e in zip(shape, parts):
+        axes = () if e is None else ((e,) if isinstance(e, str) else e)
+        k = _prod(axes, axis_sizes_)
+        if n % k:
+            raise ValueError(f"{spec} does not divide {tuple(shape)}")
+        out.append(n // k)
+    return tuple(out)

@@ -21,6 +21,7 @@ import torch
 from .. import models
 from .._device import resolve_device
 from ..configs.base import ModelConfig
+from ..parallel.sharding import NULL_RULES, dtensor_run
 
 
 @dataclasses.dataclass
@@ -43,15 +44,17 @@ class Server:
     at position plen + j against a cache grown to `max_len`.
 
     `device` is where the batch runs ("cuda" unless the caller names
-    another); `params` must already lie there."""
+    another); `params` must already lie there. `rules` goes to prefill and
+    every decode step (`NULL_RULES` changes nothing)."""
 
     def __init__(self, cfg: ModelConfig, params, batch_size: int,
-                 max_len: int, device=None):
+                 max_len: int, device=None, rules=NULL_RULES):
         self.cfg = cfg
         self.params = params
         self.batch_size = batch_size
         self.max_len = max_len
         self.device = device
+        self.rules = rules
 
     def generate(self, requests: List[Request]) -> Dict:
         """Fills each request's `out`; returns {"ttft_s", "decode_s_per_tok",
@@ -66,11 +69,12 @@ class Server:
         toks = np.zeros((b, plen), np.int32)
         for i, r in enumerate(requests):
             toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
-        with torch.inference_mode():
+        with torch.inference_mode(), dtensor_run(self.params):
             batch = {"tokens": torch.from_numpy(toks).to(self.params.device)}
             _sync(dev)
             t0 = time.perf_counter()
-            logits, cache = models.prefill(self.params, self.cfg, batch)
+            logits, cache = models.prefill(self.params, self.cfg, batch,
+                                           rules=self.rules)
             cache = _grow_cache(cache, self.max_len)
             _sync(dev)
             ttft = time.perf_counter() - t0
@@ -85,7 +89,8 @@ class Server:
                     outs[i].append(int(host[i]))
                 t1 = time.perf_counter()
                 logits, cache = models.decode_step(self.params, self.cfg,
-                                                   tok, plen + j, cache)
+                                                   tok, plen + j, cache,
+                                                   rules=self.rules)
                 _sync(dev)
                 step_times.append(time.perf_counter() - t1)
                 tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]

@@ -8,7 +8,10 @@ place. Checkpoints hold the reference's layout — `{"params": <the
 reference's parameter pytree>, "opt": OptState(step, mu, nu)}` with the
 layer stacks restacked (`interop.params_to_reference`,
 `interop.opt_state_to_reference`) and the same `extra` (`pipeline`,
-`arch`) — so either package resumes the other's run.
+`arch`) — so either package resumes the other's run. `rules` constrains
+the step's layouts (`parallel.sharding`; `NULL_RULES` changes nothing) and
+`shardings` lays the parameters and moments out as DTensors on a mesh
+(`parallel.specs.distribute_params`).
 """
 from __future__ import annotations
 
@@ -31,10 +34,12 @@ from ..interop import (load_reference_, opt_state_from_reference,
                        opt_state_to_reference, params_to_reference,
                        reference_order)
 from ..optim import adamw
+from ..parallel.sharding import NULL_RULES, dtensor_run
+from ..parallel.specs import distribute_params, distribute_tensors
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                    remat: bool = True):
+                    rules=NULL_RULES, remat: bool = True):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics {"loss", "grad_norm", "lr"}, 0-d tensors). `params` is the
     port's model, whose parameters it turns gradients on for and updates
@@ -46,11 +51,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         named = dict(params.named_parameters())
         for p in named.values():
             p.grad = None
-        loss, _ = models.lm_loss(params, cfg, batch, remat=remat)
-        loss.backward()
-        grads = {n: p.grad for n, p in named.items()}
-        _, opt_state, om = adamw.apply(opt_cfg, named, grads, opt_state,
-                                       model_cfg=cfg)
+        with dtensor_run(params, batch):
+            loss, _ = models.lm_loss(params, cfg, batch, rules=rules,
+                                     remat=remat)
+            loss.backward()
+            grads = {n: p.grad for n, p in named.items()}
+            _, opt_state, om = adamw.apply(opt_cfg, named, grads, opt_state,
+                                           model_cfg=cfg)
         for p in named.values():
             p.grad = None
         return params, opt_state, {"loss": loss.detach(), **om}
@@ -58,10 +65,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     return train_step
 
 
-def make_eval_step(cfg: ModelConfig):
+def make_eval_step(cfg: ModelConfig, rules=NULL_RULES):
     def eval_step(params, batch):
         with torch.no_grad():
-            loss, _ = models.lm_loss(params, cfg, batch, remat=False)
+            loss, _ = models.lm_loss(params, cfg, batch, rules=rules,
+                                     remat=False)
         return {"loss": loss}
     return eval_step
 
@@ -110,13 +118,17 @@ class Trainer:
 
     The initial weights come from a `torch.Generator` on the device seeded
     with `seed` (not `jax.random`'s draws); a run continued from a
-    reference checkpoint takes the reference's weights.
+    reference checkpoint takes the reference's weights. `rules` goes to the
+    train step; `shardings`, a `(mesh, {parameter name: spec})` pair
+    (`parallel.specs.param_specs`), makes the parameters and moments
+    DTensors on that mesh once they are built or restored (checkpoints stay
+    mesh-agnostic: they hold the full tensors).
     """
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
                  opt_cfg: Optional[adamw.AdamWConfig] = None,
-                 tcfg: TrainerConfig = TrainerConfig(), seed: int = 0,
-                 device=None):
+                 tcfg: TrainerConfig = TrainerConfig(), rules=NULL_RULES,
+                 shardings=None, seed: int = 0, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.shape = shape
@@ -132,9 +144,7 @@ class Trainer:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         params = models.init_params(cfg, gen, self.device)
-        params.requires_grad_(True)
         opt_state = adamw.init(self.opt_cfg, dict(params.named_parameters()))
-        self.state = {"params": params, "opt": opt_state}
         self.start_step = 0
 
         if self.ckpt.latest_step() is not None:
@@ -143,11 +153,18 @@ class Trainer:
                       "opt": adamw.OptState(0, skel, skel)}
             tree, extra, step = self.ckpt.restore(target)
             load_reference_(params, tree["params"], cfg)
-            self.state["opt"] = opt_state_from_reference(tree["opt"], params,
-                                                         cfg)
+            opt_state = opt_state_from_reference(tree["opt"], params, cfg)
             self.data.load_state_dict(extra["pipeline"])
             self.start_step = step
-        self._train_step = make_train_step(cfg, self.opt_cfg)
+        if shardings is not None:
+            mesh, specs = shardings
+            distribute_params(params, specs, mesh)
+            opt_state = adamw.OptState(
+                opt_state.step, distribute_tensors(opt_state.mu, specs, mesh),
+                distribute_tensors(opt_state.nu, specs, mesh))
+        params.requires_grad_(True)
+        self.state = {"params": params, "opt": opt_state}
+        self._train_step = make_train_step(cfg, self.opt_cfg, rules)
 
     def _install_preemption_handler(self):
         def handler(signum, frame):

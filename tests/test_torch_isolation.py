@@ -49,7 +49,11 @@ MODULES = ("repro_torch", "repro_torch.core", "repro_torch.core.search",
            "repro_torch.optim", "repro_torch.optim.adamw",
            "repro_torch.data", "repro_torch.data.pipeline",
            "repro_torch.train.fault_tolerance", "repro_torch.train.trainer",
-           "repro_torch.launch.train")
+           "repro_torch.launch.train", "repro_torch.parallel.specs",
+           "repro_torch.analysis", "repro_torch.analysis.roofline",
+           "repro_torch.analysis.op_cost", "repro_torch.analysis.collectives",
+           "repro_torch.analysis.report", "repro_torch.analysis.compare",
+           "repro_torch.launch.dryrun")
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
