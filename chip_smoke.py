@@ -155,6 +155,19 @@ From the root of a checkout, with one CUDA card visible. It
      NCCL group of one rank (a FileStore, no network): its prefill logits,
      and a decode step's logits and cache from the prefill's cache, equal
      the NULL_RULES ones bit for bit; no hand-written kernel may launch;
+  8b. runs the four examples (`examples/*_torch.py`, `examples_phase`),
+     each through its `main([...])` on the card: quickstart's result equal
+     to its `--device cpu` run (no launch); arch_cosearch's zoo table on
+     the cuda, torch, python and numpy engines, row for row equal, then
+     `--scenarios` with and without `--pareto` on cuda equal to numpy,
+     `dse_search_padded` / `dse_pareto_padded` launched at most once a
+     scenario (the example's own count equal to the phase's);
+     scenario_zoo `--full` on a cuda service, report equal to a numpy
+     service's, the repeat sweep memoized in full; serve_photonic
+     `--photonic`, 4 x 12 tokens and one `ddot_gemm_quantized` launch, the
+     noise-free head `torch.equal` to its plain version on the card, the
+     noisy rel_err inside the CPU tests' band, the report equal to the
+     CPU run's. It prints each call's wall time and launches;
   9. prints one JSON line with every kernel's launches (counted per
      entry-point call, the counts set to 0 just before each call and read
      just after it), its largest difference from its plain version, its
@@ -2081,6 +2094,210 @@ def dryrun_phase(dev, hw, drive, counters, train):
     return got
 
 
+# The noisy photonic LM head's rel_err over the noise-free head's on the
+# same operands: tests/test_torch_examples_serve.py's NOISE_BAND (the
+# reference's keys 0-7, widened by their spread on each side).
+PHOTONIC_NOISE_BAND = (0.9968, 1.0039)
+
+
+def load_example(name: str):
+    """`examples/<name>_torch.py`, loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _nan_as_text(x):
+    """`x` with every float NaN as "nan" (an infeasible result's metrics
+    are NaN, and NaN != NaN), so that `==` compares exactly."""
+    if isinstance(x, float) and x != x:
+        return "nan"
+    if isinstance(x, dict):
+        return {k: _nan_as_text(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_nan_as_text(v) for v in x)
+    return x
+
+
+def examples_phase(dev, hw, drive):
+    """Phase 8b: the four examples (`examples/*_torch.py`), each through
+    its `main([...])` in this process, their printed lines captured.
+    `drive(label, fn, needs)` is phase 4c's, counting under the path
+    "examples" and returning `(fn(), wall, counts)`. Returns the phase's
+    wall times."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.ref import ddot_matmul_ref
+
+    t_phase = time.perf_counter()
+    mods = {n: load_example(n) for n in ("quickstart", "arch_cosearch",
+                                         "scenario_zoo", "serve_photonic")}
+    walls = []
+
+    def run(name, argv, needs=()):
+        """One `main` on the card under `drive`: (returned data, wall s,
+        launch counts, printed text)."""
+        text = io.StringIO()
+        argv = [*argv, "--device", str(dev)]
+        label = f"{name} {' '.join(argv)}"
+        with contextlib.redirect_stdout(text):
+            out, wall, counts = drive(label, lambda: mods[name].main(argv),
+                                      needs)
+        walls.append((label, wall))
+        return out, wall, counts, text.getvalue()
+
+    def run_cpu(name, argv):
+        """The same `main` with --device cpu (the plain versions): (returned
+        data, wall s)."""
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            out = mods[name].main([*argv, "--device", "cpu"])
+            wall = time.perf_counter() - t0
+        walls.append((f"{name} {' '.join(argv)} --device cpu", wall))
+        return out, wall
+
+    def lines_with(text, *keys):
+        return [ln.strip() for ln in text.splitlines()
+                if any(k in ln for k in keys)]
+
+    def launched(counts):
+        return {k: n for k, n in counts.items() if n}
+
+    # (a) quickstart: Alg. 1, Alg. 2 (python engine), the exhaustive check
+    got, wall, counts, text = run("quickstart", [])
+    want, wall_cpu = run_cpu("quickstart", [])
+    _check(_nan_as_text(got) == _nan_as_text(want),
+           f"quickstart on the card differs from --device cpu: {got} != "
+           f"{want}")
+    _check(not launched(counts), f"quickstart launched {launched(counts)}; "
+                                 f"its path runs no kernel")
+    print(f"examples (a) quickstart deit-b: found {got['found']['config']}, "
+          f"exhaustive {got['exhaustive']['config']}, EDP ratio "
+          f"{got['edp_ratio']!r}, equal to --device cpu; wall {wall:.4f} s "
+          f"(cpu {wall_cpu:.4f} s); steps: "
+          + "; ".join(lines_with(text, "evaluated", "exhaustive best"))
+          + f" ({hw})")
+
+    # (b) arch_cosearch: the zoo table on every engine, then the scenarios
+    rows = {}
+    for engine in ("numpy", "python", "torch", "cuda"):
+        out, wall, counts, _ = run("arch_cosearch", ["--engine", engine],
+                                   ("dse_search_padded",)
+                                   if engine == "cuda" else ())
+        rows[engine] = _nan_as_text(out["rows"])
+        if engine != "cuda":
+            _check(not launched(counts), f"arch_cosearch --engine {engine} "
+                                         f"launched {launched(counts)}")
+        print(f"examples (b) arch_cosearch --engine {engine}: "
+              f"{sum(r[0] for r in out['rows'].values())} of "
+              f"{len(out['rows'])} archs feasible, launches "
+              f"{launched(counts)}, wall {wall:.4f} s ({hw})")
+    for engine in ("python", "torch", "cuda"):
+        _check(rows[engine] == rows["numpy"],
+               f"arch_cosearch --engine {engine} rows differ from numpy's")
+    kernel = {"edp": "dse_search_padded", "pareto": "dse_pareto_padded"}
+    for mode in ("edp", "pareto"):
+        argv = ["--scenarios"] + (["--pareto"] if mode == "pareto" else [])
+        want, wall_np, _, _ = run("arch_cosearch",
+                                  [*argv, "--engine", "numpy"])
+        got, wall, counts, _ = run("arch_cosearch",
+                                   [*argv, "--engine", "cuda"],
+                                   (kernel[mode],))
+        _check(got["rows"] == want["rows"],
+               f"arch_cosearch --scenarios ({mode}) --engine cuda differs "
+               f"from numpy")
+        per_box = got["launches"]
+        total = {}
+        for box, ran in per_box.items():
+            _check(ran.get(kernel[mode], 0) <= 1,
+                   f"arch_cosearch --scenarios ({mode}) {box}: launched "
+                   f"{kernel[mode]} {ran.get(kernel[mode])} times")
+            for k, n in ran.items():
+                total[k] = total.get(k, 0) + n
+        _check(total == launched(counts),
+               f"arch_cosearch --scenarios ({mode}): the example counted "
+               f"{total}, the phase {launched(counts)}")
+        print(f"examples (b) arch_cosearch --scenarios ({mode}) --engine "
+              f"cuda: equal to numpy; per scenario " + "; ".join(
+                  f"{a:.0f}mm^2/{p:.1f}W {got['walls'][(a, p)]:.4f} s, "
+                  f"launches {per_box[(a, p)]} (numpy "
+                  f"{want['walls'][(a, p)]:.4f} s)" for a, p in per_box)
+              + f"; wall {wall:.4f} s (numpy {wall_np:.4f} s) ({hw})")
+
+    # (c) scenario_zoo at the published configs, cuda service vs numpy
+    want, _, _, _ = run("scenario_zoo", ["--full", "--engine", "numpy"])
+    got, wall, counts, _ = run("scenario_zoo", ["--full", "--engine",
+                                                "cuda"])
+    _check(got["report"] == want["report"],
+           "scenario_zoo --full --engine cuda: report differs from numpy's")
+    _check(got["memo_hits"] == got["n_scenarios"] == 40,
+           f"scenario_zoo repeat sweep: {got['memo_hits']}/"
+           f"{got['n_scenarios']} memoized")
+    print(f"examples (c) scenario_zoo --full --engine cuda: report equal to "
+          f"numpy's ({got['report'].splitlines()[0]}), cold sweep "
+          f"{got['cold_s']:.4f} s (numpy {want['cold_s']:.4f} s), repeat "
+          f"{got['repeat_s']:.4f} s, {got['memo_hits']}/{got['n_scenarios']} "
+          f"memoized; launches {launched(counts)}, wall {wall:.4f} s ({hw})")
+
+    # (d) serve_photonic with the photonic LM head
+    got, wall, counts, text = run("serve_photonic", ["--photonic"],
+                                  ("ddot_gemm_quantized",))
+    _check(launched(counts) == {"ddot_gemm_quantized": 1},
+           f"serve_photonic --photonic launched {launched(counts)}, not one "
+           f"ddot_gemm_quantized")
+    _check(got["stats"]["tokens"] == 48 and len(got["tokens"]) == 12,
+           f"serve_photonic served {got['stats']['tokens']} tokens")
+    # the example's operands again: its weights (a generator on the card
+    # seeded 0) and x (seeded 1); the noise-free head against its plain
+    # version on the card
+    cfg = reduced(get_config("qwen2.5-3b"))  # serve_photonic's default
+    params = models.init_params(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    x = torch.randn((4, cfg.d_model), generator=gen, device=dev)
+    (q, _, clean), t_head, head_counts = drive(
+        "photonic_head noise_rms 0",
+        lambda: mods["serve_photonic"].photonic_head(
+            x, params.embed.table, 0.0, 7, dev),
+        ("ddot_gemm_quantized",))
+    _check(launched(head_counts) == {"ddot_gemm_quantized": 1},
+           f"photonic_head launched {launched(head_counts)}")
+    plain = ddot_matmul_ref(x, params.embed.table.T.float())
+    torch.cuda.synchronize()
+    _check(torch.equal(q, plain), "photonic_head (noise_rms 0) differs from "
+                                  "its plain version on the card")
+    ratio = got["rel_err"] / clean
+    lo, hi = PHOTONIC_NOISE_BAND
+    _check(lo <= ratio <= hi, f"photonic head rel_err {got['rel_err']!r} is "
+                              f"{ratio!r} of the noise-free {clean!r}, "
+                              f"outside {PHOTONIC_NOISE_BAND}")
+    want, wall_cpu = run_cpu("serve_photonic", [])
+    _check(got["report"] == want["report"],
+           f"photonic_report on the card differs from --device cpu: "
+           f"{got['report']} != {want['report']}")
+    print(f"examples (d) serve_photonic --photonic: 48 tokens, ttft_s "
+          f"{got['stats']['ttft_s']!r}, decode_s_per_tok "
+          f"{got['stats']['decode_s_per_tok']!r}; "
+          + "; ".join(lines_with(text, "LM head"))
+          + f"; noise-free head equal to plain, {t_head * 1e3:.3f} ms, "
+          f"rel_err {got['rel_err']!r} = {ratio!r} x the noise-free "
+          f"{clean!r}; report equal to --device cpu "
+          f"({got['report']['pta_config']}); wall {wall:.4f} s (cpu "
+          f"{wall_cpu:.4f} s) ({hw})")
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 8b wall time: {time.perf_counter() - t_phase:.1f} s ({hw})")
+    return walls
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3284,6 +3501,8 @@ def main() -> None:
     train = train_phase(dev, smi.stdout.strip(), drive, counters)
     # -- the sharding rules and the multi-pod dry-run (phase 8) -------------
     dryrun_phase(dev, smi.stdout.strip(), drive, counters, train)
+    # -- the four examples (phase 8b) ---------------------------------------
+    examples_phase(dev, smi.stdout.strip(), drive_into("examples"))
 
     print(f"service wall times ({smi.stdout.strip()}): " + "; ".join(
         f"{label} {kind} {wall:.4f} s" for label, kind, wall in service_walls))
