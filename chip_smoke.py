@@ -130,7 +130,9 @@ From the root of a checkout, with one CUDA card visible. It
      rwkv6-7b, seamless-m4t-medium, gemma3-4b) 3 steps of
      `make_train_step`, held against the port's CPU path (loss, and the
      gradient norm from the same state) and run twice on the card; a
-     `Trainer` run checkpointed and auto-resumed; `launch.train` in-process;
+     `Trainer` run checkpointed and auto-resumed; `launch.train` in-process,
+     plain and as one NCCL rank of a `--coordinator` group (losses held to
+     the plain run's, no group left up);
      qwen2.5-3b at its published width (3,397,103,616 parameters, one
      sequence of 4096 tokens, AdamW with f32 moments, remat): step wall
      time, tokens/s, peak device memory, the device busy share of a
@@ -184,6 +186,7 @@ import copy
 import dataclasses
 import json
 import math
+import socket
 import statistics
 import subprocess
 import sys
@@ -1642,6 +1645,10 @@ def train_phase(dev, hw, drive, counters):
     step 4 (pipeline step 4) and runs 2 more, finite.
     (c) `python -m repro_torch.launch.train --arch granite-3-2b --reduced
     --steps 4` in-process.
+    (e) the same with `--coordinator 127.0.0.1:<free port> --num-processes
+    1 --process-id 0`: a one-rank NCCL group over `tcp://` on cuda:0, its
+    losses within TRAIN_LOSS_ATOL of (c)'s (a line says whether they are
+    bitwise equal), no process group left up after it.
     (d) qwen2.5-3b at its published width, AdamW with f32 moments, remat:
     3 steps of `make_train_step` at sequence TRAIN_SEQ, batch TRAIN_BATCH
     (each step's wall time and tokens/s, the peak device memory), one step
@@ -1655,6 +1662,7 @@ def train_phase(dev, hw, drive, counters):
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from repro_torch import models
     from repro_torch.configs import get_config, reduced
@@ -1765,15 +1773,39 @@ def train_phase(dev, hw, drive, counters):
                "Trainer resume: wrong final step or non-finite losses")
         print(f"Trainer reduced qwen2.5-3b: losses {first['losses']}, "
               f"resumed at step 4 (pipeline step 4): {second['losses']}")
+    argv = ["--arch", "granite-3-2b", "--reduced", "--steps", "4"]
     with tempfile.TemporaryDirectory() as d:
         out, wall = run("launch.train granite-3-2b --reduced --steps 4",
-                        lambda: launch_train.main([
-                            "--arch", "granite-3-2b", "--reduced",
-                            "--steps", "4", "--ckpt-dir", d]))
+                        lambda: launch_train.main([*argv, "--ckpt-dir", d]))
         _check(out["final_step"] == 4
                and all(math.isfinite(v) for v in out["losses"]),
                "launch.train: wrong final step or non-finite losses")
     print(f"launch.train granite-3-2b --reduced --steps 4: {wall:.2f} s")
+
+    # (e) the same run as one NCCL rank of a --coordinator group
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    with tempfile.TemporaryDirectory() as d:
+        coord, wall_c = run(
+            "launch.train granite-3-2b --reduced --steps 4 --coordinator "
+            "(one NCCL rank)",
+            lambda: launch_train.main([
+                *argv, "--coordinator", f"127.0.0.1:{port}",
+                "--num-processes", "1", "--process-id", "0",
+                "--ckpt-dir", d]))
+    _check(not dist.is_initialized(),
+           "launch.train --coordinator left its process group up")
+    d_loss = max(abs(a - b) for a, b in zip(coord["losses"], out["losses"]))
+    _check(coord["final_step"] == 4 and d_loss <= TRAIN_LOSS_ATOL,
+           f"launch.train --coordinator: final step {coord['final_step']}, "
+           f"losses {coord['losses']} against the plain run's "
+           f"{out['losses']} (within {TRAIN_LOSS_ATOL})")
+    backend = "NCCL" if dev.type == "cuda" else "gloo"
+    print(f"launch.train --coordinator, one {backend} rank on {dev} ({hw}): "
+          f"{wall_c:.2f} s (plain {wall:.2f} s); losses {coord['losses']}, "
+          f"within {d_loss!r} of the plain run's, bitwise equal: "
+          f"{coord['losses'] == out['losses']}")
 
     # (d) qwen2.5-3b at its published width
     cfg = get_config("qwen2.5-3b")

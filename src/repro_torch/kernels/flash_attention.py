@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from .dse_eval import _check, _ptr, _require, _stream
-from .ref import flash_attention_ref
+from .ref import NEG_INF, flash_attention_ref  # noqa: F401  (public)
 
 MAX_HEAD_DIM = 256
 

@@ -63,17 +63,17 @@ class Mamba(nn.Module):
 
 
 def mamba_specs(rules):
-    return {"in_proj": rules.w_col, "conv_w": _conv_spec(rules),
+    return {"in_proj": rules.w_col, "conv_w": P_or_none(rules),
             "conv_b": rules.b_model, "a_log": rules.replicated,
             "d_skip": rules.replicated, "dt_bias": rules.replicated,
             "norm": {"scale": rules.b_model},
             "out_proj": rules.w_row}
 
 
-def _conv_spec(rules):
-    """(K, C) conv taps: channels over the model axis (None under
-    NULL_RULES)."""
-    if rules.model_axis is None:
+def P_or_none(rules):
+    """(K, C) conv taps: channels over the model axis; None under
+    NULL_RULES."""
+    if rules is NULL_RULES:
         return None
     return (None, rules.model_axis)
 

@@ -176,6 +176,8 @@ DECODE_RULES = Rules(fsdp=False, seq_parallel=False, seq_shard_kv=True)
 LONG_DECODE_RULES = Rules(fsdp=False, seq_parallel=False, seq_shard_kv=True,
                           batch_over_model=True, data_axes=())
 
+SINGLE_POD_AXES: Tuple[str, ...] = ("data",)
+
 # The 1-D DSE candidate axis (launch.mesh.make_candidate_mesh).
 CANDIDATE_AXIS = "candidates"
 

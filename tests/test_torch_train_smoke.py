@@ -113,13 +113,6 @@ def test_launch_train_on_the_cpu(tmp_path, capsys):
     assert again["final_step"] == 6
 
 
-def test_launch_train_coordinator_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        launch_train.main(["--arch", "qwen2.5-3b", "--reduced",
-                           "--coordinator", "localhost:1234", "--device",
-                           "cpu"])
-
-
 def _example():
     path = ROOT / "examples" / "train_photonic_qat_torch.py"
     spec = importlib.util.spec_from_file_location("train_qat_torch", path)
