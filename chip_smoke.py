@@ -136,8 +136,27 @@ From the root of a checkout, with one CUDA card visible. It
      qwen2.5-3b at its published width (3,397,103,616 parameters, one
      sequence of 4096 tokens, AdamW with f32 moments, remat): step wall
      time, tokens/s, peak device memory, the device busy share of a
-     profiled step and its top kernels, and the step split into forward,
+     profiled step, its top kernels and its device time by kind (f32
+     GEMM, bf16 GEMM, casts, the rest), and the step split into forward,
      backward and the optimizer pass; no hand-written kernel may launch;
+  6d. runs the products' bf16 mode (`precision_phase`;
+     `models.layers.set_exec_safe(False)`, the reference's default: bf16
+     operands into the library's f32-result product), restoring the mode
+     after it: (a) the models' 16 einsum equations and `matmul32` at
+     qwen2.5-3b's widths (B 4, S 128, the LM head at its 151,936 vocabulary)
+     within the summation-order bound of the f32 product on the card, each
+     timed beside the exec-safe product; (b) phase 6c's qwen2.5-3b step in
+     bf16 mode (same weights and batches: step wall, tokens/s, peak, busy
+     share, device time by kind, beside phase 6c's), every step's loss and
+     gradient norm within TRAIN_LOSS_ATOL and TRAIN_GNORM_RTOL of phase
+     6c's, the first step's gradients leaf by leaf within TRAIN_GNORM_RTOL
+     of exec-safe's in norm, and no product on f32 operands; (c)
+     `Server.generate` 4 x 12 tokens in each mode (ttft, decode s/token,
+     peak), greedy tokens equal wherever the exec-safe top-2 margin exceeds
+     MARGIN; (d) `launch.serve tokens --arch qwen2.5-3b` through its `main`
+     at full width, every product on the bf16 route; (e) rwkv6-7b cut to
+     two layers, forward and backward: every GEMM with a bf16 result runs
+     with cuBLAS's bf16 reduced-precision reduction off;
   8. the sharding rules and the multi-pod dry-run (`dryrun_phase`): (a)
      the four cells of the reference's integration tests at published
      widths on abstract "cuda" meshes of 256 or 512 placeholder H100s,
@@ -156,7 +175,12 @@ From the root of a checkout, with one CUDA card visible. It
      with DTensor parameters from `param_specs` on a one-card mesh over an
      NCCL group of one rank (a FileStore, no network): its prefill logits,
      and a decode step's logits and cache from the prefill's cache, equal
-     the NULL_RULES ones bit for bit; no hand-written kernel may launch;
+     the NULL_RULES ones bit for bit; then, cut to one layer, once in
+     bf16 mode (`bf16_on_dtensor`): whether DTensor propagates the
+     f32-result product (`mm.dtype` / `bmm.dtype` called bare), and that
+     the prefill on DTensor parameters refuses bf16 mode (it must raise,
+     naming `set_exec_safe(True)`), with no product on f32 operands; no
+     hand-written kernel may launch;
   8b. runs the four examples (`examples/*_torch.py`, `examples_phase`),
      each through its `main([...])` on the card: quickstart's result equal
      to its `--device cpu` run (no launch); arch_cosearch's zoo table on
@@ -179,9 +203,14 @@ From the root of a checkout, with one CUDA card visible. It
      PyTorch call computes the same function, that call's time; then the
      result line.
 
+Phases 6, 6b, 6c, 8 and 8b pin the products' exec-safe mode
+(`set_exec_safe(True)`: f32 operands), the mode their checks against the
+CPU path and their stored figures were taken in, and print it.
+
 Any failed check raises, so the script exits non-zero and prints no result
 line. It exits non-zero at once without a CUDA card, or outside a checkout.
 """
+import contextlib
 import copy
 import dataclasses
 import json
@@ -1623,6 +1652,38 @@ def device_us(evt) -> float:
     return 0.0
 
 
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+
+
+def device_split(prof, total_s: float) -> dict:
+    """A profile's device seconds by kind: "f32 GEMM" (a GEMM operator
+    whose kernels include an f32 one: cuBLAS's `sgemm` or `f32f32_f32f32`
+    kernels; TF32 is off, so no f32 product runs on the tensor cores),
+    "bf16 GEMM" (every other GEMM operator: bf16 operands on the tensor
+    cores), "casts" (the copies of `aten::_to_copy`, i.e. dtype
+    conversions) and "rest" (`total_s` less those). Each kernel counts under
+    the operator that launched it (the profiler's correlation)."""
+    split = {"f32 GEMM": 0.0, "bf16 GEMM": 0.0, "casts": 0.0}
+    for e in prof.events():
+        kernels = getattr(e, "kernels", None) or ()
+        if not kernels or not e.name.startswith("aten::"):
+            continue
+        s_ = sum(k.duration for k in kernels) / 1e6
+        if e.name in GEMM_OPS:
+            f32 = any("sgemm" in k.name or "f32f32_f32f32" in k.name
+                      for k in kernels)
+            split["f32 GEMM" if f32 else "bf16 GEMM"] += s_
+        elif e.name == "aten::copy_" and e.cpu_parent is not None \
+                and e.cpu_parent.name == "aten::_to_copy":
+            split["casts"] += s_
+    split["rest"] = total_s - sum(split.values())
+    return split
+
+
+def _split_text(split: dict) -> str:
+    return ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+
+
 def train_phase(dev, hw, drive, counters):
     """Phase 6c: training on the card.
 
@@ -1824,7 +1885,7 @@ def train_phase(dev, hw, drive, counters):
     step = make_train_step(cfg, opt_cfg, remat=True)
     src = SyntheticTokenSource(cfg, shape, seed=0)
     tokens = TRAIN_SEQ * TRAIN_BATCH
-    walls, losses = [], []
+    walls, losses, gnorms = [], [], []
     for i in range(TRAIN_STEPS):
         batch = batch_to(src.batch_at(i), dev)
         (model, state, m), wall = run(
@@ -1835,6 +1896,7 @@ def train_phase(dev, hw, drive, counters):
                f"qwen2.5-3b training step {i + 1}: not finite ({m})")
         walls.append(wall)
         losses.append(m["loss"])
+        gnorms.append(m["grad_norm"])
         print(f"train qwen2.5-3b step {i + 1} ({hw}): {wall:.3f} s, "
               f"{tokens / wall:.1f} tokens/s, loss {m['loss']!r}, "
               f"grad_norm {m['grad_norm']!r}")
@@ -1855,10 +1917,12 @@ def train_phase(dev, hw, drive, counters):
     dev_us = sum(device_us(e) for e in avgs)
     n_kernels = sum(e.count for e in avgs if device_us(e))
     busy = dev_us / 1e6 / prof_wall
+    split = device_split(prof, dev_us / 1e6)
     print(f"train qwen2.5-3b profiled step ({hw}): wall {prof_wall:.3f} s, "
           f"device time {dev_us / 1e6:.3f} s, busy share {busy:.4f} "
           f"({dev_us / 1e6 / statistics.median(walls):.4f} of the median "
-          f"unprofiled step), {n_kernels} kernels")
+          f"unprofiled step), {n_kernels} kernels; device time by kind: "
+          f"{_split_text(split)}")
     for e in sorted(avgs, key=device_us, reverse=True)[:12]:
         if device_us(e):
             print(f"  device {device_us(e) / 1e3:10.2f} ms  x{e.count:<6d} "
@@ -1888,8 +1952,463 @@ def train_phase(dev, hw, drive, counters):
     torch.cuda.empty_cache()
     summary = {"step_s": walls, "tokens_per_s": [tokens / w for w in walls],
                "peak_gib": peak, "busy": busy, "fwd_s": t_f,
-               "fwd_bwd_s": t_fb, "adamw_s": t_opt, "losses": losses}
+               "fwd_bwd_s": t_fb, "adamw_s": t_opt, "losses": losses,
+               "grad_norms": gnorms, "device_s": dev_us / 1e6,
+               "split": split}
     print(f"phase 6c wall time: {time.perf_counter() - t_phase:.1f} s ({hw})")
+    return summary
+
+
+@contextlib.contextmanager
+def product_mode(exec_safe: bool, label: str, hw: str):
+    """Run a phase with the products' mode set (`models.layers.
+    set_exec_safe`), printing it, and restore the mode after it. The
+    phases that hold the card against the CPU path or a stored figure pin
+    exec-safe (f32 operands), the mode their records were taken in."""
+    from repro_torch.models import layers
+    prev = layers._EXEC_SAFE
+    layers.set_exec_safe(exec_safe)
+    print(f"{label}: products "
+          + ("exec-safe (f32 operands)" if exec_safe
+             else "bf16 operands, f32 result") + f" ({hw})")
+    try:
+        yield
+    finally:
+        layers.set_exec_safe(prev)
+
+
+def leaf_grads(model, cfg, batch) -> dict:
+    """The gradients of `models.lm_loss` (remat, as the train step runs
+    it) by parameter name; the weights are left as they were."""
+    import torch
+
+    import repro_torch.models as models
+
+    named = dict(model.named_parameters())
+    model.requires_grad_(True)
+    try:
+        loss, _ = models.lm_loss(model, cfg, batch, remat=True)
+        gs = torch.autograd.grad(loss, list(named.values()),
+                                 allow_unused=True)
+    finally:
+        model.requires_grad_(False)
+    return {n: torch.zeros_like(p) if g is None else g
+            for (n, p), g in zip(named.items(), gs)}
+
+
+def bf16_result_reduction(dev, hw, run):
+    """Phase 6d(e): rwkv6-7b at its published width cut to two layers, one
+    `lm_loss` forward and backward (remat) on 1 x 64 tokens with PyTorch's
+    default `allow_bf16_reduced_precision_reduction` (True) set around it.
+    Every GEMM with a bf16 result (the time and channel mixes' plain
+    `x @ w`, `layers.matmul16`) must run with the flag off, in the forward,
+    its recompute and the backward (at least three times the GEMMs of a
+    forward alone), and the flag must be True again after."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    import repro_torch.models as models
+    from repro_torch.configs import get_config
+
+    aten = torch.ops.aten
+    gemms = {aten.mm, aten.bmm, aten.addmm, aten.baddbmm}
+    flags = torch.backends.cuda.matmul
+
+    class Seen(TorchDispatchMode):
+        """bf16-result GEMMs by the flag's value when each ran."""
+
+        def __init__(self):
+            super().__init__()
+            self.n = {True: 0, False: 0}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket in gemms \
+                    and out.dtype == torch.bfloat16:
+                self.n[bool(
+                    flags.allow_bf16_reduced_precision_reduction)] += 1
+            return out
+
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), n_layers=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = models.init_params(cfg, gen, device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, 64), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    fwd, both = Seen(), Seen()
+
+    def forward():
+        with fwd, torch.no_grad():
+            models.forward(model, cfg, batch)
+
+    def fwd_bwd():
+        model.requires_grad_(True)
+        with both:
+            loss, _ = models.lm_loss(model, cfg, batch, remat=True)
+            loss.backward()
+        return float(loss.detach())
+
+    prev = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = True
+    try:
+        run("rwkv6-7b two layers, forward", forward)
+        loss, wall = run("rwkv6-7b two layers, forward and backward",
+                         fwd_bwd)
+        after = flags.allow_bf16_reduced_precision_reduction
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = prev
+        model.requires_grad_(False)
+    del model
+    torch.cuda.empty_cache()
+    print(f"rwkv6-7b cut to 2 layers, 1 x 64 tokens ({hw}): bf16-result "
+          f"GEMMs under allow_bf16_reduced_precision_reduction False / "
+          f"True: forward {fwd.n[False]} / {fwd.n[True]}, forward and "
+          f"backward {both.n[False]} / {both.n[True]} ({wall:.2f} s, loss "
+          f"{loss!r}); the flag after: {after}")
+    _check(fwd.n[False] > 0 and fwd.n[True] == 0 and both.n[True] == 0
+           and both.n[False] >= 3 * fwd.n[False] and after,
+           f"rwkv6-7b bf16-result GEMMs: forward {fwd.n}, forward and "
+           f"backward {both.n}, the flag after {after}")
+
+
+def precision_shapes(cfg):
+    """Phase 6d's operands per equation: qwen2.5-3b's widths at batch 4,
+    sequence 128 (the LM head at its whole vocabulary); the MLA equations
+    at deepseek-v3's latent rank 512 with qwen2.5-3b's 16 heads of 128; the
+    MoE equations on a sort-dispatch buffer of 8 experts x 128 slots at
+    qwen2.5-3b's d_model and d_ff. Returns ({equation: (shape a, shape
+    b)}, matmul32's (shape a, shape b))."""
+    b, s, d, f = 4, 128, cfg.d_model, cfg.d_ff
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g, v, r, e, c = h // hkv, cfg.vocab, 512, 8, 128
+    return {
+        "bsd,dhk->bshk": ((b, s, d), (d, h, dh)),
+        "bshk,hkd->bsd": ((b, s, h, dh), (h, dh, d)),
+        "bsr,rhk->bshk": ((b, s, r), (r, h, dh)),
+        "bsd,vd->bsv": ((b, s, d), (v, d)),
+        "bqhd,bkhd->bhqk": ((b, s, h, dh), (b, s, h, dh)),
+        "bhqk,bkhd->bqhd": ((b, h, s, s), (b, s, h, dh)),
+        "bqhgd,bkhd->bhgqk": ((b, s, hkv, g, dh), (b, s, hkv, dh)),
+        "bhgqk,bkhd->bqhgd": ((b, hkv, g, s, s), (b, s, hkv, dh)),
+        "bqhd,hdm->bqm": ((b, s, h, dh), (h, dh, d)),
+        "bqhn,bkhn->bhqk": ((b, s, h, dh), (b, s, h, dh)),
+        "bqhn,rhn->bqhr": ((b, s, h, dh), (r, h, dh)),
+        "bqhr,bkr->bhqk": ((b, s, h, r), (b, s, r)),
+        "bhqk,bkr->bqhr": ((b, h, s, s), (b, s, r)),
+        "bqhr,rhd->bqhd": ((b, s, h, r), (r, h, dh)),
+        "...ecd,edf->...ecf": ((e, c, d), (e, d, f)),
+        "...ecf,efd->...ecd": ((e, c, f), (e, f, d)),
+    }, ((b, s, d), (d, f))
+
+
+# Greedy tokens of the two product modes must be equal wherever the
+# exec-safe run's top-2 logit margin exceeds twice LOGIT_ATOL
+# (tests/test_torch_lm.py's rule).
+MARGIN = 2 * LOGIT_ATOL
+
+
+def precision_phase(dev, hw, drive, counters, train):
+    """Phase 6d: the products' bf16 mode (`set_exec_safe(False)`, the
+    reference's default) on the card, beside exec-safe; the mode is
+    restored after the phase.
+
+    (a) Each of the models' 16 einsum equations and `matmul32` at
+    `precision_shapes`, in bf16 mode (the library's bf16 x bf16 -> f32
+    product) against the exec-safe f32 product of the same operands on the
+    card: the largest |diff| / (K 2^-24 sum|a b|) must be at most 1 (two f32
+    sums of the same exact products, each within that of the exact sum);
+    every call counted under `PRODUCTS["bf16"]`; the share of results that
+    are bf16 values (1 would mean a bf16-rounded result) and the times of
+    the bf16 route, the exec-safe route and the bf16-result library product
+    (`torch.einsum` of the bf16 operands, a yardstick the port never
+    calls).
+    (b) Phase 6c's qwen2.5-3b step in bf16 mode: the same weights (seed 0)
+    and batches, TRAIN_STEPS timed steps and one profiled step (busy share,
+    the device-time split of `device_split`), the peak device memory; each
+    step's loss within TRAIN_LOSS_ATOL and gradient norm within
+    TRAIN_GNORM_RTOL of phase 6c's (steps 2 and 3 start from weights the
+    backward and AdamW updated), the first step's gradients leaf by leaf
+    (`leaf_grads`, both modes on the same weights and batch) within
+    TRAIN_GNORM_RTOL of the exec-safe ones in norm, and no product in f32
+    (`PRODUCTS["f32"] == 0`). The exec-safe step figures printed beside
+    them are phase 6c's, from this run.
+    (c) `Server.generate`, 4 x 12 tokens of the full-width qwen2.5-3b, in
+    each mode (a first and a timed second call): ttft, decode s/token,
+    peak; the greedy tokens equal wherever the exec-safe run's top-2 margin
+    exceeds MARGIN (a row may part only at a step within it, and stops
+    there).
+    (d) `launch.serve tokens --arch qwen2.5-3b` through its `main` at full
+    width: every product on the bf16 route.
+    (e) `bf16_result_reduction`: rwkv6-7b's bf16-result GEMMs, forward and
+    backward, run with cuBLAS's bf16 reduced-precision reduction off.
+    Every call runs under `drive(label, fn, needs=())`; no hand-written
+    kernel may launch. Returns the phase's summary."""
+    import numpy as np
+    import torch
+
+    import repro_torch.models as models
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticTokenSource
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import layers
+    from repro_torch.optim import adamw
+    from repro_torch.train.serve import Request, Server
+    from repro_torch.train.trainer import batch_to, make_train_step
+
+    def run(label, fn):
+        out, wall = drive(label, fn, needs=())
+        launched = {k: n for c in counters for k, n in c.items() if n}
+        _check(not launched, f"{label}: launched {launched}; no reference "
+                             f"model calls a kernel")
+        return out, wall
+
+    def count_products():
+        layers.PRODUCTS.update(bf16=0, f32=0)
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2.5-3b")
+    summary = {}
+    with product_mode(False, "phase 6d", hw):
+        # (a) the products, each against the f32 product on the card
+        eqs, mm_shapes = precision_shapes(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        count_products()
+        worst = 0.0
+        for eq, shapes in list(eqs.items()) + [("matmul32", mm_shapes)]:
+            a, b = (torch.randn(s_, generator=gen, device=dev)
+                    .to(torch.bfloat16) for s_ in shapes)
+            if eq == "matmul32":
+                got = layers.matmul32(a, b)
+                want, k = a.float() @ b.float(), a.shape[-1]
+                abs_sum = a.float().abs() @ b.float().abs()
+                fns = (lambda: layers.lowered_einsum("...k,kn->...n", a, b),
+                       lambda: a.float() @ b.float(), lambda: a @ b)
+            else:
+                got = layers.einsum32(eq, a, b)
+                want = torch.einsum(eq, a.float(), b.float())
+                abs_sum = torch.einsum(eq, a.float().abs(), b.float().abs())
+                k = layers._plan(eq, tuple(a.shape), tuple(b.shape)) \
+                    .shape_a3[-1]
+                fns = (lambda: layers.lowered_einsum(eq, a, b),
+                       lambda: torch.einsum(eq, a.float(), b.float()),
+                       lambda: torch.einsum(eq, a, b))
+            _check(got.dtype == torch.float32 and got.shape == want.shape,
+                   f"{eq}: bf16 route gave {got.dtype} {tuple(got.shape)}")
+            bound = k * 2.0 ** -24 * abs_sum
+            diff = (got - want).abs()
+            ratio = float(torch.where(
+                bound > 0, diff / torch.where(bound > 0, bound, 1.0),
+                torch.where(diff == 0, 0.0, math.inf)).max())
+            bf16_share = float((got.bfloat16().float() == got).float()
+                               .mean())
+            t_b, t_f, t_l = (_time_ms(f_, reps=3, inner=3) for f_ in fns)
+            worst = max(worst, ratio)
+            print(f"product {eq} {tuple(a.shape)} x {tuple(b.shape)} "
+                  f"(K {k}, {hw}): largest |diff| / (K 2^-24 sum|ab|) "
+                  f"{ratio:.4g}, results that are bf16 values {bf16_share:.4f}"
+                  f"; bf16 route {t_b:.4f} ms, exec-safe {t_f:.4f} ms, "
+                  f"bf16-result library product {t_l:.4f} ms")
+            _check(ratio <= 1.0, f"{eq}: the bf16 route is {ratio!r} times "
+                                 f"the summation-order bound from the f32 "
+                                 f"product")
+            del a, b, got, want, abs_sum, bound, diff
+        n_checked = len(eqs) + 1
+        _check(layers.PRODUCTS == {"bf16": n_checked, "f32": 0},
+               f"phase 6d products: routes {layers.PRODUCTS}, not "
+               f"{n_checked} bf16")
+        print(f"phase 6d products: {n_checked} checked within the bound "
+              f"(largest {worst:.4g}), routes {layers.PRODUCTS}")
+        summary["worst_ratio"] = worst
+        torch.cuda.empty_cache()
+
+        # (b) phase 6c's qwen2.5-3b step in bf16 mode
+        shape = ShapeConfig("train_4k_batch_1", TRAIN_SEQ, TRAIN_BATCH,
+                            "train")
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        model = models.init_params(cfg, gen, device=dev)
+        opt_cfg = adamw.AdamWConfig(moment_dtype=torch.float32)
+        state = adamw.init(opt_cfg, dict(model.named_parameters()))
+        step = make_train_step(cfg, opt_cfg, remat=True)
+        src = SyntheticTokenSource(cfg, shape, seed=0)
+        tokens = TRAIN_SEQ * TRAIN_BATCH
+        # the backward: step 1's gradients, leaf by leaf, in both modes
+        batch = batch_to(src.batch_at(0), dev)
+        grads = {}
+        for exec_safe in (True, False):
+            layers.set_exec_safe(exec_safe)
+            grads[exec_safe], _ = run(
+                f"qwen2.5-3b gradients, exec-safe {exec_safe}",
+                lambda: leaf_grads(model, cfg, batch))
+        rel = {n_: float((g_ - grads[True][n_]).norm()
+                         / grads[True][n_].norm().clamp_min(1e-30))
+               for n_, g_ in grads[False].items()}
+        worst_leaf = max(rel, key=rel.get)
+        del grads, batch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        print(f"qwen2.5-3b step-1 gradients, bf16 against exec-safe ({hw}): "
+              f"{len(rel)} leaves, largest |g_bf16 - g_exec_safe| / "
+              f"|g_exec_safe| {rel[worst_leaf]:.4g} ({worst_leaf}), median "
+              f"{statistics.median(rel.values()):.4g}")
+        _check(rel[worst_leaf] <= TRAIN_GNORM_RTOL,
+               f"qwen2.5-3b gradients: leaf {worst_leaf} is "
+               f"{rel[worst_leaf]!r} from exec-safe, above "
+               f"{TRAIN_GNORM_RTOL}")
+        count_products()
+        walls, losses, gnorms = [], [], []
+        for i in range(TRAIN_STEPS):
+            batch = batch_to(src.batch_at(i), dev)
+            (model, state, m), wall = run(
+                f"train qwen2.5-3b bf16 products step {i + 1}",
+                lambda: step(model, state, batch))
+            m = {k_: float(v_) for k_, v_ in m.items()}
+            _check(all(math.isfinite(v_) for v_ in m.values()),
+                   f"qwen2.5-3b bf16 step {i + 1}: not finite ({m})")
+            walls.append(wall)
+            losses.append(m["loss"])
+            gnorms.append(m["grad_norm"])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        batch = batch_to(src.batch_at(TRAIN_STEPS), dev)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            model, state, _ = step(model, state, batch)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        avgs = prof.key_averages()
+        dev_s = sum(device_us(e) for e in avgs) / 1e6
+        split = device_split(prof, dev_s)
+        routes = dict(layers.PRODUCTS)
+        del model, state, batch, prof, avgs
+        torch.cuda.empty_cache()
+        d_loss = max(abs(a_ - b_) for a_, b_ in zip(losses,
+                                                     train["losses"]))
+        d_gnorm = max(abs(a_ - b_) / b_ for a_, b_ in zip(
+            gnorms, train["grad_norms"]))
+        _check(routes["f32"] == 0 and routes["bf16"] > 0,
+               f"qwen2.5-3b bf16 steps: product routes {routes}")
+        # steps 2 and on run from weights the backward and AdamW updated
+        _check(d_loss <= TRAIN_LOSS_ATOL, f"qwen2.5-3b steps: bf16 losses "
+               f"{losses} against exec-safe {train['losses']}")
+        _check(d_gnorm <= TRAIN_GNORM_RTOL, f"qwen2.5-3b steps: bf16 "
+               f"gradient norms {gnorms} against exec-safe "
+               f"{train['grad_norms']}")
+        med = statistics.median(walls)
+        med_es = statistics.median(train["step_s"])
+        print(f"train qwen2.5-3b, bf16 products ({hw}): steps "
+              + ", ".join(f"{w_:.3f}" for w_ in walls) + " s, "
+              + ", ".join(f"{tokens / w_:.1f}" for w_ in walls)
+              + f" tokens/s, peak {peak:.2f} GiB, losses {losses}, "
+              f"gradient norms {gnorms}; "
+              f"profiled step wall {prof_wall:.3f} s, device {dev_s:.3f} s, "
+              f"busy {dev_s / prof_wall:.4f}; by kind: {_split_text(split)}; "
+              f"product routes {routes}")
+        print(f"train qwen2.5-3b, exec-safe products (phase 6c, {hw}): "
+              f"steps " + ", ".join(f"{w_:.3f}" for w_ in train["step_s"])
+              + " s, " + ", ".join(f"{r_:.1f}" for r_ in
+                                   train["tokens_per_s"])
+              + f" tokens/s, peak {train['peak_gib']:.2f} GiB, losses "
+              f"{train['losses']}, gradient norms {train['grad_norms']}; "
+              f"device {train['device_s']:.3f} s, busy "
+              f"{train['busy']:.4f}; by kind: {_split_text(train['split'])}")
+        print(f"train qwen2.5-3b step, bf16 against exec-safe ({hw}): median "
+              f"{med:.3f} / {med_es:.3f} s ({med / med_es:.3f}x), losses "
+              f"within {d_loss!r}, gradient norms within {d_gnorm!r} "
+              f"relative")
+        summary["train"] = {"step_s": walls, "peak_gib": peak,
+                            "busy": dev_s / prof_wall, "device_s": dev_s,
+                            "split": split, "losses": losses}
+
+        # (c) serving in each mode
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = models.init_params(cfg, gen, device=dev)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, cfg.vocab, size=rng.integers(4, 12))
+                   .astype(np.int32) for _ in range(4)]
+        srv = Server(cfg, params, batch_size=4, max_len=64, device=dev)
+        served = {}
+        for exec_safe in (True, False):
+            layers.set_exec_safe(exec_safe)
+            mode = "exec-safe" if exec_safe else "bf16"
+            torch.cuda.reset_peak_memory_stats()
+            count_products()
+            for call in ("first", "second"):
+                reqs = [Request(prompt=p_, max_new=12) for p_ in prompts]
+                stats, _ = run(f"serve qwen2.5-3b 4x12 {mode} ({call})",
+                               lambda: srv.generate(reqs))
+            routes = dict(layers.PRODUCTS)
+            _check(routes["f32" if not exec_safe else "bf16"] == 0,
+                   f"serving in {mode} mode: product routes {routes}")
+            served[mode] = {"stats": stats, "peak_gib":
+                            torch.cuda.max_memory_allocated() / 2**30,
+                            "tokens": [r_.out for r_ in reqs]}
+            print(f"serve qwen2.5-3b 4x12, {mode} products ({hw}): ttft "
+                  f"{stats['ttft_s']:.4f} s, decode "
+                  f"{stats['decode_s_per_tok']:.4f} s/token, peak "
+                  f"{served[mode]['peak_gib']:.2f} GiB, product routes "
+                  f"{routes}")
+        # the exec-safe run's margins: one more run, each step's logits kept
+        layers.set_exec_safe(True)
+        margins, orig = [], (models.prefill, models.decode_step)
+
+        def keep(fn):
+            def wrapped(*a_, **kw_):
+                out = fn(*a_, **kw_)
+                top2 = torch.topk(out[0].float(), 2, dim=-1).values
+                margins.append((top2[:, 0] - top2[:, 1]).tolist())
+                return out
+            return wrapped
+        models.prefill, models.decode_step = keep(orig[0]), keep(orig[1])
+        try:
+            reqs = [Request(prompt=p_, max_new=12) for p_ in prompts]
+            srv.generate(reqs)
+        finally:
+            models.prefill, models.decode_step = orig
+        layers.set_exec_safe(False)
+        traced = [r_.out for r_ in reqs]
+        _check(traced == served["exec-safe"]["tokens"],
+               "serving exec-safe: the traced run's tokens differ")
+        same = parted = 0
+        for i, (want, got) in enumerate(zip(traced,
+                                            served["bf16"]["tokens"])):
+            for j, (w_, g_) in enumerate(zip(want, got)):
+                if w_ != g_:
+                    _check(margins[j][i] <= MARGIN, f"serving bf16: request "
+                           f"{i} step {j} differs from exec-safe where its "
+                           f"top-2 margin is {margins[j][i]!r} > {MARGIN}")
+                    parted += 1
+                    break
+                same += 1
+        print(f"serve qwen2.5-3b greedy tokens, bf16 against exec-safe "
+              f"({hw}): {same} of 48 equal before any parting, {parted} "
+              f"requests parted at a step whose margin is within {MARGIN}")
+        summary["serve"] = served
+        del srv, params
+        torch.cuda.empty_cache()
+
+        # (d) the launcher at full width
+        count_products()
+        _, wall = run("launch.serve tokens --arch qwen2.5-3b",
+                      lambda: launch_serve.main(["tokens", "--arch",
+                                                 "qwen2.5-3b"]))
+        routes = dict(layers.PRODUCTS)
+        _check(routes["f32"] == 0 and routes["bf16"] > 0,
+               f"launch.serve tokens at full width: product routes {routes}")
+        print(f"launch.serve tokens --arch qwen2.5-3b ({hw}): {wall:.2f} s, "
+              f"product routes {routes}")
+        torch.cuda.empty_cache()
+
+        # (e) bf16-result GEMMs reduce in f32
+        bf16_result_reduction(dev, hw, run)
+    print(f"phase 6d wall time: {time.perf_counter() - t_phase:.1f} s ({hw})")
     return summary
 
 
@@ -1976,15 +2495,97 @@ def one_card_rules(dev, hw, run, cfg):
                 return same, dict(shd.GATHERED), n_dt
             (same, gathered, n_dt), _ = run("one-card DTensor prefill and "
                                             "decode", one_card)
+            print(f"one-card mesh (NCCL, 1 rank, {hw}): qwen2.5-3b at its "
+                  f"published width, 4 x 24 tokens, {n_dt['prefill']} "
+                  f"DTensor parameters: prefill logits bit-equal to "
+                  f"NULL_RULES: {same['prefill']}; decode step logits: "
+                  f"{same['decode']}, cache: {same['cache']} (ops gathered: "
+                  f"{gathered})")
+            _check(all(same.values()), f"one-card DTensor run differs from "
+                                       f"NULL_RULES: {same}")
+            bf16_on_dtensor(dev, hw, run, cfg)
         finally:
             dist.destroy_process_group()
-    print(f"one-card mesh (NCCL, 1 rank, {hw}): qwen2.5-3b at its published "
-          f"width, 4 x 24 tokens, {n_dt['prefill']} DTensor parameters: "
-          f"prefill logits bit-equal to NULL_RULES: {same['prefill']}; "
-          f"decode step logits: {same['decode']}, cache: {same['cache']} "
-          f"(ops gathered: {gathered})")
-    _check(all(same.values()), f"one-card DTensor run differs from "
-                               f"NULL_RULES: {same}")
+
+
+def bf16_on_dtensor(dev, hw, run, cfg):
+    """Phase 8(c), bf16 products once on DTensors (`cfg` cut to one layer,
+    PREFILL_RULES on the one-card mesh of the process group the caller
+    holds): whether DTensor propagates the library's f32-result product
+    (`aten.mm.dtype` / `aten.bmm.dtype`, called bare on DTensors), and
+    that `models.prefill` on sharded parameters in bf16 mode raises (the
+    bf16 route refuses DTensors rather than letting the entry point's
+    `GatherFallback` run every product on gathered operands) with no
+    product taking f32 operands. The mode is restored."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch import models
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.specs import distribute_params, param_specs
+
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+
+    def raised(fn):
+        try:
+            fn()
+            return None
+        except Exception as e:  # noqa: BLE001 — what DTensor raises is data
+            return f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+    def trial():
+        mesh1 = make_host_mesh("cuda" if dev.type == "cuda" else "cpu")
+        plain = models.init_params(
+            cfg1, torch.Generator(device=dev).manual_seed(0), device=dev)
+        rules = shd.for_mesh(shd.PREFILL_RULES, mesh1)
+        sharded = distribute_params(plain, param_specs(cfg1, rules, plain),
+                                    mesh1)
+        toks = torch.randint(0, cfg1.vocab, (4, 24), device=dev,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(1),
+                             dtype=torch.int32)
+        out = {}
+        ones = torch.ones((2, 8, 16), dtype=torch.bfloat16, device=dev)
+        rep = [Replicate()] * mesh1.ndim
+        a3 = distribute_tensor(ones, mesh1, rep)
+        b3 = distribute_tensor(ones.mT.contiguous(), mesh1,
+                               [Shard(2)] * mesh1.ndim)
+        for name, fn in (
+                ("mm.dtype", lambda: torch.mm(a3[0], b3[0],
+                                              out_dtype=torch.float32)),
+                ("bmm.dtype", lambda: torch.bmm(a3, b3,
+                                                out_dtype=torch.float32))):
+            err = raised(fn)
+            out[name] = "propagated" if err is None else f"raised {err}"
+        layers.PRODUCTS.update(bf16=0, f32=0)
+        with torch.no_grad():
+            out["prefill"] = raised(lambda: models.prefill(
+                sharded, cfg1, {"tokens": toks}, rules=rules))
+        out["routes"] = dict(layers.PRODUCTS)
+        return out
+
+    prev = layers._EXEC_SAFE
+    layers.set_exec_safe(False)
+    try:
+        out, _ = run("one-card DTensor prefill, one layer, bf16 products",
+                     trial)
+    finally:
+        layers.set_exec_safe(prev)
+    print(f"one-card mesh, bf16 products on DTensors ({hw}), qwen2.5-3b cut "
+          f"to one layer: DTensor and the library's f32-result product: "
+          f"mm.dtype {out['mm.dtype']}; bmm.dtype {out['bmm.dtype']}; "
+          f"prefill through the entry point raised {out['prefill']}; "
+          f"product routes {out['routes']}")
+    if dev.type == "cuda":
+        _check(out["prefill"] is not None
+               and out["prefill"].startswith("NotImplementedError")
+               and "set_exec_safe(True)" in out["prefill"],
+               f"a bf16-mode prefill on DTensors did not refuse: "
+               f"{out['prefill']}")
+        _check(out["routes"]["f32"] == 0, f"bf16 products on DTensors: "
+               f"{out['routes']['f32']} products took f32 operands")
 
 
 def dryrun_phase(dev, hw, drive, counters, train):
@@ -3406,6 +4007,11 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- the serving path: qwen2.5-3b at full width -------------------------
+    # Phase 6 holds the card to the CPU path and its stored figures in
+    # exec-safe mode (f32 operands); phase 6d runs the bf16 mode.
+    from repro_torch.models import layers
+    layers.set_exec_safe(True)
+    print(f"phase 6: products exec-safe (f32 operands) ({smi.stdout.strip()})")
     # A reduced qwen2.5-3b on the card against the port's CPU path (held
     # against repro in tests/test_torch_lm.py), same weights and prompts.
     small_cfg = reduced(qcfg)
@@ -3528,13 +4134,20 @@ def main() -> None:
           f"within tolerance, {t_fa * 1e3:.3f} ms with its layout copies")
 
     # -- the other model families at published widths (phase 6b) ----------
-    family_rows = families_phase(dev, smi.stdout.strip(), drive, counters)
+    hw = smi.stdout.strip()
+    with product_mode(True, "phase 6b", hw):
+        family_rows = families_phase(dev, hw, drive, counters)
     # -- training on the card (phase 6c) -----------------------------------
-    train = train_phase(dev, smi.stdout.strip(), drive, counters)
+    with product_mode(True, "phase 6c", hw):
+        train = train_phase(dev, hw, drive, counters)
+    # -- the products' bf16 mode (phase 6d) ---------------------------------
+    precision = precision_phase(dev, hw, drive, counters, train)
     # -- the sharding rules and the multi-pod dry-run (phase 8) -------------
-    dryrun_phase(dev, smi.stdout.strip(), drive, counters, train)
+    with product_mode(True, "phase 8", hw):
+        dryrun_phase(dev, hw, drive, counters, train)
     # -- the four examples (phase 8b) ---------------------------------------
-    examples_phase(dev, smi.stdout.strip(), drive_into("examples"))
+    with product_mode(True, "phase 8b", hw):
+        examples_phase(dev, hw, drive_into("examples"))
 
     print(f"service wall times ({smi.stdout.strip()}): " + "; ".join(
         f"{label} {kind} {wall:.4f} s" for label, kind, wall in service_walls))
@@ -3561,6 +4174,19 @@ def main() -> None:
           f"{train['busy']:.4f}, forward {train['fwd_s']:.3f} s, forward + "
           f"backward {train['fwd_bwd_s']:.3f} s, AdamW {train['adamw_s']:.3f} "
           f"s")
+    es, bf = precision["serve"]["exec-safe"], precision["serve"]["bf16"]
+    print(f"products, bf16 against exec-safe ({smi.stdout.strip()}): "
+          f"qwen2.5-3b step median "
+          f"{statistics.median(precision['train']['step_s']):.3f} / "
+          f"{statistics.median(train['step_s']):.3f} s, peak "
+          f"{precision['train']['peak_gib']:.2f} / {train['peak_gib']:.2f} "
+          f"GiB, device {precision['train']['device_s']:.3f} / "
+          f"{train['device_s']:.3f} s; serving ttft "
+          f"{bf['stats']['ttft_s']:.4f} / {es['stats']['ttft_s']:.4f} s, "
+          f"decode {bf['stats']['decode_s_per_tok']:.4f} / "
+          f"{es['stats']['decode_s_per_tok']:.4f} s/token, peak "
+          f"{bf['peak_gib']:.2f} / {es['peak_gib']:.2f} GiB; products "
+          f"within {precision['worst_ratio']:.4g} of the bound")
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

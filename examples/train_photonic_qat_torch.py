@@ -4,10 +4,11 @@
 
 It exercises the training substrate end to end — AdamW, checkpointing
 every 10 steps, auto-resume (run it twice with the same --ckpt-dir to
-continue), step-deterministic data — and checks that the loss falls. The
-LM's products are the exec-safe float32 ones: they do not pass through the
-4-bit DDot quantization (`kernels.ops.photonic_matmul`) in this port, nor
-in the reference's trainer.
+continue), step-deterministic data — and checks that the loss falls. As the
+reference's example does, it turns the products' exec-safe mode on
+(`set_exec_safe(True)`: f32 operands). The products do not pass through
+the 4-bit DDot quantization (`kernels.ops.photonic_matmul`), here nor in
+the reference's trainer.
 
     PYTHONPATH=src python examples/train_photonic_qat_torch.py --steps 30
     # on the card by default; --device cpu runs it here
@@ -18,6 +19,7 @@ import tempfile
 
 from repro_torch.configs import ModelConfig
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.models.layers import set_exec_safe
 from repro_torch.optim import adamw
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -34,6 +36,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda)")
     args = ap.parse_args(argv)
+    set_exec_safe(True)
 
     cfg = ModelConfig(name="qat-lm", family="dense", n_layers=args.layers,
                       d_model=args.d_model, n_heads=max(4, args.d_model // 32),

@@ -59,6 +59,8 @@ from ..analysis.roofline import Roofline, model_flops
 from ..configs import SHAPES_BY_NAME, get_config, list_archs
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models import encdec, layers, lm
+from ..models import moe as moe_mod
+from ..models import rwkv as rwkv_mod
 from ..optim import adamw
 from ..parallel import sharding as shd
 from ..parallel.specs import (batch_specs, cache_specs, distribute,
@@ -69,12 +71,13 @@ from .mesh import make_production_mesh
 # long_500k eligibility: sub-quadratic or bounded-KV archs only.
 LONG_OK = {"zamba2-7b", "rwkv6-7b", "gemma3-4b", "h2o-danube-1.8b"}
 
+_CONTEXT_PARALLEL = False  # set by apply_perf_flags (hillclimb)
 
-def rules_for(cfg: ModelConfig, shape: ShapeConfig, mesh,
-              context_parallel: bool = False, moe_dispatch: str = "sort",
-              wkv_mode: str = "scan") -> shd.Rules:
-    """The reference's `rules_for` on a DeviceMesh; the perf knobs are
-    arguments (the reference's are module globals)."""
+
+def rules_for(cfg: ModelConfig, shape: ShapeConfig, mesh) -> shd.Rules:
+    """The reference's `rules_for` on a DeviceMesh, with its perf knobs
+    (`_CONTEXT_PARALLEL`, `moe.DISPATCH_MODE`, `rwkv.WKV_MODE`, set by
+    `apply_perf_flags`; the models read the last two themselves)."""
     if shape.kind == "train":
         rules = shd.TRAIN_RULES
     elif shape.kind == "prefill":
@@ -94,9 +97,8 @@ def rules_for(cfg: ModelConfig, shape: ShapeConfig, mesh,
     if not rules.expert_axes:  # full-mesh EP owns the data axis: one group
         for a in rules.data_axes:
             groups *= sizes.get(a, 1)
-    rules = dataclasses.replace(rules, moe_groups=groups,
-                                moe_dispatch=moe_dispatch, wkv_mode=wkv_mode)
-    if context_parallel and shape.kind in ("prefill", "train"):
+    rules = dataclasses.replace(rules, moe_groups=groups)
+    if _CONTEXT_PARALLEL and shape.kind in ("prefill", "train"):
         rules = dataclasses.replace(rules, context_parallel=True)
     return rules
 
@@ -471,9 +473,7 @@ def measure_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, rules=None,
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
-             verbose: bool = True, device_type: str = "cuda",
-             context_parallel: bool = False, moe_dispatch: str = "sort",
-             wkv_mode: str = "scan") -> Dict:
+             verbose: bool = True, device_type: str = "cuda") -> Dict:
     cfg = get_config(arch)
     shape = SHAPES_BY_NAME[shape_name]
     mesh = make_production_mesh(multi_pod=multi_pod, device_type=device_type)
@@ -486,8 +486,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         return cell
     t0 = time.perf_counter()
     try:
-        rules = rules_for(cfg, shape, mesh, context_parallel, moe_dispatch,
-                          wkv_mode)
+        rules = rules_for(cfg, shape, mesh)
         res = measure_cell(cfg, shape, mesh, rules)
         cell.update(status="ok", compile_s=time.perf_counter() - t0)
         cell.update({k: v for k, v in res.items() if k != "status"})
@@ -519,16 +518,16 @@ def main(argv=None):
                     help="what the placeholder devices are (cpu: no card "
                          "needed)")
     ap.add_argument("--moe-dispatch", choices=["sort", "cumsum"],
-                    default="sort")
-    ap.add_argument("--wkv-mode", choices=["scan", "chunked"], default="scan")
+                    default=None)
+    ap.add_argument("--wkv-mode", choices=["scan", "chunked"], default=None)
     ap.add_argument("--context-parallel", action="store_true")
-    ap.add_argument("--gqa-mode", choices=["grouped"], default="grouped",
-                    help="the reference's flag, its default only "
-                         "(repeat_kv is not in the port)")
-    ap.add_argument("--xent-mode", choices=["gather"], default="gather",
-                    help="the reference's flag, its default only "
-                         "(onehot is not in the port)")
+    ap.add_argument("--gqa-mode", choices=["grouped", "repeat_kv"],
+                    default=None)
+    ap.add_argument("--xent-mode", choices=["gather", "onehot"],
+                    default=None)
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    apply_perf_flags(args.moe_dispatch, args.wkv_mode,
+                     args.context_parallel, args.gqa_mode, args.xent_mode)
     if args.device_type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the production meshes are 'cuda' "
                            "meshes; pass --device-type cpu to run without "
@@ -552,10 +551,7 @@ def main(argv=None):
     for arch, shape in targets:
         for mp in meshes:
             cells.append(run_cell(arch, shape, mp,
-                                  device_type=args.device_type,
-                                  context_parallel=args.context_parallel,
-                                  moe_dispatch=args.moe_dispatch,
-                                  wkv_mode=args.wkv_mode))
+                                  device_type=args.device_type))
             if args.out:        # incremental save: long sweeps are resumable
                 save()
     if args.out:
@@ -566,6 +562,28 @@ def main(argv=None):
     err = sum(c["status"] == "error" for c in cells)
     print(f"cells: {ok} ok, {skip} skipped, {err} failed")
     return 1 if err else 0
+
+
+# ---------------------------------------------------------------------------
+# Hillclimb knobs (the reference's): every layout variant is a CLI flag, set
+# as module state before the cells trace.
+# ---------------------------------------------------------------------------
+
+def apply_perf_flags(moe_dispatch=None, wkv_mode=None,
+                     context_parallel=False, gqa_mode=None, xent_mode=None):
+    """Set the reference's layout knobs: the MoE dispatch and WKV mode
+    defaults, GQA and cross-entropy modes (each when given) and context
+    parallelism (always)."""
+    global _CONTEXT_PARALLEL
+    if moe_dispatch:
+        moe_mod.DISPATCH_MODE = moe_dispatch
+    if wkv_mode:
+        rwkv_mod.WKV_MODE = wkv_mode
+    if gqa_mode:
+        layers.set_gqa_mode(gqa_mode)
+    if xent_mode:
+        layers.set_xent_mode(xent_mode)
+    _CONTEXT_PARALLEL = context_parallel
 
 
 if __name__ == "__main__":

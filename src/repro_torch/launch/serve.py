@@ -7,8 +7,10 @@ and the resident DSE service.
         PYTHONPATH=src python -m repro_torch.launch.serve tokens \\
             --arch qwen2.5-3b
 
-    serves the full published config with random weights on the card
-    (``--device cpu --reduced`` runs a tiny same-family config). Every
+    serves the full published config with random weights on the card,
+    with the default bf16 x bf16 -> f32 products (``--device cpu --reduced``
+    runs a tiny same-family config; ``--reduced`` turns the products'
+    exec-safe mode on, as in the reference). Every
     decoder family serves; the enc-dec family needs source frames, which
     `Server` does not send (as in the reference), so it fails there.
 
@@ -54,6 +56,7 @@ def _tokens_main(args) -> None:
     from .. import models as M
     from .._device import resolve_device
     from ..configs import get_config, list_archs, reduced
+    from ..models.layers import set_exec_safe
     from ..train.serve import Request, Server, photonic_report
 
     if args.arch not in list_archs():
@@ -63,6 +66,7 @@ def _tokens_main(args) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+        set_exec_safe(True)
     params = M.init_params(cfg, device=dev)
     srv = Server(cfg, params, batch_size=args.batch, max_len=args.max_len,
                  device=dev)

@@ -4,7 +4,10 @@
         --reduced --steps 30
 
 trains on the card ("cuda"; `--device cpu` runs here); without `--reduced`
-it trains the published config at `--shape` (`train_4k` by default).
+it trains the published config at `--shape` (`train_4k` by default). As
+in the reference, `--reduced` turns the products' exec-safe mode on
+(`models.layers.set_exec_safe(True)`: f32 operands); the published config
+trains with the default bf16 x bf16 -> f32 products.
 Checkpoints land in `--ckpt-dir`, and a rerun with the same directory
 resumes from the latest one.
 
@@ -61,6 +64,7 @@ def rank_device(dev: torch.device, rank: int, n_cards: int) -> torch.device:
 
 
 def _train(args, device):
+    from ..models.layers import set_exec_safe
     from ..optim import adamw
     from ..train.trainer import Trainer, TrainerConfig
 
@@ -68,6 +72,7 @@ def _train(args, device):
     if args.reduced:
         cfg = reduced(cfg)
         shape = ShapeConfig("tiny", seq_len=32, global_batch=4, kind="train")
+        set_exec_safe(True)
     else:
         shape = SHAPES_BY_NAME[args.shape or "train_4k"]
 

@@ -8,19 +8,40 @@ Parameters live in `nn.Module`s with the reference's names and layouts
 carries across leaf for leaf (`interop.params_from_reference`); the
 compute is plain functions on tensors, as in the reference. Mixed
 precision follows the reference: parameters and activations bf16; norms,
-softmax and RoPE in f32; every product casts its operands to f32 and
-multiplies in f32 (`matmul32` / `einsum32`, the reference's exec-safe
-path, which equals its bf16 x bf16 -> f32 TPU path up to summation order),
-then casts back to the activation dtype. TF32 must stay off for that
-(`torch.backends.cuda.matmul.allow_tf32` False, float32 matmul precision
-"highest", PyTorch's defaults).
+softmax and RoPE in f32; every product (`matmul32` / `einsum32`) has an
+f32 result, cast back to the activation dtype by its caller. The
+reference's switch `set_exec_safe` picks how a product multiplies:
+
+  * exec-safe (True): the operands are cast to f32 and multiplied in f32
+    (equal to the bf16 product up to summation order, since bf16 embeds
+    exactly in f32); the reference's tests, examples and `--reduced`
+    launchers run so. TF32 must stay off for it
+    (`torch.backends.cuda.matmul.allow_tf32` False, float32 matmul
+    precision "highest", PyTorch's defaults).
+  * bf16 (False, the default, as in the reference, whose full-width
+    launchers run so): on a CUDA device, bf16 operands go into one
+    library product with an f32 result (`torch.mm` / `torch.bmm` with
+    `out_dtype=torch.float32`; an einsum is lowered to permute, reshape,
+    that `bmm`, reshape), the reference's bf16 x bf16 -> f32 dot. Its
+    gradient (`_Product`) is the reference's transpose: the f32
+    cotangent times the other operand taken as f32, in f32, cast to the
+    operand's dtype, which is what the exec-safe path's autograd
+    computes. No product here has a bf16 result, so cuBLAS's bf16
+    reduced-precision reduction never applies. An operand in f32 makes
+    the product an f32 one in either mode (the reference promotes), and
+    on every other device (the CPU, the dry-run's meta tensors) both modes
+    run the exec-safe form, the plain version. An equation the lowering
+    cannot take raises on a card, and so do DTensor operands there
+    (DTensor cannot shard the product: a sharded run sets exec-safe).
+    `PRODUCTS` counts the route each call took.
 
 Sharding goes through `rules` (`parallel.sharding.Rules`; `NULL_RULES`, the
 default, makes every `shard()` the identity) at the reference's places;
 `attention_specs` and `mlp_specs` give the parameters' specs. The GSPMD
-layout knobs `set_gqa_mode` and `set_xent_mode` have no counterpart:
-attention is the default "grouped" GQA evaluation and `softmax_xent` the
-default "gather" form.
+layout switches are the reference's: `set_gqa_mode` ("grouped" evaluates
+GQA on the (B, S, Hkv, G, D) view, "repeat_kv" repeats K/V to the full
+head count first) and `set_xent_mode` ("gather" takes the gold logit by
+index, "onehot" by a masked sum over the vocabulary).
 """
 from __future__ import annotations
 
@@ -39,29 +60,281 @@ DTYPE = torch.bfloat16
 NEG_INF = -1e30
 
 
+# The product mode (module docstring); the reference's default.
+_EXEC_SAFE = False
+# Products by route since the caller last cleared it: "bf16" (bf16
+# operands into the library product on a card) or "f32" (operands in f32).
+PRODUCTS = {"bf16": 0, "f32": 0}
+
+
 def set_exec_safe(v: bool) -> None:
-    """The reference's switch between its exec-safe products (operands cast
-    to f32) and bf16 x bf16 -> f32 ones. The port's products are always
-    the exec-safe f32 ones: True changes nothing, and the bf16 path is
-    ROADMAP item 21."""
-    if not v:
-        raise NotImplementedError(
-            "bf16 x bf16 -> f32 products are not in the port (ROADMAP item "
-            "21); its products are always the exec-safe f32 ones")
+    """The reference's switch: True multiplies every product in f32
+    (operands cast), False (the default) multiplies bf16 operands on a card
+    into an f32 result (module docstring)."""
+    global _EXEC_SAFE
+    _EXEC_SAFE = bool(v)
+
+
+def _bf16_route(ops) -> bool:
+    """Whether a product of `ops` takes the bf16 route: the mode is off and
+    every operand is a bf16 tensor on a CUDA device (a DTensor's own
+    device: its local tensors', meta in the dry-run). Raises for DTensors
+    on that route: DTensor has no sharding strategy for `aten.mm.dtype` /
+    `aten.bmm.dtype`, so the entry points' `GatherFallback` would run
+    every product on gathered operands."""
+    route = (not _EXEC_SAFE and len(ops) > 0
+             and all(o.dtype == torch.bfloat16 and o.device.type == "cuda"
+                     for o in ops))
+    if route:
+        from torch.distributed.tensor import DTensor
+        if any(isinstance(o, DTensor) for o in ops):
+            raise NotImplementedError(
+                "bf16 products on DTensors: DTensor has no sharding "
+                "strategy for aten.mm.dtype / aten.bmm.dtype, so every "
+                "product would run on gathered operands; a sharded run "
+                "calls models.layers.set_exec_safe(True)")
+    return route
+
+
+def bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The library product with an f32 result: `torch.mm` for (M, K) x
+    (K, N), `torch.bmm` for (B, M, K) x (B, K, N). CUDA only (PyTorch has
+    no CPU kernel for it)."""
+    fn = torch.mm if a.ndim == 2 else torch.bmm
+    return fn(a, b, out_dtype=torch.float32)
+
+
+def _ellipsis_dims(spec: str, ndim: int) -> int:
+    """How many dimensions "..." stands for in an einsum operand."""
+    if "..." not in spec:
+        return 0
+    n = ndim - (len(spec) - 3)
+    if n < 0:
+        raise ValueError(f"einsum operand {spec!r} does not fit {ndim} "
+                         f"dimensions")
+    return n
+
+
+class _Plan:
+    """A two-operand contraction as one batched product: `a` permuted to
+    (batch, left, summed) and `b` to (batch, summed, right) dimensions, each
+    group flattened, the (Bt, M, N) product (an (M, N) one without batch
+    dimensions) reshaped and permuted to the output. The groups are the
+    ones `torch.einsum` forms (batch, left and right dimensions in the
+    output's order, summed ones in label order), so that with the same f32
+    product the lowering and its gradient compute what `torch.einsum`'s
+    autograd computes."""
+
+    def __init__(self, eq: str, shape_a, shape_b):
+        if "->" not in eq:
+            raise ValueError(f"einsum {eq!r}: the lowering needs an explicit "
+                             f"output")
+        lhs, out = eq.replace(" ", "").split("->")
+        specs = lhs.split(",")
+        if len(specs) != 2:
+            raise ValueError(f"einsum {eq!r}: the lowering takes two "
+                             f"operands")
+        if any(c.isupper() for c in eq):
+            raise ValueError(f"einsum {eq!r}: the lowering takes lower-case "
+                             f"labels")
+        # "..." spelled out in upper-case labels, aligned on the right
+        fill = "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+        n_a = _ellipsis_dims(specs[0], len(shape_a))
+        n_b = _ellipsis_dims(specs[1], len(shape_b))
+        n_out = max(n_a, n_b)
+        ea = specs[0].replace("...", fill[n_out - n_a:n_out])
+        eb = specs[1].replace("...", fill[n_out - n_b:n_out])
+        eo = out.replace("...", fill[:n_out])
+        size = {}
+        for labels, shape in ((ea, shape_a), (eb, shape_b)):
+            if len(labels) != len(shape) or len(set(labels)) != len(labels):
+                raise ValueError(f"einsum {eq!r}: the lowering takes no "
+                                 f"repeated label within an operand")
+            for lab, n in zip(labels, shape):
+                if size.setdefault(lab, n) != n:
+                    raise ValueError(f"einsum {eq!r}: label {lab!r} has "
+                                     f"sizes {size[lab]} and {n} (no "
+                                     f"broadcasting)")
+        if len(set(eo)) != len(eo) or not set(eo) <= set(ea) | set(eb) \
+                or not set(ea) ^ set(eb) <= set(eo):
+            raise ValueError(f"einsum {eq!r}: the lowering needs every "
+                             f"output label in an operand and every label "
+                             f"of one operand alone in the output")
+        batch = [c for c in eo if c in ea and c in eb]
+        left = [c for c in eo if c in ea and c not in eb]
+        right = [c for c in eo if c in eb and c not in ea]
+        summed = sorted(c for c in ea if c in eb and c not in eo)
+        perm_a = [ea.index(c) for c in batch + left + summed]
+        perm_b = [eb.index(c) for c in batch + summed + right]
+        mid = batch + left + right
+        self.perm_a, self.perm_b = _moved(perm_a), _moved(perm_b)
+        self.perm_out = _moved([mid.index(c) for c in eo])
+        self.perm_grad = _moved([eo.index(c) for c in mid])
+        self.inv_a = _moved([perm_a.index(i) for i in range(len(ea))])
+        self.inv_b = _moved([perm_b.index(i) for i in range(len(eb))])
+
+        def prod(labels):
+            n = 1
+            for c in labels:
+                n *= size[c]
+            return n
+        # no batch dimension: one `mm` (matmul32's (..., K) x (K, N))
+        bt = (prod(batch),) if batch else ()
+        m, k, n = prod(left), prod(summed), prod(right)
+        self.shape_a3, self.shape_b3 = bt + (m, k), bt + (k, n)
+        self.shape_g3 = bt + (m, n)
+        self.mid_a = tuple(size[c] for c in batch + left + summed)
+        self.mid_b = tuple(size[c] for c in batch + summed + right)
+        self.mid_out = tuple(size[c] for c in mid)
+
+    def operands(self, a, b):
+        return (_permute(a, self.perm_a).reshape(self.shape_a3),
+                _permute(b, self.perm_b).reshape(self.shape_b3))
+
+    def output(self, c3):
+        return _permute(c3.view(self.mid_out), self.perm_out)
+
+    def backward(self, g, a3f, b3f, need_a: bool, need_b: bool):
+        """The f32 gradients of a and b from the f32 cotangent `g` and the
+        f32 operands (`bmm`'s or `mm`'s backward, then the reshapes')."""
+        g3 = _permute(g, self.perm_grad).reshape(self.shape_g3)
+        ga = gb = None
+        if need_a:
+            ga = _permute(g3.matmul(b3f.mT).reshape(self.mid_a), self.inv_a)
+        if need_b:
+            gb = _permute(a3f.mT.matmul(g3).reshape(self.mid_b), self.inv_b)
+        return ga, gb
+
+
+def _moved(perm):
+    """A permutation as a tuple, or None where it moves nothing (the
+    lowering then skips the call: decode is bound by the host's calls)."""
+    return None if perm == sorted(perm) else tuple(perm)
+
+
+def _permute(t, perm):
+    return t if perm is None else t.permute(perm)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(eq: str, shape_a, shape_b) -> _Plan:
+    return _Plan(eq, shape_a, shape_b)
+
+
+class _Product(torch.autograd.Function):
+    """A lowered product with the reference's gradient: forward `product`
+    of the operands as they are (bf16 on the bf16 route), backward in f32
+    (module docstring). The lowered operands are saved, so a permuted
+    copy is made once; `torch.utils.checkpoint` saves and recomputes them
+    like any saved tensor."""
+
+    @staticmethod
+    def forward(ctx, a, b, plan, product):
+        a3, b3 = plan.operands(a, b)
+        ctx.save_for_backward(a3, b3)
+        ctx.plan, ctx.dtypes = plan, (a.dtype, b.dtype)
+        return plan.output(product(a3, b3))
+
+    @staticmethod
+    def backward(ctx, g):
+        a3, b3 = ctx.saved_tensors
+        need_a, need_b = ctx.needs_input_grad[:2]
+        ga, gb = ctx.plan.backward(g.float(), a3.float(), b3.float(),
+                                   need_a, need_b)
+        return (None if ga is None else ga.to(ctx.dtypes[0]),
+                None if gb is None else gb.to(ctx.dtypes[1]), None, None)
+
+
+def lowered_einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
+                   product=None) -> torch.Tensor:
+    """`eq` over (a, b) as one batched `product` (the bf16 route's lowering;
+    `product` defaults to `bf16_product`); raises ValueError for an
+    equation it cannot take (more or fewer than two operands, no explicit
+    output, a repeated label, broadcasting, a label summed within one
+    operand)."""
+    plan = _plan(eq, tuple(a.shape), tuple(b.shape))
+    product = product or bf16_product
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _Product.apply(a, b, plan, product)
+    return plan.output(product(*plan.operands(a, b)))
 
 
 def einsum32(eq: str, *ops: torch.Tensor) -> torch.Tensor:
-    """einsum with f32 operands and f32 result."""
+    """einsum with an f32 result: bf16 operands on a card in bf16 mode,
+    f32 operands otherwise (module docstring)."""
+    if _bf16_route(ops):
+        PRODUCTS["bf16"] += 1
+        if len(ops) != 2:
+            raise ValueError(f"einsum {eq!r}: the bf16 route takes two "
+                             f"operands, got {len(ops)}")
+        return lowered_einsum(eq, *ops)
+    PRODUCTS["f32"] += 1
     return torch.einsum(eq, *(o.float() for o in ops))
 
 
 def matmul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with an f32 result, as `einsum32`."""
+    if _bf16_route((a, b)):
+        PRODUCTS["bf16"] += 1
+        return lowered_einsum("...k,kn->...n", a, b)
+    PRODUCTS["f32"] += 1
     return torch.matmul(a.float(), b.float())
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with f32 accumulation, output in x.dtype."""
     return matmul32(x, w).to(x.dtype)
+
+
+@contextlib.contextmanager
+def f32_reduction():
+    """cuBLAS's bf16 reduced-precision reduction off while the context is
+    open, restored after: PyTorch's default lets a GEMM with a bf16 result
+    reduce in bf16, where the reference's bf16 dots accumulate in f32."""
+    flags = torch.backends.cuda.matmul
+    prev = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = prev
+
+
+class _Matmul16(torch.autograd.Function):
+    """a (..., K) @ b (K, N) with its forward and backward GEMMs under
+    `f32_reduction`; the backward is `torch.matmul`'s (a folded to
+    (-1, K), `mm`'s gradient, unfolded)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with f32_reduction():
+            return a @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        ga = gb = None
+        with f32_reduction():
+            if ctx.needs_input_grad[0]:
+                ga = g2.mm(b.t()).view(a.shape)
+            if ctx.needs_input_grad[1]:
+                gb = a.reshape(-1, a.shape[-1]).t().mm(g2)
+        return ga, gb
+
+
+def matmul16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., K) @ b (K, N) with a result in the operands' dtype: the
+    reference's plain `x @ w` (a bf16 dot there accumulates in f32). On a
+    card its GEMMs, backward included, run under `f32_reduction`; on the
+    CPU (which reduces bf16 in f32) it is `a @ b`."""
+    if a.device.type != "cuda":
+        return a @ b
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _Matmul16.apply(a, b)
+    with f32_reduction():
+        return a @ b
 
 
 # A trace that charges a loop's body once, times its trip count, sets this
@@ -208,16 +481,34 @@ def positions_like(x: torch.Tensor) -> torch.Tensor:
                               shape=torch.Size((b, s)), stride=(0, 1))
 
 
+# GQA evaluation mode, the reference's: "grouped" computes on the
+# (B, S, Hkv, G, D) view (no K/V copy; on DTensors the head split is the
+# largest source of views DTensor refuses, ROADMAP Queue 3); "repeat_kv"
+# repeats K/V to the full head count first (plain multi-head einsums, G
+# times the K/V activation).
+GQA_MODE = "grouped"
+
+
+def set_gqa_mode(mode: str) -> None:
+    global GQA_MODE
+    assert mode in ("grouped", "repeat_kv")
+    GQA_MODE = mode
+
+
 def gqa_attend(q, k, v, mask, softcap: float = 0.0):
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); mask: (B, Sq, Skv) bool.
-    Grouped evaluation on the (B, S, Hkv, G, D) view (no KV copy). On
-    DTensors the keys' sequence is gathered first (a sequence-sharded K/V
-    would otherwise make the softmax gather the scores, S_q times
-    larger)."""
+    By `GQA_MODE`: grouped evaluation on the (B, S, Hkv, G, D) view, or K/V
+    repeated to Hq heads (`jnp.repeat` on the head axis). On DTensors the
+    keys' sequence is gathered first (a sequence-sharded K/V would
+    otherwise make the softmax gather the scores, S_q times larger)."""
     k, v = unshard(k, (1,)), unshard(v, (1,))
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
+    if GQA_MODE == "repeat_kv" and g > 1:
+        k = torch.repeat_interleave(k, g, dim=2)
+        v = torch.repeat_interleave(v, g, dim=2)
+        g, hkv = 1, hq
     scale = _f32(d ** -0.5, q.device)
 
     def probs_of(scores, m):
@@ -398,16 +689,30 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return einsum32("bsd,vd->bsv", x, table)
 
 
+# Gold-logit extraction, the reference's: "gather" takes logits[target];
+# "onehot" sums logits where the vocabulary id equals the target (one
+# nonzero term: the same value), which keeps a vocabulary-sharded DTensor
+# sharded (a partial sum, then a reduction) where a gather needs it whole.
+XENT_MODE = "gather"
+
+
+def set_xent_mode(mode: str) -> None:
+    global XENT_MODE
+    assert mode in ("gather", "onehot")
+    XENT_MODE = mode
+
+
 def _gold(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """logits[..., target]. On a DTensor: the vocabulary gathered, then a
-    masked sum over it, which picks the same value exactly (one nonzero
-    term) — DTensor zero-fills a gather's gradient as a full-size
-    replicated tensor (`new_zeros` has no sharded strategy), where the
-    mask keeps the batch's sharding."""
+    """logits[..., target], by `XENT_MODE`. On a DTensor in "gather" mode:
+    the vocabulary gathered, then the masked sum over it (which picks the
+    same value exactly) — DTensor zero-fills a gather's gradient as a
+    full-size replicated tensor (`new_zeros` has no sharded strategy),
+    where the mask keeps the batch's sharding."""
     from torch.distributed.tensor import DTensor
-    if not isinstance(logits, DTensor):
-        return torch.gather(logits, -1, targets[..., None])[..., 0]
-    logits = unshard(logits, (-1,))
+    if XENT_MODE != "onehot":
+        if not isinstance(logits, DTensor):
+            return torch.gather(logits, -1, targets[..., None])[..., 0]
+        logits = unshard(logits, (-1,))
     vocab = torch.arange(logits.shape[-1], device=logits.device)
     hit = vocab == targets[..., None]
     return torch.where(hit, logits, torch.zeros((), device=logits.device)
@@ -418,7 +723,7 @@ def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross-entropy of f32 logits (B, S, V) against int
     targets (B, S); with `mask`, the mean over its nonzero positions. The
-    gold logit is gathered (the reference's default "gather" form)."""
+    gold logit by `XENT_MODE` (`_gold`)."""
     logz = torch.logsumexp(logits, dim=-1)
     nll = logz - _gold(logits, targets.long())
     if mask is None:

@@ -50,7 +50,7 @@ from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from . import ssd as ssd_mod
 from .layers import (DTYPE, MLP, Attention, Embedding, RMSNorm, _param,
-                     embed, positions_like, softmax_xent, unembed)
+                     embed, matmul16, positions_like, softmax_xent, unembed)
 
 DECODER_FAMILIES = ("dense", "vlm", "moe", "mla_moe", "hybrid_ssm", "rwkv")
 
@@ -230,8 +230,7 @@ def _ffn(blk, cfg, h, rules=NULL_RULES):
     """(the block's FFN output, its MoE aux loss or None)."""
     if isinstance(blk, MoEBlock):
         return moe_mod.apply_moe_dispatch(
-            blk.moe, cfg, h, rules, groups=_moe_groups(rules),
-            mode=getattr(rules, "moe_dispatch", None) or "sort")
+            blk.moe, cfg, h, rules, groups=_moe_groups(rules))
     return blk.mlp(h, rules), None
 
 
@@ -317,8 +316,7 @@ def _rwkv_layer(layer, cfg, x, last_t=None, state=None, last_c=None,
     """(x, new state, last time-mix input, last channel-mix input); the
     residual stream constrained to `resid` after each half."""
     y, (lt, s) = rwkv_mod.apply_rwkv_time(
-        layer.time, cfg, layer.ln1(x), last=last_t, state=state,
-        wkv_mode=getattr(rules, "wkv_mode", None) or "scan", rules=rules)
+        layer.time, cfg, layer.ln1(x), last=last_t, state=state, rules=rules)
     x = shard(x + y, resid)
     y, lc = rwkv_mod.apply_rwkv_channel(layer.channel, cfg, layer.ln2(x),
                                         last=last_c, rules=rules)
@@ -403,8 +401,8 @@ def forward(params: DecoderLM, cfg: ModelConfig, batch, rules=NULL_RULES,
         mtp = params.mtp
         emb_next = torch.roll(embed(params.embed.table, batch["tokens"]), -1,
                               dims=1)
-        h = torch.cat([mtp.norm_h(x), mtp.norm_e(emb_next)], dim=-1) \
-            @ mtp.proj
+        h = matmul16(torch.cat([mtp.norm_h(x), mtp.norm_e(emb_next)],
+                               dim=-1), mtp.proj)
         h, _ = _block_fwd(mtp.block, cfg, h.to(x.dtype), positions,
                           rules=rules)
         out["mtp_logits"] = shard(unembed(table, h), rules.logits)

@@ -6,8 +6,9 @@ packed into a capacity-bounded (E, C, D) buffer (assignments over capacity
 drop to the residual path), run through batched expert GEMMs and combined
 back with their routing weights. Two dispatches, as in the reference: the
 stable sort (`apply_moe`, the default) and GShard's per-group cumsum
-(`apply_moe_cumsum`); `apply_moe_dispatch(..., mode=)` picks one per call
-(the reference's module global `DISPATCH_MODE` has no counterpart). Under
+(`apply_moe_cumsum`); `apply_moe_dispatch(..., mode=)` picks one per call,
+the module default `DISPATCH_MODE` (the reference's) where `mode` is None
+(`launch.dryrun.apply_perf_flags` sets it). Under
 sharding rules the (E, C, D) buffer and the experts' output are constrained
 to `rules.expert_tokens` (the cumsum dispatch's (G, E, C, D) ones to groups
 over the data axes and experts over the EP axes), as in the reference.
@@ -237,9 +238,14 @@ def _group_spec(rules):
     return (d_axes or None, ep, None, None)
 
 
+DISPATCH_MODE = "sort"  # "sort" (baseline) | "cumsum" (GShard-style)
+
+
 def apply_moe_dispatch(p: MoE, cfg, x: torch.Tensor, rules=NULL_RULES,
-                       groups: int = 1, mode: str = "sort"):
-    """The MoE FFN by the dispatch `mode` names ("sort" or "cumsum")."""
+                       groups: int = 1, mode=None):
+    """The MoE FFN by the dispatch `mode` names ("sort" or "cumsum";
+    None: `DISPATCH_MODE`)."""
+    mode = mode or DISPATCH_MODE
     if mode == "cumsum":
         return apply_moe_cumsum(p, cfg, x, rules, groups)
     if mode != "sort":

@@ -7,8 +7,8 @@ Recurrence (per head, K = key dim, V = value dim):
     S_t   = diag(w_t) S_{t-1} + k_t v_t^T
 with w_t in (0, 1) produced by a LoRA on the token-shifted input.
 
-Two WKV evaluations, picked per call (`apply_rwkv_time(..., wkv_mode=)`;
-the reference's module global `WKV_MODE` has no counterpart):
+Two WKV evaluations, picked per call (`apply_rwkv_time(..., wkv_mode=)`),
+the module default `WKV_MODE` (the reference's) where it is None:
   * "scan" (the default): the exact recurrence, a loop over time;
   * "chunked": the GLA-style chunked form, with log w clamped to
     [_LOG_W_MIN, 0] (so it differs from the scan by design) and
@@ -17,7 +17,9 @@ A one-token call (decode) always takes the scan.
 
 The projections r, k, v, g, the decay LoRA and the channel mix's k and r
 are plain bf16 products in the reference (`x @ w`, not its f32 `matmul32`)
-and stay bf16 products here.
+and stay bf16 products here (`layers.matmul16`: on a card with cuBLAS's
+bf16 reduced-precision reduction off, since the reference accumulates them
+in f32).
 """
 from __future__ import annotations
 
@@ -27,9 +29,10 @@ import torch
 from torch import nn
 
 from ..parallel.sharding import NULL_RULES, shard
-from .layers import (RMSNorm, _normal_, _param, matmul32, rms_norm, scan,
-                     sigmoid, silu)
+from .layers import (RMSNorm, _normal_, _param, matmul16, matmul32, rms_norm,
+                     scan, sigmoid, silu)
 
+WKV_MODE = "scan"  # module default; overridden per call
 _LOG_W_MIN = -8.0  # chunked-mode decay clamp (exp(-8) a token at least)
 
 
@@ -172,25 +175,27 @@ def _wkv_chunked(r, k, v, w, u, s0, chunk: int = 64):
 
 
 def _decay(p: RWKVTime, xw):
-    lora = torch.tanh(xw @ p.w_lora_a) @ p.w_lora_b
+    lora = matmul16(torch.tanh(matmul16(xw, p.w_lora_a)), p.w_lora_b)
     h, kd = p.w_base.shape
     wl = p.w_base + lora.reshape(*lora.shape[:-1], h, kd)  # f32
     return torch.exp(-torch.exp(wl))                      # (B,T,H,K) in (0,1)
 
 
 def apply_rwkv_time(p: RWKVTime, cfg, x, *, last=None, state=None,
-                    wkv_mode: str = "scan", rules=NULL_RULES):
+                    wkv_mode=None, rules=NULL_RULES):
     """The time mix over a sequence (or one step, x (B, 1, D), with the
-    carried `last` and `state`). Returns (out, (last x, state))."""
+    carried `last` and `state`), the WKV by `wkv_mode` (None: `WKV_MODE`).
+    Returns (out, (last x, state))."""
+    wkv_mode = wkv_mode or WKV_MODE
     b, t, d = x.shape
     h = cfg.n_heads
     kd = d // h
     xs = _shift(x, last)
     xr, xk, xv, xg, xw = (_lerp(x, xs, p.mu[i]) for i in range(5))
-    r = shard((xr @ p.wr).reshape(b, t, h, kd), rules.heads)
-    k = shard((xk @ p.wk).reshape(b, t, h, kd), rules.heads)
-    v = shard((xv @ p.wv).reshape(b, t, h, kd), rules.heads)
-    g = xg @ p.wg
+    r = shard(matmul16(xr, p.wr).reshape(b, t, h, kd), rules.heads)
+    k = shard(matmul16(xk, p.wk).reshape(b, t, h, kd), rules.heads)
+    v = shard(matmul16(xv, p.wv).reshape(b, t, h, kd), rules.heads)
+    g = matmul16(xg, p.wg)
     w = _decay(p, xw)
     if state is None:
         state = torch.zeros((b, h, kd, kd), dtype=torch.float32,
@@ -214,6 +219,7 @@ def apply_rwkv_channel(p: RWKVChannel, cfg, x, *, last=None,
     xs = _shift(x, last)
     xk = _lerp(x, xs, p.mu[0])
     xr = _lerp(x, xs, p.mu[1])
-    k = shard(torch.square(torch.relu(xk @ p.wk)), rules.ffn_hidden)
+    k = shard(torch.square(torch.relu(matmul16(xk, p.wk))),
+              rules.ffn_hidden)
     kv = matmul32(k, p.wv).to(x.dtype)
-    return sigmoid((xr @ p.wr).float()).to(x.dtype) * kv, x[:, -1:]
+    return sigmoid(matmul16(xr, p.wr).float()).to(x.dtype) * kv, x[:, -1:]

@@ -19,8 +19,8 @@ import torch
 from torch import nn
 
 from ..parallel.sharding import NULL_RULES, shard
-from .layers import (DTYPE, RMSNorm, _normal_, _param, matmul32, rms_norm,
-                     silu)
+from .layers import (DTYPE, RMSNorm, _normal_, _param, f32_reduction,
+                     matmul32, rms_norm, silu)
 
 
 def _dims(cfg):
@@ -189,7 +189,8 @@ def decode_mamba(p: Mamba, cfg, x, state):
     proj = matmul32(x, p.in_proj).to(x.dtype)
     z, xbc, dt = _split_proj(cfg, proj)
     window = torch.cat([state["conv"], xbc], dim=1)         # (B, K, C)
-    conv_out = torch.einsum("bkc,kc->bc", window, p.conv_w) + p.conv_b
+    with f32_reduction():   # a bf16 result: accumulated in f32
+        conv_out = torch.einsum("bkc,kc->bc", window, p.conv_w) + p.conv_b
     xbc1 = silu(conv_out.float()).to(x.dtype)[:, None, :]
     xs, bmat, cmat, dtv, a = _ssm_inputs(cfg, p, xbc1, dt)
     xf = xs[:, 0].float()                                   # (B, H, Dh)

@@ -55,11 +55,6 @@ class Rules:
     expert_axes: Optional[Tuple[str, ...]] = None
     moe_groups: int = 1
     context_parallel: bool = False  # prefill: shard the query sequence
-    # the numeric variants the reference's dry-run sets as module globals
-    # (`moe.DISPATCH_MODE`, `rwkv.WKV_MODE`), carried to the per-call
-    # arguments `apply_moe_dispatch(mode=)` and `apply_rwkv_time(wkv_mode=)`
-    moe_dispatch: str = "sort"
-    wkv_mode: str = "scan"
 
     def _d(self):
         """Batch axes, or None when the batch is unsharded (long_500k)."""

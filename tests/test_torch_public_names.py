@@ -1,17 +1,22 @@
-"""Three public names of the reference and their counterparts, exact:
+"""Public names of the reference and their counterparts, exact:
 `models.ssd.P_or_none` over every rule set (the reference's
 PartitionSpec read as a tuple; a `Rules` without a model axis included,
 where the reference gives `P(None, None)`, not None),
-`kernels.flash_attention.NEG_INF` and `parallel.sharding.SINGLE_POD_AXES`.
+`kernels.flash_attention.NEG_INF`, `parallel.sharding.SINGLE_POD_AXES`
+and the layout modes' defaults (`models.layers.GQA_MODE` and
+`XENT_MODE`, `models.moe.DISPATCH_MODE`, `models.rwkv.WKV_MODE`).
 """
 import dataclasses
 import importlib
 
 import pytest
 
+from repro.models import layers as ref_layers
+from repro.models import moe as ref_moe
+from repro.models import rwkv as ref_rwkv
 from repro.models import ssd as ref_ssd
 from repro.parallel import sharding as ref_shd
-from repro_torch.models import ssd
+from repro_torch.models import layers, moe, rwkv, ssd
 from repro_torch.parallel import sharding as shd
 
 # The packages' `kernels.flash_attention` attribute is the function, which
@@ -43,6 +48,10 @@ def test_p_or_none_equals_the_reference(name, no_model_axis):
 
 @pytest.mark.parametrize("port,ref", [
     (fa.NEG_INF, ref_fa.NEG_INF),
-    (shd.SINGLE_POD_AXES, ref_shd.SINGLE_POD_AXES)])
+    (shd.SINGLE_POD_AXES, ref_shd.SINGLE_POD_AXES),
+    (layers.GQA_MODE, ref_layers.GQA_MODE),
+    (layers.XENT_MODE, ref_layers.XENT_MODE),
+    (moe.DISPATCH_MODE, ref_moe.DISPATCH_MODE),
+    (rwkv.WKV_MODE, ref_rwkv.WKV_MODE)])
 def test_constants_equal_the_reference(port, ref):
     assert port == ref and type(port) is type(ref)

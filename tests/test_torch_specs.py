@@ -31,6 +31,7 @@ from repro_torch.configs import SHAPES_BY_NAME, get_config, list_archs
 from repro_torch.interop import reference_leaf
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import destroy_fake_world, make_production_mesh
+from repro_torch.models import moe, rwkv
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import specs as port_specs
 
@@ -117,7 +118,7 @@ def test_rules_for_equals_the_reference(meshes, arch, mesh):
     for s, ref, port in _specs_by_rules(meshes, mesh, arch):
         for f in FIELDS:
             assert getattr(ref, f) == getattr(port, f), (s.name, f)
-        assert (port.moe_dispatch, port.wkv_mode) == ("sort", "scan")
+    assert (moe.DISPATCH_MODE, rwkv.WKV_MODE) == ("sort", "scan")
 
 
 _REF_PARAMS = {}

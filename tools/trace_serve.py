@@ -2,7 +2,7 @@
 """Where the time of token serving goes, on one CUDA card.
 
     python3 tools/trace_serve.py [--arch qwen2.5-3b] [--n-layers N]
-                                 [--batch 4] [--max-len 64]
+                                 [--batch 4] [--max-len 64] [--exec-safe]
                                  [--out build/trace_serve]
 
 Builds the port's model at the config's full published width (random bf16
@@ -13,7 +13,9 @@ layers in `chip_smoke.py`), serves `--batch` requests once untimed
 `torch.profiler` and prints, for each, the wall time (host clock around
 work that ends in a sync), the device time of its kernels (the device's
 busy share), the number of kernels it launched, and the kernels with the
-most device time. Any decoder family serves; the enc-dec family needs
+most device time. The products run in the default bf16 mode
+(`models.layers.set_exec_safe(False)`), or with `--exec-safe` in f32
+operands (the reference's exec-safe mode). Any decoder family serves; the enc-dec family needs
 source frames, which `Server` does not send. The Chrome traces
 and the full tables go under `--out`.
 """
@@ -34,6 +36,8 @@ def main() -> None:
                     help="cut the depth to N layers (widths stay)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=64)
+    ap.add_argument("--exec-safe", action="store_true",
+                    help="multiply f32 operands (the exec-safe products)")
     ap.add_argument("--out", default=str(ROOT / "build" / "trace_serve"))
     args = ap.parse_args()
 
@@ -45,8 +49,12 @@ def main() -> None:
     from chip_smoke import device_us
     from repro_torch import models
     from repro_torch.configs import get_config
+    from repro_torch.models import layers
     from repro_torch.train.serve import Request, Server, _grow_cache
 
+    layers.set_exec_safe(args.exec_safe)
+    print("products: " + ("exec-safe (f32 operands)" if args.exec_safe
+                          else "bf16 operands, f32 result"))
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda", 0)
