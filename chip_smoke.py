@@ -161,26 +161,31 @@ From the root of a checkout, with one CUDA card visible. It
      the four cells of the reference's integration tests at published
      widths on abstract "cuda" meshes of 256 or 512 placeholder H100s,
      each `python -m repro_torch.launch.dryrun` in a subprocess (the four
-     at once): granite-3-2b decode_32k (256), h2o-danube-1.8b train_4k
-     (512), qwen2.5-3b long_500k (skipped by policy) and rwkv6-7b
-     long_500k (256), held to the reference tests' assertions, each cell's
-     status, trace seconds, FLOPs, per-device bytes, collectives by kind,
-     roofline terms and bottleneck printed; (b) qwen2.5-3b at its published
-     width, phase 6c's step (one sequence of 4096 tokens, AdamW f32
-     moments, remat) traced as an abstract cell on the host mesh, its GEMM
-     FLOPs equal to the same counter's count around one real step on the
-     card, its roofline terms (and the compute term at the f32 rate)
-     beside phase 6c's measured step time, its argument + temp bytes
-     beside the measured peak memory; (c) qwen2.5-3b at its published width
-     with DTensor parameters from `param_specs` on a one-card mesh over an
-     NCCL group of one rank (a FileStore, no network): its prefill logits,
-     and a decode step's logits and cache from the prefill's cache, equal
-     the NULL_RULES ones bit for bit; then, cut to one layer, once in
-     bf16 mode (`bf16_on_dtensor`): whether DTensor propagates the
-     f32-result product (`mm.dtype` / `bmm.dtype` called bare), and that
-     the prefill on DTensor parameters refuses bf16 mode (it must raise,
-     naming `set_exec_safe(True)`), with no product on f32 operands; no
-     hand-written kernel may launch;
+     at once, in the default bf16 mode): granite-3-2b decode_32k (256),
+     h2o-danube-1.8b train_4k (512), qwen2.5-3b long_500k (skipped by
+     policy) and rwkv6-7b long_500k (256), held to the reference tests'
+     assertions, each cell's status, trace seconds, FLOPs, per-device
+     bytes, collectives by kind, roofline terms and bottleneck printed;
+     (b) qwen2.5-3b at its published width, phase 6c's step (one sequence
+     of 4096 tokens, AdamW f32 moments, remat) traced as an abstract cell
+     on the host mesh in each product mode, its GEMM FLOPs equal to the
+     same counter's count around one real step on the card in that mode,
+     equal across the modes and to QWEN_STEP_GEMM_FLOPS, the bf16 trace's
+     collective and temp bytes beside the exec-safe one's, no product on
+     f32 operands or gathered in bf16 mode, the exec-safe roofline terms
+     (and the compute term at the f32 rate) beside phase 6c's measured
+     step time and its argument + temp bytes beside the measured peak
+     memory; (c) qwen2.5-3b at its published width with DTensor
+     parameters from `param_specs` on a one-card mesh over an NCCL group
+     of one rank (a FileStore, no network): its prefill logits, and a
+     decode step's logits and cache from the prefill's cache, equal the
+     NULL_RULES ones bit for bit in exec-safe and in bf16 mode; then in
+     bf16 mode (`bf16_on_dtensor`) the f32-result products (`mm.dtype` /
+     `bmm.dtype`) called bare on DTensors equal the plain ones, one train
+     step (loss, gradient norm, every updated parameter) and two
+     `Trainer(shardings=)` steps (cut to one layer) equal the plain bf16
+     run's bit for bit; in bf16 mode no product takes f32 operands and
+     none is gathered; no hand-written kernel may launch;
   8b. runs the four examples (`examples/*_torch.py`, `examples_phase`),
      each through its `main([...])` on the card: quickstart's result equal
      to its `--device cpu` run (no launch); arch_cosearch's zoo table on
@@ -203,9 +208,10 @@ From the root of a checkout, with one CUDA card visible. It
      PyTorch call computes the same function, that call's time; then the
      result line.
 
-Phases 6, 6b, 6c, 8 and 8b pin the products' exec-safe mode
+Phases 6, 6b, 6c and 8b pin the products' exec-safe mode
 (`set_exec_safe(True)`: f32 operands), the mode their checks against the
-CPU path and their stored figures were taken in, and print it.
+CPU path and their stored figures were taken in, and print it; phase 8
+runs its steps in both modes.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. It exits non-zero at once without a CUDA card, or outside a checkout.
@@ -2422,12 +2428,21 @@ def _gib(n: float) -> str:
     return f"{n / 2**30:.3f} GiB"
 
 
+# The bf16 route's products as `parallel.sharding.GATHERED` names them.
+PRODUCT_OPS = ("aten.mm.dtype", "aten.bmm.dtype")
+# GEMM FLOPs of phase 6c's qwen2.5-3b step (seq 4096, batch 1, remat), as
+# the exec-safe step counts them; bf16 mode runs the same products.
+QWEN_STEP_GEMM_FLOPS = 111_705_656_918_016
+
+
 def one_card_rules(dev, hw, run, cfg):
     """Phase 8(c): `cfg` with DTensor parameters from `param_specs` on a
     one-card mesh over a real NCCL group of one rank (a FileStore, no
     network): its prefill logits, and a decode step's logits and cache from
-    the prefill's cache, bit-equal to the NULL_RULES ones. `run(label, fn)`
-    drives `fn` and fails if a kernel launched."""
+    the prefill's cache, bit-equal to the NULL_RULES ones, in exec-safe
+    mode and in bf16 mode (in bf16 mode every product on the bf16 route
+    and none gathered); then `bf16_on_dtensor`. `run(label, fn)` drives
+    `fn` and fails if a kernel launched."""
     import tempfile
 
     import torch
@@ -2435,6 +2450,7 @@ def one_card_rules(dev, hw, run, cfg):
 
     from repro_torch import models
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers
     from repro_torch.parallel import sharding as shd
     from repro_torch.parallel.specs import (cache_specs, distribute_params,
                                             distribute_tensors, param_specs)
@@ -2459,6 +2475,7 @@ def one_card_rules(dev, hw, run, cfg):
                                      dtype=torch.int32)
                 same, n_dt = {}, {}
                 shd.GATHERED.clear()
+                layers.PRODUCTS.update(bf16=0, f32=0)
                 with torch.no_grad():
                     want, cache = models.prefill(plain, cfg,
                                                  {"tokens": toks})
@@ -2492,100 +2509,159 @@ def one_card_rules(dev, hw, run, cfg):
                                 cache[k], full(c[k])) for k in cache)
                         del sharded, got
                         torch.cuda.empty_cache()
-                return same, dict(shd.GATHERED), n_dt
-            (same, gathered, n_dt), _ = run("one-card DTensor prefill and "
-                                            "decode", one_card)
-            print(f"one-card mesh (NCCL, 1 rank, {hw}): qwen2.5-3b at its "
-                  f"published width, 4 x 24 tokens, {n_dt['prefill']} "
-                  f"DTensor parameters: prefill logits bit-equal to "
-                  f"NULL_RULES: {same['prefill']}; decode step logits: "
-                  f"{same['decode']}, cache: {same['cache']} (ops gathered: "
-                  f"{gathered})")
-            _check(all(same.values()), f"one-card DTensor run differs from "
-                                       f"NULL_RULES: {same}")
-            bf16_on_dtensor(dev, hw, run, cfg)
+                return (same, dict(shd.GATHERED), n_dt,
+                        dict(layers.PRODUCTS))
+            for exec_safe in (True, False):
+                mode = "exec-safe" if exec_safe else "bf16"
+                with product_mode(exec_safe, f"phase 8(c) {mode}", hw):
+                    (same, gathered, n_dt, routes), _ = run(
+                        f"one-card DTensor prefill and decode, {mode}",
+                        one_card)
+                print(f"one-card mesh (NCCL, 1 rank, {hw}), {mode} "
+                      f"products: qwen2.5-3b at its published width, 4 x "
+                      f"24 tokens, {n_dt['prefill']} DTensor parameters: "
+                      f"prefill logits bit-equal to NULL_RULES: "
+                      f"{same['prefill']}; decode step logits: "
+                      f"{same['decode']}, cache: {same['cache']} (ops "
+                      f"gathered: {gathered}; product routes {routes})")
+                _check(all(same.values()), f"one-card DTensor run "
+                                           f"({mode}) differs from "
+                                           f"NULL_RULES: {same}")
+                if not exec_safe:
+                    _bf16_routes_held(dev, "one-card DTensor prefill and "
+                                      "decode", routes, gathered)
+            bf16_on_dtensor(dev, hw, run, cfg, tmp)
         finally:
             dist.destroy_process_group()
 
 
-def bf16_on_dtensor(dev, hw, run, cfg):
-    """Phase 8(c), bf16 products once on DTensors (`cfg` cut to one layer,
-    PREFILL_RULES on the one-card mesh of the process group the caller
-    holds): whether DTensor propagates the library's f32-result product
-    (`aten.mm.dtype` / `aten.bmm.dtype`, called bare on DTensors), and
-    that `models.prefill` on sharded parameters in bf16 mode raises (the
-    bf16 route refuses DTensors rather than letting the entry point's
-    `GatherFallback` run every product on gathered operands) with no
-    product taking f32 operands. The mode is restored."""
+def _bf16_routes_held(dev, label, routes, gathered):
+    """On a card in bf16 mode: no product took f32 operands, one took the
+    bf16 route, and no product was gathered (`GATHERED`)."""
+    if dev.type != "cuda":
+        return
+    _check(routes["f32"] == 0 and routes["bf16"] > 0,
+           f"{label}: product routes {routes} in bf16 mode")
+    _check(not set(gathered) & set(PRODUCT_OPS),
+           f"{label}: DTensor gathered a product's operands: {gathered}")
+
+
+def bf16_on_dtensor(dev, hw, run, cfg, tmp):
+    """Phase 8(c) in bf16 mode, the reference's default, on the one-card
+    mesh of the process group the caller holds: the library's f32-result
+    products (`aten.mm.dtype` / `aten.bmm.dtype`) called bare on DTensors
+    propagate, equal to the plain product; one train step of `cfg` (loss,
+    gradient norm, every updated parameter) and two `Trainer(shardings=)`
+    steps of `cfg` cut to one layer (its checkpoints, under `tmp`, hold the
+    whole moments) on DTensor parameters are bit-equal to the plain bf16
+    run on the same weights and tokens, with every product on the bf16
+    route and none gathered. The mode is restored."""
     import torch
-    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
 
     from repro_torch import models
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import layers
+    from repro_torch.optim import adamw
     from repro_torch.parallel import sharding as shd
     from repro_torch.parallel.specs import distribute_params, param_specs
+    from repro_torch.train.trainer import (Trainer, TrainerConfig,
+                                           make_train_step)
+
+    mesh1 = make_host_mesh("cuda" if dev.type == "cuda" else "cpu")
+    toks = torch.randint(0, cfg.vocab, (4, 24), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1),
+                         dtype=torch.int32)
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    def bare():
+        gen = torch.Generator(device=dev).manual_seed(2)
+        a = torch.randn((2, 8, 16), generator=gen, device=dev).bfloat16()
+        b = torch.randn((2, 16, 12), generator=gen, device=dev).bfloat16()
+        rep = [Replicate()] * mesh1.ndim
+        a_d = distribute_tensor(a, mesh1, rep)
+        b_d = distribute_tensor(b, mesh1, [Shard(2)] * mesh1.ndim)
+        f32 = torch.float32
+        if dev.type != "cuda":          # no CPU kernel: the rehearsal
+            return {}
+        return {"mm.dtype": torch.equal(
+                    full(torch.mm(a_d[0], b_d[0], out_dtype=f32)),
+                    torch.mm(a[0], b[0], out_dtype=f32)),
+                "bmm.dtype": torch.equal(
+                    full(torch.bmm(a_d, b_d, out_dtype=f32)),
+                    torch.bmm(a, b, out_dtype=f32))}
+
+    def train_once(rules):
+        model = models.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        if rules is not shd.NULL_RULES:
+            distribute_params(model, param_specs(cfg, rules, model), mesh1)
+        opt_cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=1)
+        state = adamw.init(opt_cfg, dict(model.named_parameters()))
+        _, _, m = make_train_step(cfg, opt_cfg, rules)(
+            model, state, {"tokens": toks})
+        del state
+        return [full(m["loss"]), full(m["grad_norm"])] + [
+            full(p).detach() for p in model.parameters()]
 
     cfg1 = dataclasses.replace(cfg, n_layers=1)
 
-    def raised(fn):
-        try:
-            fn()
-            return None
-        except Exception as e:  # noqa: BLE001 — what DTensor raises is data
-            return f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    def trainer_once(rules, shardings, name):
+        t = Trainer(cfg1, ShapeConfig("train_24", 24, 4, "train"),
+                    tcfg=TrainerConfig(total_steps=2, ckpt_every=2,
+                                       ckpt_dir=str(Path(tmp) / name)),
+                    rules=rules, shardings=shardings, device=dev)
+        out = t.run()
+        return [torch.tensor(out["losses"])] + [
+            full(p).detach() for p in t.state["params"].parameters()]
+
+    def same(want, got):
+        return len(want) == len(got) and all(
+            torch.equal(a, b) for a, b in zip(want, got))
 
     def trial():
-        mesh1 = make_host_mesh("cuda" if dev.type == "cuda" else "cpu")
-        plain = models.init_params(
-            cfg1, torch.Generator(device=dev).manual_seed(0), device=dev)
-        rules = shd.for_mesh(shd.PREFILL_RULES, mesh1)
-        sharded = distribute_params(plain, param_specs(cfg1, rules, plain),
-                                    mesh1)
-        toks = torch.randint(0, cfg1.vocab, (4, 24), device=dev,
-                             generator=torch.Generator(
-                                 device=dev).manual_seed(1),
-                             dtype=torch.int32)
-        out = {}
-        ones = torch.ones((2, 8, 16), dtype=torch.bfloat16, device=dev)
-        rep = [Replicate()] * mesh1.ndim
-        a3 = distribute_tensor(ones, mesh1, rep)
-        b3 = distribute_tensor(ones.mT.contiguous(), mesh1,
-                               [Shard(2)] * mesh1.ndim)
-        for name, fn in (
-                ("mm.dtype", lambda: torch.mm(a3[0], b3[0],
-                                              out_dtype=torch.float32)),
-                ("bmm.dtype", lambda: torch.bmm(a3, b3,
-                                                out_dtype=torch.float32))):
-            err = raised(fn)
-            out[name] = "propagated" if err is None else f"raised {err}"
+        shd.GATHERED.clear()
         layers.PRODUCTS.update(bf16=0, f32=0)
-        with torch.no_grad():
-            out["prefill"] = raised(lambda: models.prefill(
-                sharded, cfg1, {"tokens": toks}, rules=rules))
+        out = {"bare": bare()}
+        want = train_once(shd.NULL_RULES)
+        out["train"] = same(want, train_once(
+            shd.for_mesh(shd.TRAIN_RULES, mesh1)))
+        del want
+        torch.cuda.empty_cache()
+        rules = shd.for_mesh(shd.TRAIN_RULES, mesh1)
+        want = trainer_once(shd.NULL_RULES, None, "plain")
+        out["trainer"] = same(want, trainer_once(
+            rules, (mesh1, param_specs(cfg1, rules)), "dtensor"))
+        out["losses"] = want[0].tolist()
+        del want
+        torch.cuda.empty_cache()
         out["routes"] = dict(layers.PRODUCTS)
+        out["gathered"] = dict(shd.GATHERED)
         return out
 
-    prev = layers._EXEC_SAFE
-    layers.set_exec_safe(False)
-    try:
-        out, _ = run("one-card DTensor prefill, one layer, bf16 products",
-                     trial)
-    finally:
-        layers.set_exec_safe(prev)
-    print(f"one-card mesh, bf16 products on DTensors ({hw}), qwen2.5-3b cut "
-          f"to one layer: DTensor and the library's f32-result product: "
-          f"mm.dtype {out['mm.dtype']}; bmm.dtype {out['bmm.dtype']}; "
-          f"prefill through the entry point raised {out['prefill']}; "
-          f"product routes {out['routes']}")
-    if dev.type == "cuda":
-        _check(out["prefill"] is not None
-               and out["prefill"].startswith("NotImplementedError")
-               and "set_exec_safe(True)" in out["prefill"],
-               f"a bf16-mode prefill on DTensors did not refuse: "
-               f"{out['prefill']}")
-        _check(out["routes"]["f32"] == 0, f"bf16 products on DTensors: "
-               f"{out['routes']['f32']} products took f32 operands")
+    with product_mode(False, "phase 8(c) bf16 train", hw):
+        out, wall = run("one-card DTensor train step and Trainer, bf16",
+                        trial)
+    print(f"one-card mesh, bf16 products on DTensors ({hw}): bare "
+          f"f32-result products on DTensors propagate, equal to the plain "
+          f"product: {out['bare']}; qwen2.5-3b at its published width, one "
+          f"train step (loss, gradient norm, every updated parameter) "
+          f"bit-equal to the plain bf16 step: {out['train']}; two "
+          f"Trainer(shardings=) steps of qwen2.5-3b cut to one layer "
+          f"(losses {out['losses']}) bit-equal to plain Trainer steps: "
+          f"{out['trainer']}; product routes {out['routes']}, ops gathered "
+          f"{out['gathered']}; {wall:.1f} s")
+    _check(all(out["bare"].values()), f"bare f32-result products on "
+                                      f"DTensors: {out['bare']}")
+    _check(out["train"] and out["trainer"], f"bf16-mode DTensor training "
+           f"differs from the plain run: train step {out['train']}, "
+           f"Trainer {out['trainer']}")
+    _bf16_routes_held(dev, "one-card DTensor training", out["routes"],
+                      out["gathered"])
 
 
 def dryrun_phase(dev, hw, drive, counters, train):
@@ -2606,6 +2682,7 @@ def dryrun_phase(dev, hw, drive, counters, train):
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import (destroy_fake_world, init_fake_world,
                                          make_host_mesh)
+    from repro_torch.models import layers
     from repro_torch.optim import adamw
     from repro_torch.train.trainer import batch_to, make_train_step
 
@@ -2678,44 +2755,88 @@ def dryrun_phase(dev, hw, drive, counters, train):
     print(f"dryrun cells: {wall:.1f} s for the four subprocesses at once")
 
     # (b) phase 6c's step: the abstract cell on the host mesh against the
-    # same counter around one real step on the card
+    # same counter around one real step on the card, in each product mode
     cfg = get_config("qwen2.5-3b")
     shape = ShapeConfig("train_4k_batch_1", TRAIN_SEQ, TRAIN_BATCH, "train")
-    init_fake_world()
-    try:
-        mesh = make_host_mesh("cuda")
-        cell, t_cell = run("dryrun qwen2.5-3b step on the host mesh",
-                           lambda: dryrun.measure_cell(cfg, shape, mesh))
-    finally:
-        destroy_fake_world()
-    torch.cuda.empty_cache()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    model = models.init_params(cfg, gen, device=dev)
-    opt_cfg = adamw.AdamWConfig(moment_dtype=torch.float32)
-    state = adamw.init(opt_cfg, dict(model.named_parameters()))
-    batch = batch_to(SyntheticTokenSource(cfg, shape, seed=0).batch_at(0),
-                     dev)
-    real, t_real = run("counted qwen2.5-3b step on the card", lambda: flops(
-        make_train_step(cfg, opt_cfg, remat=True), model, state, batch))
-    del model, state, batch
-    torch.cuda.empty_cache()
+    traced, real = {}, {}
+    for exec_safe in (True, False):
+        mode = "exec-safe" if exec_safe else "bf16"
+        with product_mode(exec_safe, f"phase 8(b) {mode}", hw):
+            init_fake_world()
+            try:
+                mesh = make_host_mesh("cuda")
+                layers.PRODUCTS.update(bf16=0, f32=0)
+                (cell, t_cell) = run(
+                    f"dryrun qwen2.5-3b step on the host mesh, {mode}",
+                    lambda: dryrun.measure_cell(cfg, shape, mesh))
+                traced[mode] = cell, t_cell, dict(layers.PRODUCTS)
+            finally:
+                destroy_fake_world()
+            torch.cuda.empty_cache()
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            model = models.init_params(cfg, gen, device=dev)
+            opt_cfg = adamw.AdamWConfig(moment_dtype=torch.float32)
+            state = adamw.init(opt_cfg, dict(model.named_parameters()))
+            batch = batch_to(SyntheticTokenSource(cfg, shape,
+                                                  seed=0).batch_at(0), dev)
+            layers.PRODUCTS.update(bf16=0, f32=0)
+            real[mode] = run(
+                f"counted qwen2.5-3b step on the card, {mode}",
+                lambda: flops(make_train_step(cfg, opt_cfg, remat=True),
+                              model, state, batch)) + (
+                dict(layers.PRODUCTS),)
+            del model, state, batch
+            torch.cuda.empty_cache()
+        cell, t_cell, routes = traced[mode]
+        counted, t_real, real_routes = real[mode]
+        mem = cell["memory"]
+        print(f"qwen2.5-3b step ({hw}), {mode} products: abstract cell "
+              f"(host mesh {tuple(mesh.mesh.shape)}, traced in "
+              f"{t_cell:.1f} s, product routes {routes}) GEMM FLOPs "
+              f"{cell['gemm_flops']}, total {cell['roofline']['flops']}, "
+              f"collectives/card {cell['collectives']}, temp (lower bound) "
+              f"{mem['temp_size_in_bytes']} B, gathered ops "
+              f"{cell['replicated_ops']}; one real step counted "
+              f"({t_real:.1f} s, product routes {real_routes}): GEMM "
+              f"{counted.gemm}, total {counted.total}")
+        _check(cell["gemm_flops"] == counted.gemm,
+               f"{mode}: abstract GEMM FLOPs {cell['gemm_flops']} != the "
+               f"real step's {counted.gemm}")
+        if not exec_safe:
+            _check(routes["f32"] == 0, f"the bf16-mode trace multiplied "
+                                       f"f32 operands: {routes}")
+            _bf16_routes_held(dev, "the bf16-mode step", real_routes,
+                              cell["replicated_ops"])
+    safe, bf16 = traced["exec-safe"][0], traced["bf16"][0]
+    _check(safe["gemm_flops"] == bf16["gemm_flops"],
+           f"GEMM FLOPs differ between the modes: exec-safe "
+           f"{safe['gemm_flops']}, bf16 {bf16['gemm_flops']}")
+    if dev.type == "cuda" and (TRAIN_SEQ, TRAIN_BATCH) == (4096, 1):
+        _check(bf16["gemm_flops"] == QWEN_STEP_GEMM_FLOPS,
+               f"GEMM FLOPs {bf16['gemm_flops']} != the step's "
+               f"{QWEN_STEP_GEMM_FLOPS}")
+    _check(bf16["collectives"]["total"] <= safe["collectives"]["total"],
+           f"bf16 mode moves more collective bytes: {bf16['collectives']} "
+           f"against {safe['collectives']}")
+    print(f"qwen2.5-3b step ({hw}), bf16 against exec-safe products: "
+          f"temp (lower bound) {bf16['memory']['temp_size_in_bytes']} / "
+          f"{safe['memory']['temp_size_in_bytes']} B, collectives/card "
+          f"{bf16['collectives']['total']} / "
+          f"{safe['collectives']['total']} B, total FLOPs "
+          f"{bf16['roofline']['flops']} / {safe['roofline']['flops']}, "
+          f"trace {traced['bf16'][1]:.1f} / {traced['exec-safe'][1]:.1f} s")
+    cell = safe
     rl, mem = cell["roofline"], cell["memory"]
-    print(f"qwen2.5-3b step ({hw}): abstract cell (host mesh "
-          f"{tuple(mesh.mesh.shape)}, traced in {t_cell:.1f} s) GEMM FLOPs "
-          f"{cell['gemm_flops']}, total {rl['flops']}; one real step counted "
-          f"({t_real:.1f} s): GEMM {real.gemm}, total {real.total}")
-    _check(cell["gemm_flops"] == real.gemm,
-           f"abstract GEMM FLOPs {cell['gemm_flops']} != the real step's "
-           f"{real.gemm}")
     t_f32 = rl["flops"] / (rl["chips"] * F32_OPS_PER_S)
     med = statistics.median(train["step_s"])
-    print(f"qwen2.5-3b step roofline ({hw}): t_compute {rl['t_compute_s']:.4f}"
-          f" s at bf16 peak, {t_f32:.4f} s at the f32 rate, t_memory "
-          f"{rl['t_memory_s']:.4f} s, t_collective {rl['t_collective_s']:.4f}"
-          f" s, bottleneck {rl['bottleneck']}; measured step (phase 6c) "
-          f"{med:.3f} s = {med / t_f32:.2f}x the f32 compute term")
-    print(f"qwen2.5-3b step memory ({hw}): arguments "
+    print(f"qwen2.5-3b step roofline ({hw}), exec-safe: t_compute "
+          f"{rl['t_compute_s']:.4f} s at bf16 peak, {t_f32:.4f} s at the "
+          f"f32 rate, t_memory {rl['t_memory_s']:.4f} s, t_collective "
+          f"{rl['t_collective_s']:.4f} s, bottleneck {rl['bottleneck']}; "
+          f"measured step (phase 6c) {med:.3f} s = {med / t_f32:.2f}x the "
+          f"f32 compute term")
+    print(f"qwen2.5-3b step memory ({hw}), exec-safe: arguments "
           f"{_gib(mem['argument_size_in_bytes'])} + temp lower bound "
           f"{_gib(mem['temp_size_in_bytes'])} = "
           f"{_gib(mem['argument_size_in_bytes'] + mem['temp_size_in_bytes'])}"
@@ -4142,9 +4263,9 @@ def main() -> None:
         train = train_phase(dev, hw, drive, counters)
     # -- the products' bf16 mode (phase 6d) ---------------------------------
     precision = precision_phase(dev, hw, drive, counters, train)
-    # -- the sharding rules and the multi-pod dry-run (phase 8) -------------
-    with product_mode(True, "phase 8", hw):
-        dryrun_phase(dev, hw, drive, counters, train)
+    # -- the sharding rules and the multi-pod dry-run (phase 8), each step in
+    # both product modes --------------------------------------------------
+    dryrun_phase(dev, hw, drive, counters, train)
     # -- the four examples (phase 8b) ---------------------------------------
     with product_mode(True, "phase 8b", hw):
         examples_phase(dev, hw, drive_into("examples"))

@@ -17,7 +17,11 @@ decode step) runs once under `analysis.op_cost.Tracer`, which counts its
 FLOPs at global shapes, the collectives DTensor issues and the peak of
 live local bytes. Meshes are "cuda" (the placeholders are H100s) unless
 `--device-type cpu` is given, which runs without a card (there DTensor
-replaces an all-to-all by an all-gather, so the collectives differ).
+replaces an all-to-all by an all-gather, so the collectives differ). The
+products take the mode `models.layers.set_exec_safe` says, on the meta
+shards as on a card: by default, as in the reference's dry-run, bf16
+operands into the f32-result product, which DTensor shards as it shards
+`mm` / `bmm` (`parallel.sharding.register_product_strategies`).
 
 The port's layer stacks are Python loops, not scans, so a full-depth trace
 costs a few milliseconds an op for every op of every layer. A cell is

@@ -27,13 +27,15 @@ reference's switch `set_exec_safe` picks how a product multiplies:
     cotangent times the other operand taken as f32, in f32, cast to the
     operand's dtype, which is what the exec-safe path's autograd
     computes. No product here has a bf16 result, so cuBLAS's bf16
-    reduced-precision reduction never applies. An operand in f32 makes
-    the product an f32 one in either mode (the reference promotes), and
-    on every other device (the CPU, the dry-run's meta tensors) both modes
-    run the exec-safe form, the plain version. An equation the lowering
-    cannot take raises on a card, and so do DTensor operands there
-    (DTensor cannot shard the product: a sharded run sets exec-safe).
-    `PRODUCTS` counts the route each call took.
+    reduced-precision reduction never applies. The route runs on meta
+    tensors too (the dry-run, which computes shapes only); an operand in
+    f32 makes the product an f32 one in either mode (the reference
+    promotes), and on the CPU (which has no kernel for the f32-result
+    product) both modes run the exec-safe form, the plain version. An
+    equation the lowering cannot take raises. DTensor operands shard as
+    `mm` / `bmm` do (`parallel.sharding.register_product_strategies`), so
+    a sharded run takes the mode `set_exec_safe` says, as the
+    reference's does. `PRODUCTS` counts the route each call took.
 
 Sharding goes through `rules` (`parallel.sharding.Rules`; `NULL_RULES`, the
 default, makes every `shard()` the identity) at the reference's places;
@@ -63,43 +65,32 @@ NEG_INF = -1e30
 # The product mode (module docstring); the reference's default.
 _EXEC_SAFE = False
 # Products by route since the caller last cleared it: "bf16" (bf16
-# operands into the library product on a card) or "f32" (operands in f32).
+# operands into the library product, on a card or on meta) or "f32"
+# (operands in f32).
 PRODUCTS = {"bf16": 0, "f32": 0}
 
 
 def set_exec_safe(v: bool) -> None:
     """The reference's switch: True multiplies every product in f32
     (operands cast), False (the default) multiplies bf16 operands on a card
-    into an f32 result (module docstring)."""
+    (or on meta) into an f32 result (module docstring)."""
     global _EXEC_SAFE
     _EXEC_SAFE = bool(v)
 
 
 def _bf16_route(ops) -> bool:
     """Whether a product of `ops` takes the bf16 route: the mode is off and
-    every operand is a bf16 tensor on a CUDA device (a DTensor's own
-    device: its local tensors', meta in the dry-run). Raises for DTensors
-    on that route: DTensor has no sharding strategy for `aten.mm.dtype` /
-    `aten.bmm.dtype`, so the entry points' `GatherFallback` would run
-    every product on gathered operands."""
-    route = (not _EXEC_SAFE and len(ops) > 0
-             and all(o.dtype == torch.bfloat16 and o.device.type == "cuda"
-                     for o in ops))
-    if route:
-        from torch.distributed.tensor import DTensor
-        if any(isinstance(o, DTensor) for o in ops):
-            raise NotImplementedError(
-                "bf16 products on DTensors: DTensor has no sharding "
-                "strategy for aten.mm.dtype / aten.bmm.dtype, so every "
-                "product would run on gathered operands; a sharded run "
-                "calls models.layers.set_exec_safe(True)")
-    return route
+    every operand is a bf16 tensor on a CUDA device or on meta (a
+    DTensor's own device: its local tensors')."""
+    return (not _EXEC_SAFE and len(ops) > 0
+            and all(o.dtype == torch.bfloat16
+                    and o.device.type in ("cuda", "meta") for o in ops))
 
 
 def bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The library product with an f32 result: `torch.mm` for (M, K) x
-    (K, N), `torch.bmm` for (B, M, K) x (B, K, N). CUDA only (PyTorch has
-    no CPU kernel for it)."""
+    (K, N), `torch.bmm` for (B, M, K) x (B, K, N). CUDA and meta only
+    (PyTorch has no CPU kernel for it)."""
     fn = torch.mm if a.ndim == 2 else torch.bmm
     return fn(a, b, out_dtype=torch.float32)
 
@@ -169,9 +160,6 @@ class _Plan:
         mid = batch + left + right
         self.perm_a, self.perm_b = _moved(perm_a), _moved(perm_b)
         self.perm_out = _moved([mid.index(c) for c in eo])
-        self.perm_grad = _moved([eo.index(c) for c in mid])
-        self.inv_a = _moved([perm_a.index(i) for i in range(len(ea))])
-        self.inv_b = _moved([perm_b.index(i) for i in range(len(eb))])
 
         def prod(labels):
             n = 1
@@ -182,9 +170,6 @@ class _Plan:
         bt = (prod(batch),) if batch else ()
         m, k, n = prod(left), prod(summed), prod(right)
         self.shape_a3, self.shape_b3 = bt + (m, k), bt + (k, n)
-        self.shape_g3 = bt + (m, n)
-        self.mid_a = tuple(size[c] for c in batch + left + summed)
-        self.mid_b = tuple(size[c] for c in batch + summed + right)
         self.mid_out = tuple(size[c] for c in mid)
 
     def operands(self, a, b):
@@ -193,17 +178,6 @@ class _Plan:
 
     def output(self, c3):
         return _permute(c3.view(self.mid_out), self.perm_out)
-
-    def backward(self, g, a3f, b3f, need_a: bool, need_b: bool):
-        """The f32 gradients of a and b from the f32 cotangent `g` and the
-        f32 operands (`bmm`'s or `mm`'s backward, then the reshapes')."""
-        g3 = _permute(g, self.perm_grad).reshape(self.shape_g3)
-        ga = gb = None
-        if need_a:
-            ga = _permute(g3.matmul(b3f.mT).reshape(self.mid_a), self.inv_a)
-        if need_b:
-            gb = _permute(a3f.mT.matmul(g3).reshape(self.mid_b), self.inv_b)
-        return ga, gb
 
 
 def _moved(perm):
@@ -221,28 +195,50 @@ def _plan(eq: str, shape_a, shape_b) -> _Plan:
     return _Plan(eq, shape_a, shape_b)
 
 
-class _Product(torch.autograd.Function):
-    """A lowered product with the reference's gradient: forward `product`
-    of the operands as they are (bf16 on the bf16 route), backward in f32
-    (module docstring). The lowered operands are saved, so a permuted
-    copy is made once; `torch.utils.checkpoint` saves and recomputes them
-    like any saved tensor."""
+class _Operands(torch.autograd.Function):
+    """The lowered operands (bf16 on the bf16 route) as they are, saved for
+    `_Product`'s backward. A custom Function's tensors are saved after its
+    forward, a library op's inputs before it runs: saved here, ahead of the
+    product, they let `torch.utils.checkpoint`'s recompute stop before a
+    product whose result nothing after it needs, as it stops before
+    `torch.bmm` (a product that saved its own operands would run once
+    more in every recompute)."""
 
     @staticmethod
-    def forward(ctx, a, b, plan, product):
-        a3, b3 = plan.operands(a, b)
+    def forward(ctx, a3, b3, link):
         ctx.save_for_backward(a3, b3)
-        ctx.plan, ctx.dtypes = plan, (a.dtype, b.dtype)
-        return plan.output(product(a3, b3))
+        link.append(ctx)
+        outs = a3.view_as(a3), b3.view_as(b3)
+        ctx.mark_non_differentiable(*(o for o, need in zip(
+            outs, ctx.needs_input_grad) if not need))
+        return outs
+
+    @staticmethod
+    def backward(ctx, ga, gb):
+        return ga, gb, None
+
+
+class _Product(torch.autograd.Function):
+    """`product` of lowered operands with the reference's gradient
+    (module docstring): the f32 cotangent times the other operand (from
+    `_Operands`, reached through `link`) taken as f32, in f32, cast to the
+    operand's dtype — `bmm`'s or `mm`'s backward."""
+
+    @staticmethod
+    def forward(ctx, a3, b3, link, product):
+        ctx.link, ctx.dtypes = link, (a3.dtype, b3.dtype)
+        return product(a3, b3)
 
     @staticmethod
     def backward(ctx, g):
-        a3, b3 = ctx.saved_tensors
-        need_a, need_b = ctx.needs_input_grad[:2]
-        ga, gb = ctx.plan.backward(g.float(), a3.float(), b3.float(),
-                                   need_a, need_b)
-        return (None if ga is None else ga.to(ctx.dtypes[0]),
-                None if gb is None else gb.to(ctx.dtypes[1]), None, None)
+        a3, b3 = ctx.link[0].saved_tensors
+        g = g.float()
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = g.matmul(b3.float().mT).to(ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            gb = a3.float().mT.matmul(g).to(ctx.dtypes[1])
+        return ga, gb, None, None
 
 
 def lowered_einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
@@ -254,14 +250,17 @@ def lowered_einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
     operand)."""
     plan = _plan(eq, tuple(a.shape), tuple(b.shape))
     product = product or bf16_product
+    a3, b3 = plan.operands(a, b)
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-        return _Product.apply(a, b, plan, product)
-    return plan.output(product(*plan.operands(a, b)))
+        link = []
+        a3, b3 = _Operands.apply(a3, b3, link)
+        return plan.output(_Product.apply(a3, b3, link, product))
+    return plan.output(product(a3, b3))
 
 
 def einsum32(eq: str, *ops: torch.Tensor) -> torch.Tensor:
-    """einsum with an f32 result: bf16 operands on a card in bf16 mode,
-    f32 operands otherwise (module docstring)."""
+    """einsum with an f32 result: bf16 operands on a card (or on meta) in
+    bf16 mode, f32 operands otherwise (module docstring)."""
     if _bf16_route(ops):
         PRODUCTS["bf16"] += 1
         if len(ops) != 2:

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import sys
 import threading
 from typing import Mapping, Optional, Sequence, Tuple, Union
@@ -375,6 +376,57 @@ class GatherFallback(TorchDispatchMode):
         return out
 
 
+def product_strategies(batched: bool, a, b, out_dtype=None) -> list:
+    """One mesh dimension's sharding strategies of `aten.mm` (`batched`
+    False: (M, K) x (K, N)) or `aten.bmm` ((B, M, K) x (B, K, N)) on
+    operands of DTensor specs `a` and `b`, as `register_sharding` lists
+    them: (output placements, input placements with None for
+    `out_dtype`). They are DTensor's own for `mm.default` / `bmm.default`,
+    in its order: all replicated; then for each kind of shard the operands
+    hold (plain, or a strided shard of one split factor), the batch
+    dimension sharded on both operands (bmm), the contracted dimension
+    sharded on both (a Partial sum), either operand's free dimension
+    sharded; then, as the product is linear in each operand, one operand
+    Partial and the other replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    kinds = {}
+    for p in (*a.placements, *b.placements):
+        if type(p).__name__ == "_StridedShard":
+            kinds.setdefault(p.split_factor, functools.partial(
+                type(p), split_factor=p.split_factor))
+        elif isinstance(p, Shard):
+            kinds.setdefault(None, Shard)
+    k, r = int(batched), Replicate()
+    templates = ([lambda sh: ([sh(0)], [sh(0), sh(0), None])] if batched
+                 else [])
+    templates += [lambda sh: ([Partial()], [sh(k + 1), sh(k), None]),
+                  lambda sh: ([sh(k)], [sh(k), r, None]),
+                  lambda sh: ([sh(k + 1)], [r, sh(k + 1), None])]
+    out = [([r], [r, r, None])]
+    out += [t(sh) for t in templates for sh in kinds.values()]
+    for op in Partial.LINEAR_REDUCE_OPS:
+        out += [([Partial(op)], [Partial(op), r, None]),
+                ([Partial(op)], [r, Partial(op), None])]
+    return out
+
+
+@functools.cache
+def register_product_strategies() -> None:
+    """Register DTensor sharding strategies for `aten.mm.dtype` and
+    `aten.bmm.dtype` — the bf16 route's products, bf16 operands with an f32
+    result (`models.layers.bf16_product`), which DTensor has none for — as
+    `product_strategies` gives them; a Partial result is reduced in the
+    result's f32 and `out_dtype` passes through to the local op. Done once
+    a process, where the port first meets a DTensor (`dtensor_run`,
+    `parallel.specs.distribute`, the dry-run), so that importing the
+    package imports no `torch.distributed`."""
+    import torch
+    from torch.distributed.tensor.experimental import register_sharding
+    aten = torch.ops.aten
+    for op, batched in ((aten.mm.dtype, False), (aten.bmm.dtype, True)):
+        register_sharding(op)(functools.partial(product_strategies, batched))
+
+
 def _has_dtensor(trees) -> bool:
     # no DTensor can exist before torch.distributed.tensor is imported
     dt = sys.modules.get("torch.distributed.tensor")
@@ -399,11 +451,14 @@ def dtensor_run(*trees):
     replicated) and a `GatherFallback` (unless one is active already, as
     under `analysis.op_cost.Tracer`, which places its own); else nothing.
     Nested calls leave the outermost's contexts open
-    (`implicit_replication` itself does not nest)."""
+    (`implicit_replication` itself does not nest). The bf16 route's
+    products get their sharding strategies here
+    (`register_product_strategies`)."""
     depth = getattr(_DTENSOR_RUN, "depth", 0)
     if depth or not _has_dtensor(trees):
         yield
         return
+    register_product_strategies()
     from torch.distributed.tensor.experimental import implicit_replication
     from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
     with contextlib.ExitStack() as stack:

@@ -25,7 +25,7 @@ from ..models.moe import moe_specs
 from ..models.rwkv import rwkv_channel_specs, rwkv_time_specs
 from ..models.ssd import mamba_specs
 from .sharding import (Rules, Spec, axis_sizes, local_shape, placements,
-                       sanitize_spec)
+                       register_product_strategies, sanitize_spec)
 
 
 def _ln(rules):
@@ -152,6 +152,7 @@ def distribute(t: torch.Tensor, spec, mesh):
     other tensor is scattered from the full one (`distribute_tensor`)."""
     from torch.distributed.tensor import DTensor, distribute_tensor
 
+    register_product_strategies()
     sizes = axis_sizes(mesh)
     spec = sanitize_spec(t.shape, spec if spec is not None else (), sizes)
     pl = placements(spec, mesh)

@@ -5,11 +5,12 @@ In bf16 mode the reference multiplies bf16 operands into an f32 result
 (`preferred_element_type=float32`); on a card the port does the same with
 `torch.mm`/`torch.bmm(..., out_dtype=torch.float32)` after lowering each
 einsum to one batched product (`layers.lowered_einsum`), and the
-gradient is an `autograd.Function` (`layers._Product`) whose backward is
-the reference's transpose: the f32 cotangent times the other operand
-taken as f32. On the CPU PyTorch has no such product, so the port's bf16
-mode computes the exec-safe form there (operands cast to f32): the plain
-version. These tests hold:
+gradient is an `autograd.Function` (`layers._Product`, its operands
+saved by `layers._Operands`) whose backward is the reference's
+transpose: the f32 cotangent times the other operand taken as f32. On
+the CPU PyTorch has no such product, so the port's bf16 mode computes the
+exec-safe form there (operands cast to f32): the plain version; meta
+tensors take the bf16 route. These tests hold:
 
   (i) each of the models' sixteen einsum equations and `matmul32`, the
       port's bf16 mode against the reference's jitted on XLA:CPU, within
@@ -249,23 +250,29 @@ def test_card_product_through_the_lowering_on_meta(eq):
 
 
 def test_meta_and_cpu_take_the_plain_version():
-    """Off the card both modes multiply f32 operands (the dry-run traces
-    meta tensors): counted under "f32", and on the CPU equal to the
-    exec-safe product bit for bit."""
+    """On the CPU both modes multiply f32 operands: counted under "f32"
+    and equal to the exec-safe product bit for bit. Meta tensors (the
+    dry-run's) take the mode's route: f32 operands in exec-safe mode, the
+    bf16 route (counted under "bf16") in bf16 mode, an f32 result of the
+    einsum's shape either way."""
     eq = "bsd,dhk->bshk"
     a, b = _operands(EQS[eq], seed=3)
+    want = torch.einsum(eq, a.float(), b.float())
     for safe in (True, False):
         layers.set_exec_safe(safe)
         before = dict(layers.PRODUCTS)
         got = layers.einsum32(eq, a, b)
-        meta = layers.einsum32(eq, a.to("meta"), b.to("meta"))
         mm = layers.matmul32(a.reshape(-1, D), b.reshape(D, -1))
         assert layers.PRODUCTS == {"bf16": before["bf16"],
-                                   "f32": before["f32"] + 3}
-        assert torch.equal(got, torch.einsum(eq, a.float(), b.float()))
-        assert meta.dtype == torch.float32 and meta.device.type == "meta"
+                                   "f32": before["f32"] + 2}
+        assert torch.equal(got, want)
         assert torch.equal(mm, a.reshape(-1, D).float()
                            @ b.reshape(D, -1).float())
+        meta = layers.einsum32(eq, a.to("meta"), b.to("meta"))
+        route = "f32" if safe else "bf16"
+        assert layers.PRODUCTS[route] == before[route] + (1 + 2 * safe)
+        assert meta.dtype == torch.float32 and meta.device.type == "meta"
+        assert meta.shape == want.shape
 
 
 @pytest.mark.parametrize("eq,shape_a,shape_b", [
