@@ -161,7 +161,8 @@ From the root of a checkout, with one CUDA card visible. It
      the four cells of the reference's integration tests at published
      widths on abstract "cuda" meshes of 256 or 512 placeholder H100s,
      each `python -m repro_torch.launch.dryrun` in a subprocess (the four
-     at once, in the default bf16 mode): granite-3-2b decode_32k (256),
+     and the qwen2.5-3b decode_32k cell of (d) at once, in the default
+     bf16 mode): granite-3-2b decode_32k (256),
      h2o-danube-1.8b train_4k (512), qwen2.5-3b long_500k (skipped by
      policy) and rwkv6-7b long_500k (256), held to the reference tests'
      assertions, each cell's status, trace seconds, FLOPs, per-device
@@ -185,7 +186,17 @@ From the root of a checkout, with one CUDA card visible. It
      step (loss, gradient norm, every updated parameter) and two
      `Trainer(shardings=)` steps (cut to one layer) equal the plain bf16
      run's bit for bit; in bf16 mode no product takes f32 operands and
-     none is gathered; no hand-written kernel may launch;
+     none is gathered; (d) decode against a sequence-sharded cache
+     (`seq_sharded_decode`) on a fake group of 4 ranks, meta shards on a
+     (1, 4) mesh: whether DTensor takes `amax` and `sum` over a sharded
+     axis as Partial reductions on this torch, then `gqa_attend` (grouped
+     and `repeat_kv`, both product modes), `write_row` and `decode_mla`
+     with the cache sharded along its sequence, at S and 2S: the
+     collective bytes GSPMD gives the reference's for the same shapes
+     (GSPMD_DECODE_BYTES), all-reduces alone, the same at both lengths,
+     nothing gathered; and (a) runs qwen2.5-3b decode_32k single too, its
+     all-gather bytes a card printed before the phase's wall time and held
+     to QWEN_DECODE_ALL_GATHER_MAX; no hand-written kernel may launch;
   8b. runs the four examples (`examples/*_torch.py`, `examples_phase`),
      each through its `main([...])` on the card: quickstart's result equal
      to its `--device cpu` run (no launch); arch_cosearch's zoo table on
@@ -2421,7 +2432,22 @@ def precision_phase(dev, hw, drive, counters, train):
 DRYRUN_CELLS = (("granite-3-2b", "decode_32k", "single"),
                 ("h2o-danube-1.8b", "train_4k", "multi"),
                 ("qwen2.5-3b", "long_500k", "single"),
-                ("rwkv6-7b", "long_500k", "single"))
+                ("rwkv6-7b", "long_500k", "single"),
+                ("qwen2.5-3b", "decode_32k", "single"))
+# qwen2.5-3b decode_32k single's all-gather bytes a card, at most: the
+# embedding table's vocabulary-sharded gather (0.62 GB) and the decode
+# queries; a gather of the sequence-sharded cache would add ~19 GB.
+QWEN_DECODE_ALL_GATHER_MAX = 0.7e9
+# Phase 8(d)'s shapes (tests/test_torch_seq_sharded_decode.py's): batch,
+# cache length, query and K/V heads, head dimension, the written row.
+SEQ_SHAPES = (8, 4096, 16, 2, 128, 17)
+# The collective bytes GSPMD gives the reference's programs at those
+# shapes on a (1, 4) mesh (that test's reference subprocess, XLA on four
+# CPU devices): all-reduces of the softmax's max and sum and of the f32
+# output; no collective for the row write; the same at twice the length.
+GSPMD_DECODE_BYTES = {"attend": {"all-reduce": 66560},
+                      "write": {},
+                      "mla": {"all-reduce": 8704}}
 
 
 def _gib(n: float) -> str:
@@ -2664,6 +2690,108 @@ def bf16_on_dtensor(dev, hw, run, cfg, tmp):
                       out["gathered"])
 
 
+def seq_sharded_decode(dev, hw, run):
+    """Phase 8(d) (module docstring): decode's attention, cache write and
+    MLA attention against a cache sharded along its sequence over "model"
+    of a (1, 4) mesh on a fake group of 4 ranks (meta shards: nothing is
+    sent), counted by `CollectiveCounter` at S and 2S; DTensor's own
+    `amax` / `sum` over the sharded axis printed (the port builds its
+    Partial reductions itself)."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.analysis.collectives import (CollectiveCounter,
+                                                  collective_bytes)
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import destroy_fake_world, init_fake_world
+    from repro_torch.models import layers, lm, mla
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.specs import distribute
+
+    b, s0, hq, hkv, d, pos = SEQ_SHAPES
+    kv, q1 = [Shard(0), Shard(1)], [Shard(0), Replicate()]
+
+    def meta(mesh, shape, pls, dtype=torch.bfloat16):
+        local = list(shape)
+        for n, p in zip(mesh.mesh.shape, pls):
+            if isinstance(p, Shard):
+                local[p.dim] //= int(n)
+        return DTensor.from_local(
+            torch.empty(local, dtype=dtype, device="meta"), mesh, pls,
+            run_check=False, shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+
+    def counted(fn, *args):
+        shd.GATHERED.clear()
+        with shd.GatherFallback(), CollectiveCounter() as cc:
+            fn(*args)
+        got = {k: v for k, v in collective_bytes(cc.events).items()
+               if k != "total" and v}
+        return got, dict(shd.GATHERED)
+
+    def cases(mesh, s):
+        out = {}
+        for mode in ("grouped", "repeat_kv"):
+            for safe in (True, False):
+                layers.set_gqa_mode(mode)
+                layers.set_exec_safe(safe)
+                out[f"attend {mode} {'exec-safe' if safe else 'bf16'}"] = \
+                    counted(layers.gqa_attend,
+                            meta(mesh, (b, 1, hq, d), q1),
+                            meta(mesh, (b, s, hkv, d), kv),
+                            meta(mesh, (b, s, hkv, d), kv),
+                            meta(mesh, (b, 1, s), [Shard(0), Shard(2)],
+                                 torch.bool))
+        out["write"] = counted(lm.write_row, meta(mesh, (b, s, hkv, d), kv),
+                               pos, meta(mesh, (b, 1, hkv, d), q1))
+        cfg = reduced(get_config("deepseek-v3-671b"))
+        p = mla.MLA(cfg, torch.device("meta"))
+        for name, t in list(p.named_parameters()):
+            owner, _, leaf = name.rpartition(".")
+            setattr(p.get_submodule(owner), leaf, torch.nn.Parameter(
+                distribute(t, (), mesh), requires_grad=False))
+        q_pos, kv_pos = lm._decode_positions(b, s, pos, "meta")
+        with shd.dtensor_run(p):
+            out["mla"] = counted(
+                mla.decode_mla, p, cfg, meta(mesh, (b, 1, cfg.d_model), q1),
+                q_pos, meta(mesh, (b, s, cfg.mla.kv_lora_rank), kv),
+                meta(mesh, (b, s, cfg.mla.rope_head_dim), kv), kv_pos)
+        return out
+
+    def trial():
+        init_fake_world(4)
+        try:
+            shd.register_product_strategies()
+            mesh = DeviceMesh(dev.type, torch.arange(4).reshape(1, 4),
+                              mesh_dim_names=("data", "model"))
+            sc = meta(mesh, (b, hkv, 8, 1, s0), [Shard(0), Shard(4)],
+                      torch.float32)
+            own = {"amax": str(sc.amax(-1, keepdim=True).placements[1]),
+                   "sum": str(sc.sum(-1, keepdim=True).placements[1])}
+            try:
+                return own, {s: cases(mesh, s) for s in (s0, 2 * s0)}
+            finally:
+                layers.set_gqa_mode("grouped")
+                layers.set_exec_safe(False)
+        finally:
+            destroy_fake_world()
+
+    (own, got), wall = run("decode on a sequence-sharded cache, fake "
+                           "group of 4", trial)
+    print(f"sequence-sharded decode ({hw}, torch {torch.__version__}): "
+          f"DTensor's own reductions over the sharded axis: {own}; "
+          f"collective bytes a rank at S = {s0} / {2 * s0}: "
+          + "; ".join(f"{k} {got[s0][k][0]} / {got[2 * s0][k][0]}"
+                      for k in got[s0]) + f"; {wall:.1f} s")
+    for s, cs in got.items():
+        for k, (bytes_, gathered) in cs.items():
+            want = GSPMD_DECODE_BYTES[k.split()[0]]
+            _check(bytes_ == want and not gathered,
+                   f"sequence-sharded decode, {k} at S = {s}: collectives "
+                   f"{bytes_} (GSPMD: {want}), gathered {gathered}")
+
+
 def dryrun_phase(dev, hw, drive, counters, train):
     """Phase 8: the sharding rules and the multi-pod dry-run (module
     docstring, item 8). `train` is phase 6c's summary (step times, peak
@@ -2695,7 +2823,8 @@ def dryrun_phase(dev, hw, drive, counters, train):
                              f"and the rules call no kernel")
         return out, wall
 
-    # (a) the integration tests' cells, one subprocess each, all at once
+    # (a) the integration tests' cells and qwen2.5-3b decode_32k, one
+    # subprocess each, all at once
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     with tempfile.TemporaryDirectory() as tmp:
@@ -2752,7 +2881,8 @@ def dryrun_phase(dev, hw, drive, counters, train):
     _check(by[("qwen2.5-3b", "long_500k")]["status"] == "skipped"
            and by[("rwkv6-7b", "long_500k")]["status"] == "ok",
            "dry-run: the long-context skip policy")
-    print(f"dryrun cells: {wall:.1f} s for the four subprocesses at once")
+    print(f"dryrun cells: {wall:.1f} s for the {len(DRYRUN_CELLS)} "
+          f"subprocesses at once")
 
     # (b) phase 6c's step: the abstract cell on the host mesh against the
     # same counter around one real step on the card, in each product mode
@@ -2844,6 +2974,16 @@ def dryrun_phase(dev, hw, drive, counters, train):
 
     # (c) the rules on one card, at qwen2.5-3b's published width
     one_card_rules(dev, hw, run, cfg)
+    # (d) decode against a sequence-sharded cache, on this torch
+    seq_sharded_decode(dev, hw, run)
+    c = by[("qwen2.5-3b", "decode_32k")]
+    gathered = c["collectives"].get("all-gather", 0)
+    print(f"qwen2.5-3b decode_32k single ({hw}): all-gather "
+          f"{gathered} B a card, all-reduce "
+          f"{c['collectives'].get('all-reduce', 0)} B, bottleneck "
+          f"{c['roofline']['bottleneck']}")
+    _check(c["status"] == "ok" and gathered <= QWEN_DECODE_ALL_GATHER_MAX,
+           f"qwen2.5-3b decode_32k gathers {gathered} B a card")
     print(f"phase 8 wall time: {time.perf_counter() - t_phase:.1f} s ({hw})")
     return got
 

@@ -22,7 +22,7 @@ from ..configs.base import ModelConfig
 from ..parallel.sharding import NULL_RULES, shard
 from .layers import (DTYPE, MLP, Attention, Embedding, RMSNorm, _normal_,
                      _param, einsum32, embed, gqa_attend, matmul32,
-                     positions_like, softmax_xent, unembed)
+                     positions_like, softmax_xent, sum_shards, unembed)
 from .lm import Block, _decode_positions, _Rows, remat_fn, write_row
 
 
@@ -98,7 +98,8 @@ def _cross_attend(p: Attention, cfg, x, mem_k, mem_v, rules=NULL_RULES):
     mask = torch.ones((b, sq, mem_k.shape[1]), dtype=torch.bool,
                       device=x.device)
     out = gqa_attend(q, mem_k, mem_v, mask, cfg.attn_logit_softcap)
-    return einsum32("bshk,hkd->bsd", out, p.wo).to(x.dtype)
+    return sum_shards(einsum32("bshk,hkd->bsd", out, p.wo),
+                      rules).to(x.dtype)
 
 
 def _cross_kv(p: Attention, x):

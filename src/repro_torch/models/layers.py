@@ -56,7 +56,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..parallel.sharding import NULL_RULES, move_shards, shard, unshard
+from ..parallel.sharding import (NULL_RULES, move_shards,
+                                 partial_to_replicate, shard, unshard)
 
 DTYPE = torch.bfloat16
 NEG_INF = -1e30
@@ -285,6 +286,28 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return matmul32(x, w).to(x.dtype)
 
 
+def sum_shards(y, rules=NULL_RULES):
+    """`y`, a product's f32 result, with a Partial sum (a contraction over
+    a sharded dimension: the heads of an output projection, the hidden
+    units of a down projection) reduced in f32 ahead of its caller's cast,
+    where the rules keep the residual stream's sequence whole (decode and
+    `NULL_RULES`): an all-reduce of f32, the form GSPMD gives the
+    reference's f32 dot ahead of its convert. Left alone, DTensor casts
+    each rank's partial sum to bf16 and sums those. Under a
+    sequence-parallel residual (training, prefill) the reduction is a
+    reduce-scatter where the sum meets the residual, and stays so (ROADMAP
+    Queue 3). The identity on a plain tensor and on mesh dimensions of one
+    device."""
+    if rules.seq_parallel:
+        return y
+    from torch.distributed.tensor import DTensor, Partial
+    if not isinstance(y, DTensor):
+        return y
+    dims = [i for i, p in enumerate(y.placements)
+            if isinstance(p, Partial) and y.device_mesh.size(i) > 1]
+    return partial_to_replicate(y, dims)
+
+
 @contextlib.contextmanager
 def f32_reduction():
     """cuBLAS's bf16 reduced-precision reduction off while the context is
@@ -497,12 +520,23 @@ def set_gqa_mode(mode: str) -> None:
 def gqa_attend(q, k, v, mask, softcap: float = 0.0):
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); mask: (B, Sq, Skv) bool.
     By `GQA_MODE`: grouped evaluation on the (B, S, Hkv, G, D) view, or K/V
-    repeated to Hq heads (`jnp.repeat` on the head axis). On DTensors the
-    keys' sequence is gathered first (a sequence-sharded K/V would
-    otherwise make the softmax gather the scores, S_q times larger)."""
-    k, v = unshard(k, (1,)), unshard(v, (1,))
+    repeated to Hq heads (`jnp.repeat` on the head axis). On DTensors whose
+    keys' sequence is sharded, either the keys stay split (`key_split`: a
+    decode step's query against the sequence-sharded cache, the form GSPMD
+    gives the reference's) or their sequence is gathered first (a
+    sequence-sharded K/V would otherwise make the softmax gather the
+    scores, S_q times larger)."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
+    split = key_split(q, k, 4 * b * sq * hq * d,
+                      2 * k.numel() * k.element_size())
+    if split:
+        q, mask = split_operands(q, k, mask, split)
+        if tuple(v.placements) != tuple(k.placements):
+            raise RuntimeError(f"K and V are laid out differently: "
+                               f"{k.placements} and {v.placements}")
+    else:
+        k, v = unshard(k, (1,)), unshard(v, (1,))
     g = hq // hkv
     if GQA_MODE == "repeat_kv" and g > 1:
         k = torch.repeat_interleave(k, g, dim=2)
@@ -515,17 +549,91 @@ def gqa_attend(q, k, v, mask, softcap: float = 0.0):
             cap = _f32(softcap, q.device)
             scores = cap * torch.tanh(scores / cap)
         scores = torch.where(m, scores, torch.full_like(scores, NEG_INF))
-        return torch.softmax(scores, dim=-1).to(v.dtype)
+        return softmax_keys(scores, split).to(v.dtype)
 
+    # split keys: the value product is a Partial sum there, reduced once in
+    # f32 before the cast
     if g == 1:
         probs = probs_of(einsum32("bqhd,bkhd->bhqk", q, k) * scale,
                          mask[:, None, :, :])
-        return einsum32("bhqk,bkhd->bqhd", probs, v).to(v.dtype)
+        return partial_to_replicate(einsum32("bhqk,bkhd->bqhd", probs, v),
+                                    split).to(v.dtype)
     qg = _split_heads(q, hkv, g)
     probs = probs_of(einsum32("bqhgd,bkhd->bhgqk", qg, k) * scale,
                      mask[:, None, None, :, :])
-    out = einsum32("bhgqk,bkhd->bqhgd", probs, v)
+    out = partial_to_replicate(einsum32("bhgqk,bkhd->bqhgd", probs, v),
+                               split)
     return out.reshape(b, sq, hq, d).to(v.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention over a sequence-sharded K/V, its keys kept split
+# --------------------------------------------------------------------------
+
+def key_split(q, k, out_bytes: int, kv_bytes: int):
+    """The mesh dimensions over which attention keeps the keys of `k`
+    (dimension 1, the sequence) split, or () where it gathers them: split
+    when they span more than one device, the query's sequence is not
+    sharded, and the attention's f32 output (`out_bytes`), which the split
+    form reduces, is smaller than the keys and values (`kv_bytes`), which
+    the other gathers. That is a decode step's query against the
+    sequence-sharded cache (and its cross-attention against the encoder's
+    memory); prefill and training, whose query is as long as the keys,
+    gather, as GSPMD does with the reference's."""
+    from ..parallel.sharding import split_dims
+    dims = split_dims(k, 1)
+    if not dims or split_dims(q, 1) or out_bytes >= kv_bytes:
+        return ()
+    return dims
+
+
+def split_operands(q, k, mask, split):
+    """(q, mask) laid out for attention against `k`'s keys split over mesh
+    dimensions `split`: q replicated over them (gathered, where its heads
+    or head dimension were sharded there: a decode query is small), its
+    other placements kept; the (B, Sq, Skv) mask (None passes through)
+    sharded along its keys as `k` is (a plain mask is split locally, with
+    no collective) and along its batch where `k`'s batch is."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..parallel.sharding import as_dtensor, redistribute, sharded_dim
+    mesh = k.device_mesh
+    q = as_dtensor(q, mesh)
+    q = redistribute(q, [Replicate() if i in split else p
+                         for i, p in enumerate(q.placements)])
+    target = []
+    for i, p in enumerate(k.placements):
+        if i in split:
+            target.append(Shard(2) if type(p).__name__ != "_StridedShard"
+                          else type(p)(2, split_factor=p.split_factor))
+        elif sharded_dim(p) == 0:
+            target.append(p)
+        else:
+            target.append(Replicate())
+    if mask is None:
+        return q, None
+    return q, redistribute(as_dtensor(mask, mesh), target)
+
+
+def softmax_keys(scores, split=()):
+    """Softmax over the last dimension (the keys). Plain (`split` empty):
+    `torch.softmax`. Keys split over mesh dimensions `split`: the
+    reference's `exp(s - max) / sum`, the max and the sum taken over each
+    shard's keys and reduced across the shards as a Partial("max") and a
+    Partial("sum") (all-reduces of the (..., 1) local shape), so that the
+    scores are never gathered."""
+    if not split:
+        return torch.softmax(scores, dim=-1)
+    from ..parallel.sharding import reduced_over, sharded_dim
+    if not all(sharded_dim(scores.placements[i]) == scores.ndim - 1
+               for i in split):
+        raise RuntimeError(f"expected the keys split over mesh dimensions "
+                           f"{tuple(split)}, got {tuple(scores.placements)}")
+    mx = reduced_over(scores.to_local().amax(-1, keepdim=True), scores,
+                      split, "max")
+    e = torch.exp(scores - mx)
+    return e / reduced_over(e.to_local().sum(-1, keepdim=True), e, split,
+                            "sum")
 
 
 def attention_specs(rules):
@@ -615,7 +723,8 @@ class Attention(nn.Module):
             mask = (kv_positions >= 0)[:, None, :].expand(
                 x.shape[0], x.shape[1], kv_positions.shape[1])
         out = gqa_attend(q, k, v, mask, cfg.attn_logit_softcap)
-        return einsum32("bshk,hkd->bsd", out, self.wo).to(x.dtype)
+        return sum_shards(einsum32("bshk,hkd->bsd", out, self.wo),
+                          rules).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -648,7 +757,8 @@ class MLP(nn.Module):
         # ported config uses it
         a = (silu(g) if self.act == "silu"
              else torch.nn.functional.gelu(g, approximate="tanh"))
-        return dense(h * a, self.wo)
+        y = h * a
+        return sum_shards(matmul32(y, self.wo), rules).to(y.dtype)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

@@ -267,14 +267,50 @@ def _mla_prefill(blk, cfg, x, positions, rules=NULL_RULES):
 
 def write_row(rows, pos: int, new):
     """`rows` (B, T, ...) with `new` (B, 1, ...) at `pos`: written in place
-    into a plain tensor (the card's cache), by `slice_scatter` into a new
-    DTensor (a sharded cache cannot take an in-place slice write; the
-    reference's `dynamic_update_slice` is functional too)."""
+    into a plain tensor (the card's cache); on a DTensor, functionally (the
+    reference's `dynamic_update_slice` is functional too), into a new
+    DTensor of the same placements. A DTensor whose T is sharded over more
+    than one device is written on its shards, with no collective
+    (`_write_row_sharded`); one whose T is whole takes `slice_scatter`."""
     from torch.distributed.tensor import DTensor
+
+    from ..parallel.sharding import split_dims
     if isinstance(rows, DTensor):
+        if split_dims(rows, 1):
+            return _write_row_sharded(rows, pos, new)
         return torch.slice_scatter(rows, new, dim=1, start=pos, end=pos + 1)
     rows[:, pos:pos + 1] = new
     return rows
+
+
+def _write_row_sharded(rows, pos: int, new):
+    """`write_row` on a DTensor whose T is split, in GSPMD's form of the
+    reference's `dynamic_update_slice`: every shard runs the same clamped,
+    masked one-row write into its local rows — at the local index of `pos`
+    where it holds that row (`sharding.held_indices`: DTensor's own order
+    of splits), else at a clamped index, writing back the row it holds
+    there — so only the shard holding `pos` changes. `new` is laid out as
+    `rows` is on every other dimension (its one row whole on every shard of
+    T) first."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from ..parallel.sharding import (as_dtensor, held_indices, local_index,
+                                     redistribute, sharded_dim)
+    mesh, pl = rows.device_mesh, tuple(rows.placements)
+    new = redistribute(as_dtensor(new, mesh),
+                       [Replicate() if sharded_dim(p) == 1 else p
+                        for p in pl]).to_local()
+    at = local_index(rows, 1, pos)
+    hit = at is not None
+    if not hit:
+        held = held_indices(rows, 1)
+        at = min(max(pos - held[0], 0), len(held) - 1)
+    local = rows.to_local()
+    src = new if hit else local[:, at:at + 1]
+    out = torch.slice_scatter(local, src.to(local.dtype), dim=1, start=at,
+                              end=at + 1)
+    return DTensor.from_local(out, mesh, pl, run_check=False,
+                              shape=rows.shape, stride=rows.stride())
 
 
 def _attn_decode(blk, cfg, x, pos, q_pos, kv_pos, k_row, v_row,

@@ -13,9 +13,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..parallel.sharding import NULL_RULES, shard
+from ..parallel.sharding import NULL_RULES, partial_to_replicate, shard
 from .layers import (NEG_INF, RMSNorm, _f32, _normal_, _param, attn_mask,
-                     einsum32, matmul32, rms_norm, rope)
+                     einsum32, key_split, matmul32, rms_norm, rope,
+                     softmax_keys, split_operands, sum_shards)
 
 
 class MLA(nn.Module):
@@ -85,10 +86,12 @@ def latent_kv(p: MLA, cfg, x, positions):
     return c_kv, k_rope
 
 
-def _softmax_masked(scores, mask, dtype):
+def _softmax_masked(scores, mask, dtype, split=()):
+    """The masked softmax over the keys (`layers.softmax_keys`: split over
+    mesh dimensions `split`, else plain)."""
     scores = torch.where(mask[:, None], scores,
                          torch.full_like(scores, NEG_INF))
-    return torch.softmax(scores, dim=-1).to(dtype)
+    return softmax_keys(scores, split).to(dtype)
 
 
 def _scale(cfg, device):
@@ -109,22 +112,39 @@ def apply_mla(p: MLA, cfg, x, positions, rules=NULL_RULES):
         * _scale(cfg, x.device)
     probs = _softmax_masked(scores, attn_mask(positions, positions), v.dtype)
     ctx = einsum32("bhqk,bkhd->bqhd", probs, v).to(v.dtype)
-    return einsum32("bqhd,hdm->bqm", ctx, p.wo).to(x.dtype)
+    return sum_shards(einsum32("bqhd,hdm->bqm", ctx, p.wo),
+                      rules).to(x.dtype)
 
 
 def decode_mla(p: MLA, cfg, x, positions, cache_c, cache_rope,
                kv_positions, rules=NULL_RULES):
     """The absorbed form against the rank-compressed cache.
-    cache_c: (B, Smax, R); cache_rope: (B, Smax, rope_dim); x: (B, 1, D)."""
+    cache_c: (B, Smax, R); cache_rope: (B, Smax, rope_dim); x: (B, 1, D).
+    A cache whose sequence is sharded keeps its keys split, as
+    `layers.gqa_attend` does (`layers.key_split`)."""
     q_nope, q_rope = _queries(p, cfg, x, positions, rules)
     # W_UK absorbed: the query in latent space
     q_c = einsum32("bqhn,rhn->bqhr", q_nope, p.wk_b).to(x.dtype)
+    mask = attn_mask(positions, kv_positions)
+    b, sq, h, r = q_c.shape
+    split = key_split(q_c, cache_c, 4 * b * sq * h * r,
+                      (cache_c.numel() + cache_rope.numel())
+                      * cache_c.element_size())
+    if split:
+        if tuple(cache_rope.placements) != tuple(cache_c.placements):
+            raise RuntimeError(f"the latent and rope caches are laid out "
+                               f"differently: {cache_c.placements} and "
+                               f"{cache_rope.placements}")
+        q_c, mask = split_operands(q_c, cache_c, mask, split)
+        q_rope = split_operands(q_rope, cache_c, None, split)[0]
     scores = (einsum32("bqhr,bkr->bhqk", q_c, cache_c)
               + einsum32("bqhr,bkr->bhqk", q_rope, cache_rope)) \
         * _scale(cfg, x.device)
-    probs = _softmax_masked(scores, attn_mask(positions, kv_positions),
-                            x.dtype)
-    ctx_c = einsum32("bhqk,bkr->bqhr", probs, cache_c).to(x.dtype)
+    probs = _softmax_masked(scores, mask, x.dtype, split)
+    # a Partial sum over the split keys, reduced once in f32
+    ctx_c = partial_to_replicate(einsum32("bhqk,bkr->bqhr", probs, cache_c),
+                                 split).to(x.dtype)
     # W_UV absorbed on the way out
     ctx = einsum32("bqhr,rhd->bqhd", ctx_c, p.wv_b).to(x.dtype)
-    return einsum32("bqhd,hdm->bqm", ctx, p.wo).to(x.dtype)
+    return sum_shards(einsum32("bqhd,hdm->bqm", ctx, p.wo),
+                      rules).to(x.dtype)

@@ -30,7 +30,7 @@ from torch import nn
 
 from ..parallel.sharding import NULL_RULES, shard
 from .layers import (RMSNorm, _normal_, _param, matmul16, matmul32, rms_norm,
-                     scan, sigmoid, silu)
+                     scan, sigmoid, silu, sum_shards)
 
 WKV_MODE = "scan"  # module default; overridden per call
 _LOG_W_MIN = -8.0  # chunked-mode decay clamp (exp(-8) a token at least)
@@ -209,7 +209,7 @@ def apply_rwkv_time(p: RWKVTime, cfg, x, *, last=None, state=None,
     out = rms_norm(p.ln_out.scale, out.reshape(b, t, d).to(x.dtype),
                    cfg.norm_eps)
     out = out * silu(g.float()).to(x.dtype)
-    out = matmul32(out, p.wo).to(x.dtype)
+    out = sum_shards(matmul32(out, p.wo), rules).to(x.dtype)
     return out, (x[:, -1:], s_new)
 
 
@@ -221,5 +221,5 @@ def apply_rwkv_channel(p: RWKVChannel, cfg, x, *, last=None,
     xr = _lerp(x, xs, p.mu[1])
     k = shard(torch.square(torch.relu(matmul16(xk, p.wk))),
               rules.ffn_hidden)
-    kv = matmul32(k, p.wv).to(x.dtype)
+    kv = sum_shards(matmul32(k, p.wv), rules).to(x.dtype)
     return sigmoid(matmul16(xr, p.wr).float()).to(x.dtype) * kv, x[:, -1:]

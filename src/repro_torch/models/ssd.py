@@ -20,7 +20,7 @@ from torch import nn
 
 from ..parallel.sharding import NULL_RULES, shard
 from .layers import (DTYPE, RMSNorm, _normal_, _param, f32_reduction,
-                     matmul32, rms_norm, silu)
+                     matmul32, rms_norm, silu, sum_shards)
 
 
 def _dims(cfg):
@@ -108,9 +108,9 @@ def _ssm_inputs(cfg, p: Mamba, xbc, dt):
     return x, bmat, cmat, dt, a
 
 
-def _gated_out(p: Mamba, cfg, y, z, dtype):
+def _gated_out(p: Mamba, cfg, y, z, dtype, rules=NULL_RULES):
     y = rms_norm(p.norm.scale, (y * silu(z.float())).to(dtype), cfg.norm_eps)
-    return matmul32(y, p.out_proj).to(dtype)
+    return sum_shards(matmul32(y, p.out_proj), rules).to(dtype)
 
 
 def apply_mamba(p: Mamba, cfg, x, return_state: bool = False,
@@ -166,7 +166,7 @@ def apply_mamba(p: Mamba, cfg, x, return_state: bool = False,
                            torch.exp(lcum))
     y = (y_intra + y_inter).reshape(b, seq, n_heads, s.head_dim)
     y = y + p.d_skip[:, None] * xs.float()
-    out = _gated_out(p, cfg, y.reshape(b, seq, d_in), z, x.dtype)
+    out = _gated_out(p, cfg, y.reshape(b, seq, d_in), z, x.dtype, rules)
     out = out[:, :true_seq]
     if return_state:
         return out, {"h": h, "conv": xbc_raw[:, true_seq - (s.d_conv - 1):

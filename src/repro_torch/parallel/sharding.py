@@ -250,11 +250,7 @@ def shard(x, spec: Optional[Spec]):
         return x
     if _ACTIVE_AXIS_SIZES:
         spec = sanitize_spec(x.shape, spec, _ACTIVE_AXIS_SIZES)
-    target = placements(spec, x.device_mesh)
-    if tuple(x.placements) == target:
-        return x
-    with _resharding():
-        return x.redistribute(x.device_mesh, target)
+    return redistribute(x, placements(spec, x.device_mesh))
 
 
 def sharded_dim(p):
@@ -270,10 +266,8 @@ def move_shards(x, src: int, dst: int):
     from torch.distributed.tensor import DTensor, Shard
     if not isinstance(x, DTensor):
         return x
-    target = tuple(Shard(dst) if sharded_dim(p) == src else p
-                   for p in x.placements)
-    with _resharding():
-        return x.redistribute(x.device_mesh, target)
+    return redistribute(x, [Shard(dst) if sharded_dim(p) == src else p
+                            for p in x.placements])
 
 
 def unshard(x, dims):
@@ -284,12 +278,122 @@ def unshard(x, dims):
     if not isinstance(x, DTensor):
         return x
     dims = {d % x.ndim for d in dims}
-    target = tuple(Replicate() if sharded_dim(p) in dims else p
-                   for p in x.placements)
-    if target == tuple(x.placements):
+    return redistribute(x, [Replicate() if sharded_dim(p) in dims else p
+                            for p in x.placements])
+
+
+def split_dims(x, dim: int) -> Tuple[int, ...]:
+    """The mesh dimensions that shard tensor dimension `dim` of `x`, when
+    together they span more than one device; else () (a plain tensor, an
+    unsharded dimension, or one split over a single device)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return ()
+    dim %= x.ndim
+    dims = tuple(i for i, p in enumerate(x.placements)
+                 if sharded_dim(p) == dim)
+    n = 1
+    for i in dims:
+        n *= x.device_mesh.size(i)
+    return dims if n > 1 else ()
+
+
+def as_dtensor(x, mesh):
+    """`x` as a DTensor on `mesh`: a plain tensor is replicated (every rank
+    holds it whole, as `implicit_replication` takes it); a DTensor is
+    returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def redistribute(x, target):
+    """`x` (a DTensor) redistributed to the placements `target`, `x` itself
+    where it has them; the FLOP counter charges nothing to it
+    (`resharding`)."""
+    target = tuple(target)
+    if tuple(x.placements) == target:
         return x
     with _resharding():
         return x.redistribute(x.device_mesh, target)
+
+
+def partial_to_replicate(x, dims: Sequence[int]):
+    """`x` with its Partial placements on mesh dimensions `dims` reduced
+    (an all-reduce of its local shape over each), `x` itself where `dims`
+    is empty; raises unless `x` is Partial on every one of them, so that a
+    sharding DTensor chose otherwise (a gather) cannot pass unnoticed."""
+    from torch.distributed.tensor import Partial, Replicate
+    if not dims:
+        return x
+    if not all(isinstance(x.placements[i], Partial) for i in dims):
+        raise RuntimeError(f"expected a Partial result over mesh dimensions "
+                           f"{tuple(dims)}, got {tuple(x.placements)}")
+    return redistribute(x, [Replicate() if i in dims else p
+                            for i, p in enumerate(x.placements)])
+
+
+def reduced_over(local, like, dims: Sequence[int], op: str):
+    """The DTensor of `local` — `like`'s local shard reduced by `op`
+    ("max" or "sum") over its last dimension, kept as size 1 — whose
+    placements are `like`'s with Partial(op) on mesh dimensions `dims` (the
+    ones that split that last dimension), reduced there: one all-reduce of
+    the local shape on each of `dims`."""
+    import torch
+    from torch.distributed.tensor import DTensor, Partial
+    mesh = like.device_mesh
+    pl = [Partial(op) if i in dims else p
+          for i, p in enumerate(like.placements)]
+    shape = torch.Size(tuple(like.shape[:-1]) + (1,))
+    part = DTensor.from_local(local, mesh, pl, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+    return partial_to_replicate(part, dims)
+
+
+@functools.lru_cache(maxsize=64)
+def _held(n: int, mesh, placements, coordinate):
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        idx = distribute_tensor(torch.arange(n), mesh, placements,
+                                src_data_rank=None).to_local()
+        held = tuple(np.asarray(idx.cpu()).tolist())
+    return held, {g: i for i, g in enumerate(held)}
+
+
+def _held_of(x, dim: int):
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= x.ndim
+    pl = []
+    for p in x.placements:
+        if sharded_dim(p) != dim:
+            pl.append(Replicate())
+        elif type(p).__name__ == "_StridedShard":
+            pl.append(type(p)(0, split_factor=p.split_factor))
+        else:
+            pl.append(Shard(0))
+    mesh = x.device_mesh
+    return _held(x.shape[dim], mesh, tuple(pl), tuple(mesh.get_coordinate()))
+
+
+def held_indices(x, dim: int) -> Tuple[int, ...]:
+    """The indices along dimension `dim` of `x` (a DTensor) that this rank's
+    shard holds, in local order: DTensor's own split of `arange` over the
+    mesh dimensions that shard `dim`, left to right, each by its placement
+    (a plain Shard chunks contiguously, a `_StridedShard` takes its rows
+    from each of `split_factor` pieces), without communication."""
+    return _held_of(x, dim)[0]
+
+
+def local_index(x, dim: int, i: int) -> Optional[int]:
+    """Where index `i` of dimension `dim` lies in this rank's shard of `x`
+    (`held_indices`), or None where another rank holds it."""
+    return _held_of(x, dim)[1].get(i)
 
 
 def replicated(fn, *args):
