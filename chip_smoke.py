@@ -194,9 +194,18 @@ From the root of a checkout, with one CUDA card visible. It
      with the cache sharded along its sequence, at S and 2S: the
      collective bytes GSPMD gives the reference's for the same shapes
      (GSPMD_DECODE_BYTES), all-reduces alone, the same at both lengths,
-     nothing gathered; and (a) runs qwen2.5-3b decode_32k single too, its
-     all-gather bytes a card printed before the phase's wall time and held
-     to QWEN_DECODE_ALL_GATHER_MAX; no hand-written kernel may launch;
+     nothing gathered; (e) sequence-parallel row-parallel products
+     (`seq_parallel_products`) on the same fake group, meta shards: the
+     attention and MLP blocks of reduced gemma3-4b (SEQ_PARALLEL_SHAPES)
+     under PREFILL_RULES on (1, 4) (the forward) and TRAIN_RULES on (2, 2)
+     (forward and backward), in both product modes, their reductions by
+     kind, dtype and bytes printed: every reduction in f32, no f32 Partial
+     sum cast to bf16 (`PartialCasts`), the ops `GatherFallback` gathered
+     printed (torch 2.11 refuses the bf16 lowering's flatten of a
+     sequence-sharded operand); and (a) runs
+     qwen2.5-3b decode_32k single too, its all-gather bytes a card printed
+     before the phase's wall time and held to QWEN_DECODE_ALL_GATHER_MAX;
+     no hand-written kernel may launch;
   8b. runs the four examples (`examples/*_torch.py`, `examples_phase`),
      each through its `main([...])` on the card: quickstart's result equal
      to its `--device cpu` run (no launch); arch_cosearch's zoo table on
@@ -2450,6 +2459,12 @@ GSPMD_DECODE_BYTES = {"attend": {"all-reduce": 66560},
                       "mla": {"all-reduce": 8704}}
 
 
+# Phase 8(e)'s blocks (tests/test_torch_seq_parallel_products.py's): the
+# reduced arch, batch and sequence, and the mesh of each rule set.
+SEQ_PARALLEL_SHAPES = ("gemma3-4b", 4, 256)
+SEQ_PARALLEL_MESHES = {"prefill": (1, 4), "train": (2, 2)}
+
+
 def _gib(n: float) -> str:
     return f"{n / 2**30:.3f} GiB"
 
@@ -2792,6 +2807,93 @@ def seq_sharded_decode(dev, hw, run):
                    f"{bytes_} (GSPMD: {want}), gathered {gathered}")
 
 
+def seq_parallel_products(dev, hw, run):
+    """Phase 8(e) (module docstring): the attention and MLP blocks under a
+    sequence-parallel residual on a fake group of 4 ranks (meta shards:
+    nothing is sent), their collectives counted by kind and dtype, and the
+    f32 Partial sums cast to bf16 by `PartialCasts`."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.analysis.collectives import (CollectiveCounter,
+                                                  collective_bytes_by_dtype)
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import destroy_fake_world, init_fake_world
+    from repro_torch.models import layers
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.specs import distribute
+
+    arch, b, s = SEQ_PARALLEL_SHAPES
+    cfg = reduced(get_config(arch))
+
+    def block(name, kind, safe):
+        mesh = DeviceMesh(dev.type, torch.arange(4).reshape(
+            SEQ_PARALLEL_MESHES[kind]), mesh_dim_names=("data", "model"))
+        rules = shd.for_mesh(shd.TRAIN_RULES if kind == "train"
+                             else shd.PREFILL_RULES, mesh)
+        shd.set_active_axis_sizes(dict(zip(("data", "model"),
+                                           SEQ_PARALLEL_MESHES[kind])))
+        layers.set_exec_safe(safe)
+        train = kind == "train"
+        if name == "attention":
+            mod = layers.Attention(cfg, "meta")
+            specs = layers.attention_specs(rules)
+            pos = torch.arange(s, device="meta")[None].expand(b, s)
+
+            def fn(x):
+                return mod(cfg, x, pos, rules=rules)
+        else:
+            mod = layers.MLP(cfg.d_model, cfg.d_ff, device="meta")
+            specs = layers.mlp_specs(rules)
+
+            def fn(x):
+                return mod(x, rules)
+        for n, p in list(mod.named_parameters()):
+            setattr(mod, n, torch.nn.Parameter(
+                distribute(p, specs[n], mesh), requires_grad=train))
+        x = distribute(torch.empty(b, s, cfg.d_model, dtype=torch.bfloat16,
+                                   device="meta"), rules.resid, mesh)
+        x.requires_grad_(train)
+        shd.GATHERED.clear()
+        # the gather fallback inside the counter, which hands DTensor ops
+        # on past the modes below it
+        with CollectiveCounter() as cc, shd.dtensor_run(mod), \
+                shd.PartialCasts() as casts:
+            out = fn(x)
+            if train:
+                out.float().sum().backward()
+        return (collective_bytes_by_dtype(cc.typed), casts.count,
+                dict(shd.GATHERED))
+
+    def trial():
+        init_fake_world(4)
+        try:
+            shd.register_product_strategies()
+            return {(name, kind, mode): block(name, kind, mode == "exec-safe")
+                    for name in ("attention", "mlp")
+                    for kind in SEQ_PARALLEL_MESHES
+                    for mode in ("bf16", "exec-safe")}
+        finally:
+            layers.set_exec_safe(False)
+            shd.set_active_axis_sizes(None)
+            destroy_fake_world()
+
+    got, wall = run("sequence-parallel blocks, fake group of 4", trial)
+    reductions = ("all-reduce", "reduce-scatter")
+    for (name, kind, mode), (typed, casts, gathered) in got.items():
+        red = {k: int(v) for k, v in typed.items()
+               if k.split()[0] in reductions}
+        print(f"sequence-parallel {name} {kind} {mode} ({hw}, torch "
+              f"{torch.__version__}): reductions {red or 'none'}; all "
+              f"collectives {dict((k, int(v)) for k, v in typed.items())}; "
+              f"f32 Partial sums cast to bf16 {casts}; gathered "
+              f"{gathered}")
+        _check(all(k.split()[1] == "f32" for k in red) and casts == 0,
+               f"sequence-parallel {name} {kind} {mode}: reductions {red}, "
+               f"{casts} f32 Partial sums cast to bf16")
+    print(f"sequence-parallel blocks: {wall:.1f} s ({hw})")
+
+
 def dryrun_phase(dev, hw, drive, counters, train):
     """Phase 8: the sharding rules and the multi-pod dry-run (module
     docstring, item 8). `train` is phase 6c's summary (step times, peak
@@ -2976,6 +3078,8 @@ def dryrun_phase(dev, hw, drive, counters, train):
     one_card_rules(dev, hw, run, cfg)
     # (d) decode against a sequence-sharded cache, on this torch
     seq_sharded_decode(dev, hw, run)
+    # (e) sequence-parallel row-parallel products, on this torch
+    seq_parallel_products(dev, hw, run)
     c = by[("qwen2.5-3b", "decode_32k")]
     gathered = c["collectives"].get("all-gather", 0)
     print(f"qwen2.5-3b decode_32k single ({hw}): all-gather "

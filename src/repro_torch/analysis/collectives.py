@@ -8,8 +8,9 @@ that DTensor (or an explicit redistribution) issues on the shards —
 `reduce_scatter_tensor` as "reduce-scatter", `all_reduce` as "all-reduce",
 `all_to_all_single` as "all-to-all" (and their coalesced forms) — with the
 bytes of its local result, which are per participant, as the reference's
-HLO result sizes are. A loop body charged once for its trip count
-(`op_cost.scaled`) counts that many times.
+HLO result sizes are; `typed` keeps each one's element type too, in the
+HLO's names (`collective_bytes_by_dtype`). A loop body charged once for
+its trip count (`op_cost.scaled`) counts that many times.
 
 The same mode keeps the peak of the live bytes that the traced program
 allocates on one device (every new storage of a local op, freed when its
@@ -48,6 +49,11 @@ _KIND_OF = {
 #: one recorded collective: (kind, result bytes, times it ran)
 Event = Tuple[str, int, int]
 
+# torch dtypes by the HLO's element type names
+_HLO_DTYPE = {torch.float32: "f32", torch.bfloat16: "bf16",
+              torch.float16: "f16", torch.float64: "f64",
+              torch.int32: "s32", torch.int64: "s64", torch.bool: "pred"}
+
 
 def collective_kind(func):
     """The kind of a `_c10d_functional` collective op, else None."""
@@ -62,13 +68,15 @@ def _is_fake(t) -> bool:
 
 
 class CollectiveCounter(TorchDispatchMode):
-    """Records collectives (`events`) and the peak of live local bytes
-    (`peak_bytes`) while it is active; `scale` is read at each op from
-    `op_cost.current_scale()`."""
+    """Records collectives (`events`, and in `typed` each with its element
+    type: (kind, dtype, result bytes, times it ran)) and the peak of live
+    local bytes (`peak_bytes`) while it is active; `scale` is read at each
+    op from `op_cost.current_scale()`."""
 
     def __init__(self):
         super().__init__()
         self.events = []
+        self.typed = []
         self.live_bytes = 0
         self.peak_bytes = 0
         self._live = set()
@@ -88,8 +96,11 @@ class CollectiveCounter(TorchDispatchMode):
         kind = collective_kind(func)
         if kind is not None:
             n = current_scale()
-            self.events.append((kind, n * sum(t.untyped_storage().nbytes()
-                                              for t in outs), n))
+            nbytes = n * sum(t.untyped_storage().nbytes() for t in outs)
+            self.events.append((kind, nbytes, n))
+            self.typed.append((kind, _HLO_DTYPE.get(outs[0].dtype,
+                                                    str(outs[0].dtype)),
+                               nbytes, n))
         self._track(args, kwargs, outs)
         return out
 
@@ -119,6 +130,15 @@ def collective_bytes(events: Iterable[Event]) -> Dict[str, float]:
     for kind, nbytes, _ in events:
         out[kind] += nbytes
     out["total"] = sum(v for k, v in out.items() if k != "total")
+    return dict(out)
+
+
+def collective_bytes_by_dtype(typed) -> Dict[str, float]:
+    """Sum of collective result bytes per "kind dtype" (e.g.
+    "reduce-scatter f32") of `CollectiveCounter.typed`."""
+    out: Dict[str, float] = defaultdict(float)
+    for kind, dtype, nbytes, _ in typed:
+        out[f"{kind} {dtype}"] += nbytes
     return dict(out)
 
 

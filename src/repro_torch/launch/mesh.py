@@ -49,9 +49,38 @@ def init_fake_world(world_size: int = PRODUCTION_WORLD) -> None:
 
 
 def destroy_fake_world() -> None:
+    """Destroy the process group, and with it what DTensor cached about its
+    meshes: a mesh of the next world that equals one of this world's (same
+    ranks, names and device type) would otherwise reuse cached plans that
+    name this world's destroyed groups."""
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()
+    clear_dtensor_caches()
+
+
+def clear_dtensor_caches() -> None:
+    """Clear DTensor's sharding-propagation caches, its native one too, and
+    redistribution caches (those this torch has) and the port's own
+    placement cache."""
+    import sys
+    if "torch.distributed.tensor" not in sys.modules:
+        return
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _redistribute
+
+    from ..parallel import sharding
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for cache in (getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                          None),
+                  getattr(prop.propagate_op_sharding, "cache_clear", None),
+                  getattr(_redistribute._gen_transform_infos, "cache_clear",
+                          None),
+                  getattr(_redistribute, "clear_redistribute_planner_cache",
+                          None),
+                  sharding._held.cache_clear):
+        if cache is not None:
+            cache()
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -39,11 +39,20 @@ reference's switch `set_exec_safe` picks how a product multiplies:
 
 Sharding goes through `rules` (`parallel.sharding.Rules`; `NULL_RULES`, the
 default, makes every `shard()` the identity) at the reference's places;
-`attention_specs` and `mlp_specs` give the parameters' specs. The GSPMD
-layout switches are the reference's: `set_gqa_mode` ("grouped" evaluates
-GQA on the (B, S, Hkv, G, D) view, "repeat_kv" repeats K/V to the full
-head count first) and `set_xent_mode` ("gather" takes the gold logit by
-index, "onehot" by a masked sum over the vocabulary).
+`attention_specs` and `mlp_specs` give the parameters' specs. On DTensors
+no product's Partial sum meets a cast to bf16 before it is summed, as
+GSPMD reduces the reference's f32 dot ahead of its convert: a row-parallel
+product's is reduced in f32 by `sum_shards` (all-reduced in decode,
+reduce-scattered onto the residual's sequence shards under a
+sequence-parallel residual); one that DTensor's choice of strategy would
+make (an FSDP weight's contraction sharded, in `matmul16` too) is not
+made, the weight being gathered first (`_gathered`), as GSPMD gathers it;
+a gradient's is reduced in f32 ahead of its cast to the operand's dtype
+(`_cast_like`, `upcast`). The GSPMD layout switches are the reference's:
+`set_gqa_mode` ("grouped" evaluates GQA on the (B, S, Hkv, G, D) view,
+"repeat_kv" repeats K/V to the full head count first) and `set_xent_mode`
+("gather" takes the gold logit by index, "onehot" by a masked sum over
+the vocabulary).
 """
 from __future__ import annotations
 
@@ -56,8 +65,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..parallel.sharding import (NULL_RULES, move_shards,
-                                 partial_to_replicate, shard, unshard)
+from ..parallel.sharding import (NULL_RULES, cast_reduced, is_dtensor,
+                                 move_shards, partial_dims,
+                                 partial_to_replicate, partial_to_spec,
+                                 redistribute, shard, sharded_dim,
+                                 spans_devices, unshard)
 
 DTYPE = torch.bfloat16
 NEG_INF = -1e30
@@ -152,6 +164,7 @@ class _Plan:
             raise ValueError(f"einsum {eq!r}: the lowering needs every "
                              f"output label in an operand and every label "
                              f"of one operand alone in the output")
+        self.labels = ea, eb, eo
         batch = [c for c in eo if c in ea and c in eb]
         left = [c for c in eo if c in ea and c not in eb]
         right = [c for c in eo if c in eb and c not in ea]
@@ -227,7 +240,7 @@ class _Product(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a3, b3, link, product):
-        ctx.link, ctx.dtypes = link, (a3.dtype, b3.dtype)
+        ctx.link = link
         return product(a3, b3)
 
     @staticmethod
@@ -236,10 +249,78 @@ class _Product(torch.autograd.Function):
         g = g.float()
         ga = gb = None
         if ctx.needs_input_grad[0]:
-            ga = g.matmul(b3.float().mT).to(ctx.dtypes[0])
+            ga = _cast_like(g.matmul(b3.float().mT), a3)
         if ctx.needs_input_grad[1]:
-            gb = a3.float().mT.matmul(g).to(ctx.dtypes[1])
+            gb = _cast_like(a3.float().mT.matmul(g), b3)
         return ga, gb, None, None
+
+
+def _cast_like(g, primal):
+    """`g`, an f32 gradient of `primal` (a tensor, or a (placements,
+    dtype) pair), cast to `primal`'s dtype, its Partial sums first reduced
+    in f32 (`parallel.sharding.cast_reduced`), as GSPMD reduces the
+    reference's transposed f32 dot ahead of its convert."""
+    placements, dtype = (primal if isinstance(primal, tuple)
+                         else (getattr(primal, "placements", None),
+                               primal.dtype))
+    if not partial_dims(g):
+        return g.to(dtype)
+    return cast_reduced(g, placements, dtype)
+
+
+class _Upcast(torch.autograd.Function):
+    """A DTensor as f32, whose gradient is reduced in f32 onto its
+    placements before the cast back to its dtype (`_cast_like`):
+    autograd's cast would round each rank's Partial gradient first."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.primal = t.placements, t.dtype
+        return t.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _cast_like(g, ctx.primal)
+
+
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """`t.float()`; a narrower DTensor that takes a gradient goes through
+    `_Upcast`."""
+    if (t.dtype != torch.float32 and t.requires_grad and is_dtensor(t)
+            and torch.is_grad_enabled()):
+        return _Upcast.apply(t)
+    return t.float()
+
+
+def _gathered(eq: str, a, b):
+    """`a` and `b`, DTensor operands of `eq`, with a parameter gathered off
+    each mesh dimension on which it shards a dimension the product sums
+    while the other operand shards one the output keeps (an FSDP weight's
+    contraction, sharded over the data axes that shard the batch), as
+    GSPMD gathers the weight: DTensor would otherwise shard the
+    contraction and sum partial products. A row-parallel product (both
+    operands shard the summed dimension) keeps its Partial sum for its
+    caller (`sum_shards`)."""
+    if not (spans_devices(a) or spans_devices(b)):
+        return a, b
+    from torch.distributed.tensor import Replicate
+    ea, eb, eo = _plan(eq, tuple(a.shape), tuple(b.shape)).labels
+    out = [a, b]
+    mesh = (a if is_dtensor(a) else b).device_mesh
+    for i in range(mesh.ndim):
+        if mesh.size(i) == 1:
+            continue
+        kind = []
+        for t, labels in ((a, ea), (b, eb)):
+            d = sharded_dim(t.placements[i]) if is_dtensor(t) else None
+            kind.append(None if d is None else labels[d] in eo)
+        for j in (0, 1):
+            if kind[j] is False and kind[1 - j] is True and \
+                    isinstance(out[j], nn.Parameter):
+                out[j] = redistribute(out[j], [
+                    Replicate() if k == i else p
+                    for k, p in enumerate(out[j].placements)])
+    return tuple(out)
 
 
 def lowered_einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
@@ -267,18 +348,22 @@ def einsum32(eq: str, *ops: torch.Tensor) -> torch.Tensor:
         if len(ops) != 2:
             raise ValueError(f"einsum {eq!r}: the bf16 route takes two "
                              f"operands, got {len(ops)}")
-        return lowered_einsum(eq, *ops)
+        return lowered_einsum(eq, *_gathered(eq, *ops))
     PRODUCTS["f32"] += 1
-    return torch.einsum(eq, *(o.float() for o in ops))
+    if len(ops) == 2:
+        ops = _gathered(eq, *ops)
+    return torch.einsum(eq, *(upcast(o) for o in ops))
 
 
 def matmul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with an f32 result, as `einsum32`."""
     if _bf16_route((a, b)):
         PRODUCTS["bf16"] += 1
-        return lowered_einsum("...k,kn->...n", a, b)
+        return lowered_einsum("...k,kn->...n",
+                              *_gathered("...k,kn->...n", a, b))
     PRODUCTS["f32"] += 1
-    return torch.matmul(a.float(), b.float())
+    a, b = _gathered("...k,kn->...n", a, b)
+    return torch.matmul(upcast(a), upcast(b))
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -287,24 +372,21 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def sum_shards(y, rules=NULL_RULES):
-    """`y`, a product's f32 result, with a Partial sum (a contraction over
-    a sharded dimension: the heads of an output projection, the hidden
-    units of a down projection) reduced in f32 ahead of its caller's cast,
-    where the rules keep the residual stream's sequence whole (decode and
-    `NULL_RULES`): an all-reduce of f32, the form GSPMD gives the
-    reference's f32 dot ahead of its convert. Left alone, DTensor casts
-    each rank's partial sum to bf16 and sums those. Under a
-    sequence-parallel residual (training, prefill) the reduction is a
-    reduce-scatter where the sum meets the residual, and stays so (ROADMAP
-    Queue 3). The identity on a plain tensor and on mesh dimensions of one
-    device."""
+    """`y`, a (B, S, D) product's f32 result, with a Partial sum (a
+    contraction over a sharded dimension: the heads of an output
+    projection, the hidden units of a down projection) reduced in f32
+    ahead of its caller's cast, as GSPMD reduces the reference's f32 dot
+    ahead of its convert. Where the rules keep the residual stream's
+    sequence whole (decode and `NULL_RULES`) that is an all-reduce of f32;
+    under a sequence-parallel residual (training, prefill) a
+    reduce-scatter of f32 straight onto the residual's layout
+    (`rules.resid`, `partial_to_spec`), whose backward gathers the f32
+    cotangent. Left alone, DTensor casts each rank's partial sum to bf16
+    and sums those. The identity on a plain tensor and on mesh dimensions
+    of one device."""
+    dims = partial_dims(y)
     if rules.seq_parallel:
-        return y
-    from torch.distributed.tensor import DTensor, Partial
-    if not isinstance(y, DTensor):
-        return y
-    dims = [i for i, p in enumerate(y.placements)
-            if isinstance(p, Partial) and y.device_mesh.size(i) > 1]
+        return partial_to_spec(y, dims, rules.resid)
     return partial_to_replicate(y, dims)
 
 
@@ -350,7 +432,12 @@ def matmul16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (..., K) @ b (K, N) with a result in the operands' dtype: the
     reference's plain `x @ w` (a bf16 dot there accumulates in f32). On a
     card its GEMMs, backward included, run under `f32_reduction`; on the
-    CPU (which reduces bf16 in f32) it is `a @ b`."""
+    CPU (which reduces bf16 in f32) it is `a @ b`. On a mesh of more than
+    one device an FSDP weight is gathered first (`_gathered`): DTensor
+    would sum the bf16 products of its contraction shards, where GSPMD
+    gathers the weight and the reference's dot accumulates in f32."""
+    if spans_devices(a) or spans_devices(b):
+        a, b = _gathered("...k,kn->...n", a, b)
     if a.device.type != "cuda":
         return a @ b
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
@@ -442,10 +529,10 @@ class RMSNorm(nn.Module):
 
 
 def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
-    xf = x.float()
+    xf = upcast(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + _f32(eps, x.device))
-    return (y * scale.float()).to(x.dtype)
+    return (y * upcast(scale)).to(x.dtype)
 
 
 # --------------------------------------------------------------------------

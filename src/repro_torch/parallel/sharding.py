@@ -325,13 +325,94 @@ def partial_to_replicate(x, dims: Sequence[int]):
     (an all-reduce of its local shape over each), `x` itself where `dims`
     is empty; raises unless `x` is Partial on every one of them, so that a
     sharding DTensor chose otherwise (a gather) cannot pass unnoticed."""
-    from torch.distributed.tensor import Partial, Replicate
+    return partial_to_spec(x, dims, ())
+
+
+def is_dtensor(t) -> bool:
+    """Whether `t` is a DTensor, without importing `torch.distributed`
+    (no DTensor can exist before it is imported)."""
+    dt = sys.modules.get("torch.distributed.tensor")
+    return dt is not None and isinstance(t, dt.DTensor)
+
+
+def spans_devices(t) -> bool:
+    """Whether `t` is a DTensor on a mesh of more than one device."""
+    return is_dtensor(t) and t.device_mesh.size() > 1
+
+
+def partial_dims(x) -> Tuple[int, ...]:
+    """The mesh dimensions of more than one device on which `x` holds a
+    Partial sum; () for a plain tensor."""
+    if not is_dtensor(x):
+        return ()
+    from torch.distributed.tensor import Partial
+    return tuple(i for i, p in enumerate(x.placements)
+                 if isinstance(p, Partial) and x.device_mesh.size(i) > 1)
+
+
+def cast_reduced(x, target, dtype):
+    """`x` (a DTensor gradient) cast to `dtype`, its Partial sums
+    (`partial_dims`) first reduced in `x`'s own dtype onto the placements
+    `target` (its primal's) holds there, except where `target` is Partial
+    too: a reduce-scatter where `target` shards a dimension no other mesh
+    dimension shards; elsewhere (a replicated target, a strided shard,
+    which DTensor reaches from a Partial by an all-reduce and whose views
+    it refuses, or a dimension sharded twice) a reduce-scatter over the
+    largest dimension that mesh dimension divides and no other shards and,
+    after the cast, an all-gather in `dtype` to a replicated gradient
+    (from f32 to bf16, 3/4 of an f32 all-reduce's bytes: the
+    reduce-scatter and all-gather GSPMD splits an all-reduce into)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    dims = [i for i in partial_dims(x)
+            if not isinstance(target[i], Partial)]
+    if not dims:
+        return x.to(dtype)
+    mesh = x.device_mesh
+    scatter, final = list(x.placements), list(x.placements)
+    for i in dims:
+        # DTensor scatters a Partial onto a dimension no other mesh
+        # dimension shards
+        t = target[i]
+        if type(t).__name__ == "Shard" and \
+                _prod_dims(mesh, scatter, t.dim) == 1:
+            scatter[i] = final[i] = t
+            continue
+        fits = [d for d, n in enumerate(x.shape)
+                if _prod_dims(mesh, scatter, d) == 1
+                and n % mesh.size(i) == 0]
+        scatter[i] = (Shard(max(fits, key=lambda d: x.shape[d])) if fits
+                      else Replicate())
+        final[i] = Replicate()
+    return redistribute(redistribute(x, scatter).to(dtype), final)
+
+
+def _prod_dims(mesh, placements, dim: int) -> int:
+    """How many shards mesh dimensions with `placements` split tensor
+    dimension `dim` into."""
+    n = 1
+    for j, p in enumerate(placements):
+        if sharded_dim(p) == dim:
+            n *= mesh.size(j)
+    return n
+
+
+def partial_to_spec(x, dims: Sequence[int], spec: Spec):
+    """`partial_to_replicate` onto a sharded target: `x` with its Partial
+    placements on mesh dimensions `dims` reduced straight onto `spec`'s
+    placements there — a reduce-scatter in `x`'s dtype where `spec` shards
+    a dimension over that mesh dimension, an all-reduce where it
+    replicates — the other mesh dimensions left as they are. The spec is
+    sanitized against `x`'s shape as `shard()` sanitizes it."""
+    from torch.distributed.tensor import Partial
     if not dims:
         return x
     if not all(isinstance(x.placements[i], Partial) for i in dims):
         raise RuntimeError(f"expected a Partial result over mesh dimensions "
                            f"{tuple(dims)}, got {tuple(x.placements)}")
-    return redistribute(x, [Replicate() if i in dims else p
+    if _ACTIVE_AXIS_SIZES:
+        spec = sanitize_spec(x.shape, spec, _ACTIVE_AXIS_SIZES)
+    target = placements(spec, x.device_mesh)
+    return redistribute(x, [target[i] if i in dims else p
                             for i, p in enumerate(x.placements)])
 
 
@@ -480,6 +561,32 @@ class GatherFallback(TorchDispatchMode):
         return out
 
 
+class PartialCasts(TorchDispatchMode):
+    """A dispatch mode that counts (`count`, by op in `ops`) the casts of
+    an f32 DTensor holding a Partial sum over a mesh dimension of more than
+    one device to a narrower float type: each rank would round its partial
+    sum before the sum, where GSPMD reduces the reference's f32 dot ahead
+    of its convert (`models.layers.sum_shards`)."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+        self.ops = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        import torch
+        kwargs = kwargs or {}
+        x = args[0] if args else None
+        if (func is torch.ops.aten._to_copy.default
+                and kwargs.get("dtype") in (torch.bfloat16, torch.float16)
+                and getattr(x, "dtype", None) == torch.float32
+                and partial_dims(x)):
+            self.count += 1
+            key = f"{tuple(x.shape)} {tuple(x.placements)}"
+            self.ops[key] = self.ops.get(key, 0) + 1
+        return func(*args, **kwargs)
+
+
 def product_strategies(batched: bool, a, b, out_dtype=None) -> list:
     """One mesh dimension's sharding strategies of `aten.mm` (`batched`
     False: (M, K) x (K, N)) or `aten.bmm` ((B, M, K) x (B, K, N)) on
@@ -533,12 +640,11 @@ def register_product_strategies() -> None:
 
 def _has_dtensor(trees) -> bool:
     # no DTensor can exist before torch.distributed.tensor is imported
-    dt = sys.modules.get("torch.distributed.tensor")
-    if dt is None:
+    if sys.modules.get("torch.distributed.tensor") is None:
         return False
     import torch
     from torch.utils._pytree import tree_leaves
-    return any(isinstance(t, dt.DTensor) for tree in trees
+    return any(is_dtensor(t) for tree in trees
                for t in (tree.parameters() if isinstance(tree, torch.nn.Module)
                          else tree_leaves(tree)))
 

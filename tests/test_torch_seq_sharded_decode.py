@@ -281,14 +281,21 @@ def test_key_split_only_where_the_keys_span_devices(mesh):
 
 
 def test_sum_shards_reduces_in_f32_before_the_cast(mesh):
-    """A product's Partial f32 sum is reduced in f32 where the residual
-    stream is not sequence-sharded (decode), left to DTensor where it is."""
+    """A product's Partial f32 sum is reduced in f32: all-reduced where the
+    residual stream is not sequence-sharded (decode), reduce-scattered
+    onto the residual's sequence shards where it is (training)."""
     from torch.distributed.tensor import Partial
     y = _meta(mesh, (B, 1, 64), [Shard(0), Partial()], torch.float32)
     with CollectiveCounter() as cc:
         out = layers.sum_shards(y, shd.DECODE_RULES)
     assert tuple(out.placements) == (Shard(0), Replicate())
     assert collective_bytes(cc.events)["all-reduce"] == B * 64 * 4
-    assert layers.sum_shards(y, shd.TRAIN_RULES) is y
+    y = _meta(mesh, (B, S, 64), [Shard(0), Partial()], torch.float32)
+    with CollectiveCounter() as cc:
+        out = layers.sum_shards(y, shd.for_mesh(shd.TRAIN_RULES, mesh))
+    assert tuple(out.placements) == (Shard(0), Shard(1))
+    assert out.dtype == torch.float32
+    assert collective_bytes(cc.events) == {
+        "reduce-scatter": B * S // 4 * 64 * 4, "total": B * S // 4 * 64 * 4}
     plain = torch.ones(2, 3)
     assert layers.sum_shards(plain) is plain

@@ -2,17 +2,19 @@
 """Two dry-run sweeps side by side, cell by cell: collective bytes a card by
 kind, GEMM FLOPs, bottleneck and gathered ops.
 
-    python3 tools/dryrun_diff.py BASE.json NEW.json [--check]
+    python3 tools/dryrun_diff.py BASE.json NEW.json [--check] \
+        [--may-move KIND,...]
 
 BASE and NEW are `python -m repro_torch.launch.dryrun --out` files (or
 `tools/dryrun_modes.py`'s `bf16.json` / `exec_safe.json`). For every cell
-traced in both it prints the all-gather, all-reduce and total bytes a card
-(GB) before and after, the total's relative change, whether the GEMM FLOPs
-are equal, and the bottleneck before and after; then the cell counts by
-status in each file. With `--check` it fails if a cell's status differs,
+traced in both it prints the all-gather, all-reduce, reduce-scatter and
+total bytes a card (GB) before and after, the total's relative change,
+whether the GEMM FLOPs are equal, and the bottleneck before and after;
+then the cell counts by status in each file. With `--check` it fails if a cell's status differs,
 if GEMM FLOPs differ in any cell, if a decode cell's (decode_32k,
 long_500k) all-gather bytes rose, or if a train or prefill cell's
-collective bytes of any kind moved by more than 0.1 %.
+collective bytes of any kind moved by more than 0.1 %, apart from the
+kinds `--may-move` names (a change to how train and prefill cells reduce).
 """
 import argparse
 import json
@@ -36,12 +38,17 @@ def main(argv=None) -> int:
     ap.add_argument("base")
     ap.add_argument("new")
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--may-move", default="",
+                    help="comma-separated collective kinds a train or "
+                         "prefill cell may move by more than 0.1 %%")
     args = ap.parse_args(argv)
+    may_move = set(filter(None, args.may_move.split(",")))
     base = {key(c): c for c in json.load(open(args.base))}
     new = {key(c): c for c in json.load(open(args.new))}
     faults = []
-    print("arch shape mesh | all-gather GB | all-reduce GB | total GB "
-          "(change) | GEMM FLOPs | bottleneck | gathered ops")
+    print("arch shape mesh | all-gather GB | all-reduce GB | "
+          "reduce-scatter GB | total GB (change) | GEMM FLOPs | bottleneck "
+          "| gathered ops")
     for k in sorted(base.keys() & new.keys()):
         b, n = base[k], new[k]
         if b["status"] != n["status"]:
@@ -53,7 +60,8 @@ def main(argv=None) -> int:
         same_gemm = b["gemm_flops"] == n["gemm_flops"]
         print(f"{' '.join(k)} | {gb(b, 'all-gather'):.6g} -> "
               f"{gb(n, 'all-gather'):.6g} | {gb(b, 'all-reduce'):.6g} -> "
-              f"{gb(n, 'all-reduce'):.6g} | {tb:.6g} -> {tn:.6g} "
+              f"{gb(n, 'all-reduce'):.6g} | {gb(b, 'reduce-scatter'):.6g} "
+              f"-> {gb(n, 'reduce-scatter'):.6g} | {tb:.6g} -> {tn:.6g} "
               f"({change:+.3%}) | {'equal' if same_gemm else 'DIFFER'} | "
               f"{b['roofline']['bottleneck']} -> "
               f"{n['roofline']['bottleneck']} | "
@@ -66,7 +74,8 @@ def main(argv=None) -> int:
             if gb(n, "all-gather") > gb(b, "all-gather"):
                 faults.append(f"{k}: all-gather rose")
         else:
-            for kind in set(b["collectives"]) | set(n["collectives"]):
+            for kind in (set(b["collectives"]) | set(n["collectives"])) \
+                    - may_move - {"total"}:
                 x, y = gb(b, kind), gb(n, kind)
                 if abs(y - x) > TOLERANCE * max(x, y):
                     faults.append(f"{k}: {kind} {x:.6g} -> {y:.6g} GB")
