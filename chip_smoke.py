@@ -196,13 +196,18 @@ From the root of a checkout, with one CUDA card visible. It
      (GSPMD_DECODE_BYTES), all-reduces alone, the same at both lengths,
      nothing gathered; (e) sequence-parallel row-parallel products
      (`seq_parallel_products`) on the same fake group, meta shards: the
-     attention and MLP blocks of reduced gemma3-4b (SEQ_PARALLEL_SHAPES)
-     under PREFILL_RULES on (1, 4) (the forward) and TRAIN_RULES on (2, 2)
-     (forward and backward), in both product modes, their reductions by
-     kind, dtype and bytes printed: every reduction in f32, no f32 Partial
-     sum cast to bf16 (`PartialCasts`), the ops `GatherFallback` gathered
-     printed (torch 2.11 refuses the bf16 lowering's flatten of a
-     sequence-sharded operand); and (a) runs
+     attention and MLP blocks of reduced gemma3-4b (SEQ_PARALLEL_SHAPES),
+     and the attention block of reduced qwen2.5-3b, whose one KV head puts
+     "model" on K/V's head_dim, in both GQA modes
+     (SEQ_PARALLEL_KV_ON_HEAD_DIM), under PREFILL_RULES on (1, 4) (the
+     forward) and TRAIN_RULES on (2, 2) (forward and backward), in both
+     product modes, their reductions and gathers by kind, dtype and bytes
+     printed: every reduction in f32, no f32 Partial sum cast to bf16
+     (`PartialCasts`), qwen2.5-3b's prefill reducing no more than the
+     residual's reduce-scatter and its train step no more than GSPMD's
+     reference (GSPMD_QWEN_TRAIN_REDUCTION_BYTES: no f32 scores reduced),
+     the ops `GatherFallback` gathered printed (torch 2.11 refuses the bf16
+     lowering's flatten of a sequence-sharded operand); and (a) runs
      qwen2.5-3b decode_32k single too, its all-gather bytes a card printed
      before the phase's wall time and held to QWEN_DECODE_ALL_GATHER_MAX;
      no hand-written kernel may launch;
@@ -2463,6 +2468,13 @@ GSPMD_DECODE_BYTES = {"attend": {"all-reduce": 66560},
 # reduced arch, batch and sequence, and the mesh of each rule set.
 SEQ_PARALLEL_SHAPES = ("gemma3-4b", 4, 256)
 SEQ_PARALLEL_MESHES = {"prefill": (1, 4), "train": (2, 2)}
+# The attention block of reduced qwen2.5-3b too (one KV head: "model"
+# moves onto K/V's head_dim), in both GQA modes, and the reduction bytes
+# GSPMD gives the reference's in a train step on (2, 2) (that test's
+# reference subprocess, XLA on four CPU devices: f32 all-reduces, the same
+# in both GQA modes and both product modes).
+SEQ_PARALLEL_KV_ON_HEAD_DIM = "qwen2.5-3b"
+GSPMD_QWEN_TRAIN_REDUCTION_BYTES = 1065600
 
 
 def _gib(n: float) -> str:
@@ -2824,9 +2836,11 @@ def seq_parallel_products(dev, hw, run):
     from repro_torch.parallel.specs import distribute
 
     arch, b, s = SEQ_PARALLEL_SHAPES
-    cfg = reduced(get_config(arch))
+    qwen = SEQ_PARALLEL_KV_ON_HEAD_DIM
+    cfgs = {a: reduced(get_config(a)) for a in (arch, qwen)}
 
-    def block(name, kind, safe):
+    def block(name, kind, safe, arch=arch, gqa="grouped"):
+        cfg = cfgs[arch]
         mesh = DeviceMesh(dev.type, torch.arange(4).reshape(
             SEQ_PARALLEL_MESHES[kind]), mesh_dim_names=("data", "model"))
         rules = shd.for_mesh(shd.TRAIN_RULES if kind == "train"
@@ -2834,6 +2848,7 @@ def seq_parallel_products(dev, hw, run):
         shd.set_active_axis_sizes(dict(zip(("data", "model"),
                                            SEQ_PARALLEL_MESHES[kind])))
         layers.set_exec_safe(safe)
+        layers.set_gqa_mode(gqa)
         train = kind == "train"
         if name == "attention":
             mod = layers.Attention(cfg, "meta")
@@ -2869,28 +2884,46 @@ def seq_parallel_products(dev, hw, run):
         init_fake_world(4)
         try:
             shd.register_product_strategies()
-            return {(name, kind, mode): block(name, kind, mode == "exec-safe")
-                    for name in ("attention", "mlp")
-                    for kind in SEQ_PARALLEL_MESHES
-                    for mode in ("bf16", "exec-safe")}
+            runs = {(arch, name, kind, mode, "grouped"): block(
+                name, kind, mode == "exec-safe")
+                for name in ("attention", "mlp")
+                for kind in SEQ_PARALLEL_MESHES
+                for mode in ("bf16", "exec-safe")}
+            runs.update({(qwen, "attention", kind, mode, gqa): block(
+                "attention", kind, mode == "exec-safe", qwen, gqa)
+                for kind in SEQ_PARALLEL_MESHES
+                for mode in ("bf16", "exec-safe")
+                for gqa in ("grouped", "repeat_kv")})
+            return runs
         finally:
             layers.set_exec_safe(False)
+            layers.set_gqa_mode("grouped")
             shd.set_active_axis_sizes(None)
             destroy_fake_world()
 
     got, wall = run("sequence-parallel blocks, fake group of 4", trial)
     reductions = ("all-reduce", "reduce-scatter")
-    for (name, kind, mode), (typed, casts, gathered) in got.items():
+    # the prefill forward's row-parallel sum onto the residual: (B, S, D)
+    # f32 over the sequence's four shards
+    resid = b * s // 4 * cfgs[qwen].d_model * 4
+    for (a, name, kind, mode, gqa), (typed, casts, gathered) in got.items():
         red = {k: int(v) for k, v in typed.items()
                if k.split()[0] in reductions}
-        print(f"sequence-parallel {name} {kind} {mode} ({hw}, torch "
+        label = f"{a} {name} {kind} {mode} {gqa}"
+        print(f"sequence-parallel {label} ({hw}, torch "
               f"{torch.__version__}): reductions {red or 'none'}; all "
               f"collectives {dict((k, int(v)) for k, v in typed.items())}; "
               f"f32 Partial sums cast to bf16 {casts}; gathered "
               f"{gathered}")
         _check(all(k.split()[1] == "f32" for k in red) and casts == 0,
-               f"sequence-parallel {name} {kind} {mode}: reductions {red}, "
+               f"sequence-parallel {label}: reductions {red}, "
                f"{casts} f32 Partial sums cast to bf16")
+        if a == qwen:
+            limit = (resid if kind == "prefill"
+                     else GSPMD_QWEN_TRAIN_REDUCTION_BYTES)
+            _check(sum(red.values()) <= limit,
+                   f"sequence-parallel {label}: {sum(red.values())} B "
+                   f"reduced, above {limit} B (the f32 scores reduced?)")
     print(f"sequence-parallel blocks: {wall:.1f} s ({hw})")
 
 

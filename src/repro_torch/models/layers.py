@@ -68,8 +68,8 @@ from torch import nn
 from ..parallel.sharding import (NULL_RULES, cast_reduced, is_dtensor,
                                  move_shards, partial_dims,
                                  partial_to_replicate, partial_to_spec,
-                                 redistribute, shard, sharded_dim,
-                                 spans_devices, unshard)
+                                 redistribute, shard, shard_count,
+                                 sharded_dim, spans_devices, unshard)
 
 DTYPE = torch.bfloat16
 NEG_INF = -1e30
@@ -607,12 +607,17 @@ def set_gqa_mode(mode: str) -> None:
 def gqa_attend(q, k, v, mask, softcap: float = 0.0):
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); mask: (B, Sq, Skv) bool.
     By `GQA_MODE`: grouped evaluation on the (B, S, Hkv, G, D) view, or K/V
-    repeated to Hq heads (`jnp.repeat` on the head axis). On DTensors whose
-    keys' sequence is sharded, either the keys stay split (`key_split`: a
-    decode step's query against the sequence-sharded cache, the form GSPMD
-    gives the reference's) or their sequence is gathered first (a
-    sequence-sharded K/V would otherwise make the softmax gather the
-    scores, S_q times larger)."""
+    repeated to Hq heads (`jnp.repeat` on the head axis). On DTensors,
+    either the keys stay split (`key_split`: a decode step's query against
+    the sequence-sharded cache, the form GSPMD gives the reference's) or
+    K/V are gathered over their sequence and their head_dim first, as
+    GSPMD gathers them for the reference's prefill and training: a
+    sequence-sharded K/V would make the softmax gather the scores, S_q
+    times larger, and a head_dim-sharded one (where "model" moved off too
+    few KV heads onto head_dim) the score product reduce the f32 scores as
+    a Partial sum. There q's own head_dim sharding moves onto the query
+    sequence (`_onto_queries`) and the output's gradient comes back in the
+    output's layout (`held`)."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     split = key_split(q, k, 4 * b * sq * hq * d,
@@ -623,7 +628,8 @@ def gqa_attend(q, k, v, mask, softcap: float = 0.0):
             raise RuntimeError(f"K and V are laid out differently: "
                                f"{k.placements} and {v.placements}")
     else:
-        k, v = unshard(k, (1,)), unshard(v, (1,))
+        k, v = unshard(k, (1, 3)), unshard(v, (1, 3))
+        q = _onto_queries(q, 3)
     g = hq // hkv
     if GQA_MODE == "repeat_kv" and g > 1:
         k = torch.repeat_interleave(k, g, dim=2)
@@ -643,14 +649,15 @@ def gqa_attend(q, k, v, mask, softcap: float = 0.0):
     if g == 1:
         probs = probs_of(einsum32("bqhd,bkhd->bhqk", q, k) * scale,
                          mask[:, None, :, :])
-        return partial_to_replicate(einsum32("bhqk,bkhd->bqhd", probs, v),
-                                    split).to(v.dtype)
+        out = partial_to_replicate(einsum32("bhqk,bkhd->bqhd", probs, v),
+                                   split)
+        return held(out.to(v.dtype))
     qg = _split_heads(q, hkv, g)
     probs = probs_of(einsum32("bqhgd,bkhd->bhgqk", qg, k) * scale,
                      mask[:, None, None, :, :])
     out = partial_to_replicate(einsum32("bhgqk,bkhd->bqhgd", probs, v),
                                split)
-    return out.reshape(b, sq, hq, d).to(v.dtype)
+    return held(out.reshape(b, sq, hq, d).to(v.dtype))
 
 
 # --------------------------------------------------------------------------
@@ -666,7 +673,8 @@ def key_split(q, k, out_bytes: int, kv_bytes: int):
     the other gathers. That is a decode step's query against the
     sequence-sharded cache (and its cross-attention against the encoder's
     memory); prefill and training, whose query is as long as the keys,
-    gather, as GSPMD does with the reference's."""
+    gather K/V whole (their sequence and their head_dim), as GSPMD does
+    with the reference's."""
     from ..parallel.sharding import split_dims
     dims = split_dims(k, 1)
     if not dims or split_dims(q, 1) or out_bytes >= kv_bytes:
@@ -729,21 +737,57 @@ def attention_specs(rules):
             "bv": rules.replicated}
 
 
+class _Held(torch.autograd.Function):
+    """The identity, its gradient redistributed onto the forward's
+    placements (`held`)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.placements = t.placements
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not is_dtensor(g) or partial_dims(g):
+            return g
+        return redistribute(g, ctx.placements)
+
+
+def held(t):
+    """`t`, whose gradient comes back in `t`'s own placements: the
+    identity on a plain tensor, on a mesh of one device and without a
+    gradient. The attention's output is held so: DTensor lays out the
+    output projection's input gradient as its `mm` strategies fall (over
+    the heads, for a replicated cotangent), and where `_split_heads` moved
+    q's heads onto the query sequence the softmax's backward then gathers
+    the f32 cotangent of the probabilities, (B, Hkv, G, Sq, Skv) whole."""
+    if not (spans_devices(t) and t.requires_grad and torch.is_grad_enabled()):
+        return t
+    return _Held.apply(t)
+
+
+def _onto_queries(q, dim: int):
+    """(B, Sq, ...) `q` with the mesh dimensions that shard its dimension
+    `dim` sharding the query sequence instead where they divide it (an
+    all-to-all; the scores then stay split along the queries), else
+    gathered: the identity where `dim` is whole."""
+    if not spans_devices(q):
+        return q
+    n = shard_count(q.device_mesh, q.placements, dim)
+    if n == 1:
+        return q
+    return move_shards(q, dim, 1) if q.shape[1] % n == 0 \
+        else unshard(q, (dim,))
+
+
 def _split_heads(q, hkv: int, g: int):
     """(B, S, Hkv G, D) -> (B, S, Hkv, G, D). DTensor can split a sharded
     dimension only along its leading factor: a head axis sharded over more
     devices than Hkv divides into moves its sharding to the query sequence
     (then the scores stay split), or, when that does not divide either (a
     decode step), is gathered."""
-    from torch.distributed.tensor import DTensor
-    if isinstance(q, DTensor):
-        k = 1
-        for n, p in zip(q.device_mesh.mesh.shape, q.placements):
-            if p.is_shard(2):
-                k *= n
-        if hkv % k:
-            q = move_shards(q, 2, 1) if q.shape[1] % k == 0 \
-                else unshard(q, (2,))
+    if spans_devices(q) and hkv % shard_count(q.device_mesh, q.placements, 2):
+        q = _onto_queries(q, 2)
     b, sq, _, d = q.shape
     return q.reshape(b, sq, hkv, g, d)
 

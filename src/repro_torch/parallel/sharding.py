@@ -374,11 +374,11 @@ def cast_reduced(x, target, dtype):
         # dimension shards
         t = target[i]
         if type(t).__name__ == "Shard" and \
-                _prod_dims(mesh, scatter, t.dim) == 1:
+                shard_count(mesh, scatter, t.dim) == 1:
             scatter[i] = final[i] = t
             continue
         fits = [d for d, n in enumerate(x.shape)
-                if _prod_dims(mesh, scatter, d) == 1
+                if shard_count(mesh, scatter, d) == 1
                 and n % mesh.size(i) == 0]
         scatter[i] = (Shard(max(fits, key=lambda d: x.shape[d])) if fits
                       else Replicate())
@@ -386,7 +386,7 @@ def cast_reduced(x, target, dtype):
     return redistribute(redistribute(x, scatter).to(dtype), final)
 
 
-def _prod_dims(mesh, placements, dim: int) -> int:
+def shard_count(mesh, placements, dim: int) -> int:
     """How many shards mesh dimensions with `placements` split tensor
     dimension `dim` into."""
     n = 1
