@@ -194,7 +194,9 @@ From the root of a checkout, with one CUDA card visible. It
      with the cache sharded along its sequence, at S and 2S: the
      collective bytes GSPMD gives the reference's for the same shapes
      (GSPMD_DECODE_BYTES), all-reduces alone, the same at both lengths,
-     nothing gathered; (e) sequence-parallel row-parallel products
+     nothing gathered and no view that flattens a sharded dimension that
+     does not lead its group (`parallel.sharding.StridedViews`, printed);
+     (e) sequence-parallel row-parallel products
      (`seq_parallel_products`) on the same fake group, meta shards: the
      attention and MLP blocks of reduced gemma3-4b (SEQ_PARALLEL_SHAPES),
      and the attention block of reduced qwen2.5-3b, whose one KV head puts
@@ -206,8 +208,10 @@ From the root of a checkout, with one CUDA card visible. It
      (`PartialCasts`), qwen2.5-3b's prefill reducing no more than the
      residual's reduce-scatter and its train step no more than GSPMD's
      reference (GSPMD_QWEN_TRAIN_REDUCTION_BYTES: no f32 scores reduced),
-     the ops `GatherFallback` gathered printed (torch 2.11 refuses the bf16
-     lowering's flatten of a sequence-sharded operand); and (a) runs
+     the ops `GatherFallback` gathered and the strided views printed, no
+     view among the gathered ops and no strided view (the lowering plans
+     its flattens on the operands' layout: grouped mode's (G, S) with S
+     sharded among them); and (a) runs
      qwen2.5-3b decode_32k single too, its all-gather bytes a card printed
      before the phase's wall time and held to QWEN_DECODE_ALL_GATHER_MAX;
      no hand-written kernel may launch;
@@ -2195,7 +2199,7 @@ def precision_phase(dev, hw, drive, counters, train):
         return out, wall
 
     def count_products():
-        layers.PRODUCTS.update(bf16=0, f32=0)
+        layers.PRODUCTS.update(bf16=0, f32=0, f32_lowered=0)
 
     t_phase = time.perf_counter()
     cfg = get_config("qwen2.5-3b")
@@ -2246,7 +2250,8 @@ def precision_phase(dev, hw, drive, counters, train):
                                  f"product")
             del a, b, got, want, abs_sum, bound, diff
         n_checked = len(eqs) + 1
-        _check(layers.PRODUCTS == {"bf16": n_checked, "f32": 0},
+        _check(layers.PRODUCTS == {"bf16": n_checked, "f32": 0,
+                                   "f32_lowered": 0},
                f"phase 6d products: routes {layers.PRODUCTS}, not "
                f"{n_checked} bf16")
         print(f"phase 6d products: {n_checked} checked within the bound "
@@ -2483,6 +2488,10 @@ def _gib(n: float) -> str:
 
 # The bf16 route's products as `parallel.sharding.GATHERED` names them.
 PRODUCT_OPS = ("aten.mm.dtype", "aten.bmm.dtype")
+# The views, as `GATHERED` names them, that phases 8(d) and 8(e) must not
+# retry on gathered operands (`parallel.sharding.StridedViews`).
+VIEW_OPS = ("aten.view.default", "aten._unsafe_view.default",
+            "aten.reshape.default")
 # GEMM FLOPs of phase 6c's qwen2.5-3b step (seq 4096, batch 1, remat), as
 # the exec-safe step counts them; bf16 mode runs the same products.
 QWEN_STEP_GEMM_FLOPS = 111_705_656_918_016
@@ -2528,7 +2537,7 @@ def one_card_rules(dev, hw, run, cfg):
                                      dtype=torch.int32)
                 same, n_dt = {}, {}
                 shd.GATHERED.clear()
-                layers.PRODUCTS.update(bf16=0, f32=0)
+                layers.PRODUCTS.update(bf16=0, f32=0, f32_lowered=0)
                 with torch.no_grad():
                     want, cache = models.prefill(plain, cfg,
                                                  {"tokens": toks})
@@ -2678,7 +2687,7 @@ def bf16_on_dtensor(dev, hw, run, cfg, tmp):
 
     def trial():
         shd.GATHERED.clear()
-        layers.PRODUCTS.update(bf16=0, f32=0)
+        layers.PRODUCTS.update(bf16=0, f32=0, f32_lowered=0)
         out = {"bare": bare()}
         want = train_once(shd.NULL_RULES)
         out["train"] = same(want, train_once(
@@ -2751,11 +2760,14 @@ def seq_sharded_decode(dev, hw, run):
 
     def counted(fn, *args):
         shd.GATHERED.clear()
-        with shd.GatherFallback(), CollectiveCounter() as cc:
+        # the strided-view counter above the collective counter, which
+        # hides DTensor ops from the modes below it
+        with shd.GatherFallback(), CollectiveCounter() as cc, \
+                shd.StridedViews() as views:
             fn(*args)
         got = {k: v for k, v in collective_bytes(cc.events).items()
                if k != "total" and v}
-        return got, dict(shd.GATHERED)
+        return got, dict(shd.GATHERED), views.sites
 
     def cases(mesh, s):
         out = {}
@@ -2809,14 +2821,17 @@ def seq_sharded_decode(dev, hw, run):
     print(f"sequence-sharded decode ({hw}, torch {torch.__version__}): "
           f"DTensor's own reductions over the sharded axis: {own}; "
           f"collective bytes a rank at S = {s0} / {2 * s0}: "
-          + "; ".join(f"{k} {got[s0][k][0]} / {got[2 * s0][k][0]}"
-                      for k in got[s0]) + f"; {wall:.1f} s")
+          + "; ".join(f"{k} {got[s0][k][0]} / {got[2 * s0][k][0]} "
+                      f"(gathered {got[s0][k][1]}, strided views "
+                      f"{got[s0][k][2]})" for k in got[s0])
+          + f"; {wall:.1f} s")
     for s, cs in got.items():
-        for k, (bytes_, gathered) in cs.items():
+        for k, (bytes_, gathered, strided) in cs.items():
             want = GSPMD_DECODE_BYTES[k.split()[0]]
-            _check(bytes_ == want and not gathered,
+            _check(bytes_ == want and not gathered and not strided,
                    f"sequence-sharded decode, {k} at S = {s}: collectives "
-                   f"{bytes_} (GSPMD: {want}), gathered {gathered}")
+                   f"{bytes_} (GSPMD: {want}), gathered {gathered}, "
+                   f"strided views {strided}")
 
 
 def seq_parallel_products(dev, hw, run):
@@ -2873,12 +2888,12 @@ def seq_parallel_products(dev, hw, run):
         # the gather fallback inside the counter, which hands DTensor ops
         # on past the modes below it
         with CollectiveCounter() as cc, shd.dtensor_run(mod), \
-                shd.PartialCasts() as casts:
+                shd.PartialCasts() as casts, shd.StridedViews() as views:
             out = fn(x)
             if train:
                 out.float().sum().backward()
         return (collective_bytes_by_dtype(cc.typed), casts.count,
-                dict(shd.GATHERED))
+                dict(shd.GATHERED), views.sites)
 
     def trial():
         init_fake_world(4)
@@ -2906,7 +2921,8 @@ def seq_parallel_products(dev, hw, run):
     # the prefill forward's row-parallel sum onto the residual: (B, S, D)
     # f32 over the sequence's four shards
     resid = b * s // 4 * cfgs[qwen].d_model * 4
-    for (a, name, kind, mode, gqa), (typed, casts, gathered) in got.items():
+    for (a, name, kind, mode, gqa), (typed, casts, gathered, strided) \
+            in got.items():
         red = {k: int(v) for k, v in typed.items()
                if k.split()[0] in reductions}
         label = f"{a} {name} {kind} {mode} {gqa}"
@@ -2914,10 +2930,14 @@ def seq_parallel_products(dev, hw, run):
               f"{torch.__version__}): reductions {red or 'none'}; all "
               f"collectives {dict((k, int(v)) for k, v in typed.items())}; "
               f"f32 Partial sums cast to bf16 {casts}; gathered "
-              f"{gathered}")
+              f"{gathered}; strided views {strided}")
         _check(all(k.split()[1] == "f32" for k in red) and casts == 0,
                f"sequence-parallel {label}: reductions {red}, "
                f"{casts} f32 Partial sums cast to bf16")
+        views = {op: n for op, n in gathered.items() if op in VIEW_OPS}
+        _check(not views and not strided,
+               f"sequence-parallel {label}: views gathered {views}, "
+               f"strided views {strided}")
         if a == qwen:
             limit = (resid if kind == "prefill"
                      else GSPMD_QWEN_TRAIN_REDUCTION_BYTES)
@@ -3030,7 +3050,7 @@ def dryrun_phase(dev, hw, drive, counters, train):
             init_fake_world()
             try:
                 mesh = make_host_mesh("cuda")
-                layers.PRODUCTS.update(bf16=0, f32=0)
+                layers.PRODUCTS.update(bf16=0, f32=0, f32_lowered=0)
                 (cell, t_cell) = run(
                     f"dryrun qwen2.5-3b step on the host mesh, {mode}",
                     lambda: dryrun.measure_cell(cfg, shape, mesh))
@@ -3045,7 +3065,7 @@ def dryrun_phase(dev, hw, drive, counters, train):
             state = adamw.init(opt_cfg, dict(model.named_parameters()))
             batch = batch_to(SyntheticTokenSource(cfg, shape,
                                                   seed=0).batch_at(0), dev)
-            layers.PRODUCTS.update(bf16=0, f32=0)
+            layers.PRODUCTS.update(bf16=0, f32=0, f32_lowered=0)
             real[mode] = run(
                 f"counted qwen2.5-3b step on the card, {mode}",
                 lambda: flops(make_train_step(cfg, opt_cfg, remat=True),

@@ -37,7 +37,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from ..parallel.sharding import GatherFallback, resharding
+from ..parallel.sharding import GatherFallback, StridedViews, resharding
 from .collectives import CollectiveCounter, collective_kind
 
 _SCALE: contextvars.ContextVar = contextvars.ContextVar("op_cost_scale",
@@ -138,8 +138,11 @@ class Tracer:
     loops charged once times their trip count. An op DTensor cannot shard
     runs on gathered inputs (`parallel.sharding.GatherFallback`, placed
     under the FLOP counter so the retry's FLOPs are charged once and its
-    gathers counted as collectives; `fallbacks` counts them). The models'
-    entry points open the rest of `parallel.sharding.dtensor_run`."""
+    gathers counted as collectives; `fallbacks` counts them), and a view
+    that flattens a sharded dimension that does not lead its group is
+    counted by site (`parallel.sharding.StridedViews`; `strided_views`).
+    The models' entry points open the rest of
+    `parallel.sharding.dtensor_run`."""
 
     def __enter__(self):
         from ..models.layers import scan_hook
@@ -147,10 +150,12 @@ class Tracer:
         self.flops = FlopCounter()
         self.local = CollectiveCounter()
         self.fallback = GatherFallback()
+        self.views = StridedViews()
         self._stack = contextlib.ExitStack()
         self._stack.enter_context(scan_hook(scaled))
         self._stack.enter_context(self.local)
         self._stack.enter_context(self.fallback)
+        self._stack.enter_context(self.views)
         self._stack.enter_context(self.flops)
         return self
 
@@ -160,6 +165,10 @@ class Tracer:
     @property
     def fallbacks(self):
         return dict(self.fallback.counts)
+
+    @property
+    def strided_views(self):
+        return dict(self.views.sites)
 
 
 def flops(fn, *args) -> FlopCount:

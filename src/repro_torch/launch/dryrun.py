@@ -240,9 +240,6 @@ def mesh_dim_strategy_costs():
         yield False
         return
 
-    def strided(p):
-        return type(p).__name__ == "_StridedShard"
-
     def cost(current, target):
         if current.mesh != target.mesh:
             return float("inf")
@@ -260,9 +257,9 @@ def mesh_dim_strategy_costs():
                 continue
             # a strided shard leaves by a gather, and none is made
             steps = [(c, t)]
-            if strided(c):
+            if shd.is_strided(c):
                 steps = [(Shard(c.dim), Replicate()), (Replicate(), t)]
-            if strided(t):
+            if shd.is_strided(t):
                 return float("inf")
             for a, b in steps:
                 step, gb = cu._compute_placement_transition_cost(
@@ -408,6 +405,8 @@ def trace_step(fn, args) -> Dict:
         rec["count:" + k] = v
     for k, v in tr.fallbacks.items():
         rec["replicated:" + k] = v
+    for k, v in tr.strided_views.items():
+        rec["strided:" + k] = v
     return rec
 
 
@@ -460,6 +459,7 @@ def measure_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, rules=None,
     counts = {k[6:]: v for k, v in rec.items() if k.startswith("count:")}
     fallbacks = {k[11:]: v for k, v in rec.items()
                  if k.startswith("replicated:")}
+    strided = {k[8:]: v for k, v in rec.items() if k.startswith("strided:")}
     hbm = _state_traffic_bytes(cfg, shape, in_global, rec["out_global"])
     rl = Roofline(flops=rec["flops"], hbm_bytes=hbm,
                   collective_bytes_per_chip=coll["total"],
@@ -471,7 +471,7 @@ def measure_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, rules=None,
                        "alias_size_in_bytes": alias},
             "collectives": coll, "collective_counts": counts,
             "roofline": rl.as_dict(), "gemm_flops": rec["gemm_flops"],
-            "replicated_ops": fallbacks,
+            "replicated_ops": fallbacks, "strided_views": strided,
             "strategy_costs": "per mesh dimension" if per_dim else "torch",
             "traced_cuts": rec["cuts"]}
 

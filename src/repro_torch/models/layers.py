@@ -35,7 +35,9 @@ reference's switch `set_exec_safe` picks how a product multiplies:
     equation the lowering cannot take raises. DTensor operands shard as
     `mm` / `bmm` do (`parallel.sharding.register_product_strategies`), so
     a sharded run takes the mode `set_exec_safe` says, as the
-    reference's does. `PRODUCTS` counts the route each call took.
+    reference's does; its flattens are planned on the operands' layout
+    (`_Plan`), and exec-safe products on a mesh take the same lowering
+    with an f32 product. `PRODUCTS` counts the route each call took.
 
 Sharding goes through `rules` (`parallel.sharding.Rules`; `NULL_RULES`, the
 default, makes every `shard()` the identity) at the reference's places;
@@ -65,11 +67,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..parallel.sharding import (NULL_RULES, cast_reduced, is_dtensor,
-                                 move_shards, partial_dims,
-                                 partial_to_replicate, partial_to_spec,
-                                 redistribute, shard, shard_count,
-                                 sharded_dim, spans_devices, unshard)
+from ..parallel.sharding import (NULL_RULES, as_dtensor, cast_reduced,
+                                 is_dtensor, is_strided, move_shards,
+                                 partial_dims, partial_to_replicate,
+                                 partial_to_spec, redistribute, shard,
+                                 shard_count, sharded_dim, spans_devices,
+                                 unshard)
 
 DTYPE = torch.bfloat16
 NEG_INF = -1e30
@@ -78,9 +81,10 @@ NEG_INF = -1e30
 # The product mode (module docstring); the reference's default.
 _EXEC_SAFE = False
 # Products by route since the caller last cleared it: "bf16" (bf16
-# operands into the library product, on a card or on meta) or "f32"
-# (operands in f32).
-PRODUCTS = {"bf16": 0, "f32": 0}
+# operands into the library product, on a card or on meta), "f32"
+# (operands in f32, `torch.einsum` / `torch.matmul`) or "f32_lowered" (f32
+# operands on a mesh of more than one device, through the lowering).
+PRODUCTS = {"bf16": 0, "f32": 0, "f32_lowered": 0}
 
 
 def set_exec_safe(v: bool) -> None:
@@ -123,13 +127,22 @@ class _Plan:
     """A two-operand contraction as one batched product: `a` permuted to
     (batch, left, summed) and `b` to (batch, summed, right) dimensions, each
     group flattened, the (Bt, M, N) product (an (M, N) one without batch
-    dimensions) reshaped and permuted to the output. The groups are the
-    ones `torch.einsum` forms (batch, left and right dimensions in the
-    output's order, summed ones in label order), so that with the same f32
-    product the lowering and its gradient compute what `torch.einsum`'s
-    autograd computes."""
+    dimensions) reshaped and permuted to the output. Without a `layout`
+    (plain tensors, meshes of one device) the groups are the ones
+    `torch.einsum` forms (batch, left and right dimensions in the output's
+    order, summed ones in label order), so that with the same f32 product
+    the lowering and its gradient compute what `torch.einsum`'s autograd
+    computes. With one (`_layout`: DTensors on a mesh of more than one
+    device) the labels an operand shards lead their group, in mesh
+    dimension order, the batch and summed groups in the same order in both
+    operands, so that a group with one sharded label flattens to a plain
+    shard: DTensor gives a flatten of a sharded dimension that does not
+    lead its group a `_StridedShard` (torch 2.13) or refuses it (torch
+    2.11). There the summed group's order, and so the order of the sum,
+    can differ from `torch.einsum`'s. `crowded` says that a group holds
+    two sharded labels, which no flatten keeps plain (`_on_shards`)."""
 
-    def __init__(self, eq: str, shape_a, shape_b):
+    def __init__(self, eq: str, shape_a, shape_b, layout=()):
         if "->" not in eq:
             raise ValueError(f"einsum {eq!r}: the lowering needs an explicit "
                              f"output")
@@ -165,13 +178,24 @@ class _Plan:
                              f"output label in an operand and every label "
                              f"of one operand alone in the output")
         self.labels = ea, eb, eo
-        batch = [c for c in eo if c in ea and c in eb]
-        left = [c for c in eo if c in ea and c not in eb]
-        right = [c for c in eo if c in eb and c not in ea]
-        summed = sorted(c for c in ea if c in eb and c not in eo)
+        lead = []
+        for dims in layout:
+            for labels, d in zip((ea, eb), dims):
+                if d is not None and labels[d] not in lead:
+                    lead.append(labels[d])
+
+        def ordered(group):
+            return [c for c in lead if c in group] + \
+                [c for c in group if c not in lead]
+        batch = ordered([c for c in eo if c in ea and c in eb])
+        left = ordered([c for c in eo if c in ea and c not in eb])
+        right = ordered([c for c in eo if c in eb and c not in ea])
+        summed = ordered(sorted(c for c in ea if c in eb and c not in eo))
+        self.crowded = any(sum(c in lead for c in g) > 1
+                           for g in (batch, left, summed, right))
         perm_a = [ea.index(c) for c in batch + left + summed]
         perm_b = [eb.index(c) for c in batch + summed + right]
-        mid = batch + left + right
+        mid = self.mid = batch + left + right
         self.perm_a, self.perm_b = _moved(perm_a), _moved(perm_b)
         self.perm_out = _moved([mid.index(c) for c in eo])
 
@@ -184,14 +208,22 @@ class _Plan:
         bt = (prod(batch),) if batch else ()
         m, k, n = prod(left), prod(summed), prod(right)
         self.shape_a3, self.shape_b3 = bt + (m, k), bt + (k, n)
+        self.shape_c3 = bt + (m, n)
         self.mid_out = tuple(size[c] for c in mid)
+        self.permuted = (tuple(size[ea[i]] for i in perm_a),
+                         tuple(size[eb[i]] for i in perm_b))
 
     def operands(self, a, b):
         return (_permute(a, self.perm_a).reshape(self.shape_a3),
                 _permute(b, self.perm_b).reshape(self.shape_b3))
 
     def output(self, c3):
-        return _permute(c3.view(self.mid_out), self.perm_out)
+        return _permuted(c3.view(self.mid_out), self.perm_out)
+
+    def operand_grad(self, k, g3):
+        """Operand `k`'s (0: a, 1: b) gradient from its lowered one."""
+        perm = (self.perm_a, self.perm_b)[k]
+        return _permute(g3.reshape(self.permuted[k]), _inverse(perm))
 
 
 def _moved(perm):
@@ -204,9 +236,37 @@ def _permute(t, perm):
     return t if perm is None else t.permute(perm)
 
 
+def _permuted(t, perm):
+    """`t` permuted by `perm`, and on a mesh of more than one device made
+    contiguous: DTensor keeps a permuted result's strides apart from its
+    local shard's, which a later elementwise op may lay out afresh, and a
+    view after that then fails on the shard."""
+    t = _permute(t, perm)
+    return t.contiguous() if perm is not None and spans_devices(t) else t
+
+
+def _inverse(perm):
+    return None if perm is None else tuple(sorted(range(len(perm)),
+                                                  key=perm.__getitem__))
+
+
 @functools.lru_cache(maxsize=None)
-def _plan(eq: str, shape_a, shape_b) -> _Plan:
-    return _Plan(eq, shape_a, shape_b)
+def _plan(eq: str, shape_a, shape_b, layout=()) -> _Plan:
+    return _Plan(eq, shape_a, shape_b, layout)
+
+
+def _layout(a, b):
+    """The layout `_Plan` keys on: for each mesh dimension of more than one
+    device, the dimension of `a` and of `b` sharded there (by a `Shard` or
+    a `_StridedShard`; None where replicated or Partial). () for plain
+    tensors and on meshes of one device, where the plan is `torch.einsum`'s
+    own."""
+    if not (spans_devices(a) or spans_devices(b)):
+        return ()
+    mesh = (a if is_dtensor(a) else b).device_mesh
+    return tuple(tuple(sharded_dim(t.placements[i]) if is_dtensor(t)
+                       else None for t in (a, b))
+                 for i in range(mesh.ndim) if mesh.size(i) > 1)
 
 
 class _Operands(torch.autograd.Function):
@@ -324,14 +384,65 @@ def _gathered(eq: str, a, b):
 
 
 def lowered_einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
-                   product=None) -> torch.Tensor:
+                   product=None, given=None) -> torch.Tensor:
     """`eq` over (a, b) as one batched `product` (the bf16 route's lowering;
     `product` defaults to `bf16_product`); raises ValueError for an
     equation it cannot take (more or fewer than two operands, no explicit
     output, a repeated label, broadcasting, a label summed within one
-    operand)."""
-    plan = _plan(eq, tuple(a.shape), tuple(b.shape))
+    operand). DTensor operands are planned on their layout (`_Plan`), and
+    a group with two sharded labels is multiplied on the local shards
+    (`_on_shards`, whose gradients are reduced onto `given`, the operands'
+    placements before `_gathered`, where the caller passes them)."""
     product = product or bf16_product
+    layout = _layout(a, b)
+    if not layout:
+        return _lowered(_plan(eq, tuple(a.shape), tuple(b.shape)), a, b,
+                        product)
+    ops = a, b
+    a, b = _resolved(eq, a, b, local=False)
+    plan = _plan(eq, tuple(a.shape), tuple(b.shape), _layout(a, b))
+    out = (_on_shards(eq, a, b, product, given) if plan.crowded
+           else _lowered(plan, a, b, product))
+    return _one_device_shards(out, plan.labels, ops)
+
+
+def _one_device_shards(out, labels, ops):
+    """`out` laid out again, on each mesh dimension of one device, as a
+    DTensor product of `ops` would lay it out there: Partial where an
+    operand is Partial or both shard the same summed label, else sharded
+    along an output label an operand shards, else replicated. `_resolved`
+    replicates every operand there, and over one device each of these is
+    the whole (no collective)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    ea, eb, eo = labels
+    mesh, target = out.device_mesh, list(out.placements)
+    for i in range(mesh.ndim):
+        if mesh.size(i) > 1:
+            continue
+        pls = [t.placements[i] if is_dtensor(t) else Replicate()
+               for t in ops]
+        labs = [_label_on(t, ls, i) if is_dtensor(t) else None
+                for t, ls in zip(ops, (ea, eb))]
+        kept = [(c, p) for c, p in zip(labs, pls)
+                if c is not None and c in eo and not is_strided(p)]
+        if any(p.is_partial() for p in pls) or (
+                labs[0] is not None and labs[0] == labs[1]
+                and labs[0] not in eo):
+            target[i] = Partial()
+        elif kept:
+            target[i] = Shard(eo.index(kept[0][0]))
+        else:
+            target[i] = Replicate()
+    if target == list(out.placements):
+        return out
+    # the shard is unchanged; the gradient of a Partial sum is replicated
+    grad = [Replicate() if p.is_partial() else p for p in out.placements]
+    return DTensor.from_local(out.to_local(grad_placements=grad), mesh,
+                              target, run_check=False, shape=out.shape,
+                              stride=out.stride())
+
+
+def _lowered(plan, a, b, product):
     a3, b3 = plan.operands(a, b)
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         link = []
@@ -340,29 +451,270 @@ def lowered_einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
     return plan.output(product(a3, b3))
 
 
+def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The exec-safe route's product of lowered f32 operands: `torch.mm`
+    or `torch.bmm`, what `torch.einsum` decomposes into."""
+    return (torch.mm if a.ndim == 2 else torch.bmm)(a, b)
+
+
+def _label_on(t, labels, i):
+    """The label of `labels` (`t`'s) that `t` shards on mesh dimension
+    `i`, or None."""
+    d = sharded_dim(t.placements[i])
+    return None if d is None else labels[d]
+
+
+def _split_kind(p):
+    return p.split_factor if is_strided(p) else 0
+
+
+def _resolved(eq, a, b, local: bool = True):
+    """(a, b), operands of `eq` on a mesh, replicated on its mesh dimensions
+    of one device (`_one_device_shards` shards the product there again),
+    and without two different labels sharded on one mesh dimension: there
+    the operand that shards a summed label is gathered
+    where the other's label is kept (no Partial sum comes of it: a
+    row-parallel weight beside a sequence-sharded activation, a decode
+    token's hidden units beside a head-dim-sharded weight); where both
+    labels are kept, `a` (the models' activation: a sequence-sharded input
+    of a column-parallel product is gathered over its sequence, as GSPMD
+    gathers the reference's, and the product comes out in the heads',
+    hidden units' or vocabulary's layout the rules name); where both are
+    summed, the one with fewer bytes a device. With `local` (a plain
+    operand taken as replicated) they are further laid out so that their
+    local shards
+    multiply alone: on each mesh dimension of more than one device nothing
+    sharded, one label sharded alike in both (a batch or a summed label),
+    a label of one operand alone (a left or a right label), or one operand
+    Partial beside a replicated one (the product is linear in it; a
+    Partial beside anything else is reduced). Where one shards a label the
+    other holds whole, the other takes the same shard (a local slice, no
+    collective)."""
+    from torch.distributed.tensor import Replicate, Shard
+    ea, eb, eo = _plan(eq, tuple(a.shape), tuple(b.shape)).labels
+    mesh = (a if is_dtensor(a) else b).device_mesh
+    ops, labels = [a, b], (ea, eb)
+    if local:
+        ops = [as_dtensor(t, mesh) for t in ops]
+
+    def place(j, i, p):
+        ops[j] = redistribute(ops[j], [p if k == i else q for k, q in
+                                       enumerate(ops[j].placements)])
+
+    def nbytes(t):
+        return t.to_local().numel() * t.element_size()
+
+    for i in range(mesh.ndim):
+        if mesh.size(i) == 1:
+            # a shard or a Partial over one device is the whole: replicated
+            # (no collective), it makes no strided flatten and no Partial
+            for j, t in enumerate(ops):
+                if is_dtensor(t) and t.placements[i] != Replicate():
+                    place(j, i, Replicate())
+            continue
+        lab = [_label_on(t, labels[j], i) if is_dtensor(t) else None
+               for j, t in enumerate(ops)]
+        if None not in lab and lab[0] != lab[1]:
+            summed = [c not in eo for c in lab]
+            j = (summed.index(True) if sum(summed) == 1 else 0
+                 if not any(summed) else
+                 min((0, 1), key=lambda j: nbytes(ops[j])))
+            place(j, i, Replicate())
+            lab[j] = None
+        if not local:
+            continue
+        partial = [t.placements[i].is_partial() for t in ops]
+        for j in (0, 1):
+            if partial[j] and (lab[1 - j] is not None or partial[1 - j]):
+                place(j, i, Replicate())
+                partial[j] = False
+        if lab[0] == lab[1] and lab[0] is not None and _split_kind(
+                ops[0].placements[i]) != _split_kind(ops[1].placements[i]):
+            for j in (0, 1):
+                place(j, i, Replicate())
+                lab[j] = None
+        for j in (0, 1):
+            o = 1 - j
+            if lab[j] is None or lab[o] is not None or \
+                    lab[j] not in labels[o]:
+                continue
+            if is_strided(ops[j].placements[i]):
+                place(j, i, Replicate())    # no slice makes a strided one
+                lab[j] = None
+            else:
+                place(o, i, Shard(labels[o].index(lab[j])))
+    return ops
+
+
+def _on_shards(eq, a, b, product, given=None):
+    """`eq` over (a, b) where a group of the plan holds two sharded labels
+    (`_Plan.crowded`: the batch and sequence of an activation sharded over
+    two mesh dimensions, say), which no flatten keeps plain: the operands
+    laid out by `_resolved`, then the product of their local shards
+    (`_ShardSpec`: `_Plan` on the local shapes, `product`, the result taken
+    back as a DTensor whose placements follow the labels; its gradient
+    reduced onto the operands' own placements, or `given`)."""
+    given = given or _placements(a, b)
+    a, b = _resolved(eq, a, b)
+    spec = _ShardSpec(eq, a, b, [p or t.placements
+                                 for p, t in zip(given, (a, b))])
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        link = []
+        a, b = _Operands.apply(a, b, link)
+        return _permuted(_ShardProduct.apply(a, b, link, spec, product),
+                         spec.perm_out)
+    return _permuted(spec.product(a, b, product), spec.perm_out)
+
+
+class _ShardSpec:
+    """The placements of a product of local shards (`_on_shards`) of
+    operands `_resolved` laid out, its result in the lowering's order of
+    the output labels (`_Plan.mid`; `perm_out` puts them in the output's):
+    on each mesh dimension a label sharded in the output keeps its shard,
+    a summed one makes a Partial sum (as does a Partial operand beside a
+    replicated one), and an operand replicated there while the product is
+    sharded takes a
+    Partial gradient (its local gradient sums over the other's shard),
+    reduced in f32 onto `given`, the placements the operand had before
+    `_resolved` gathered or sliced it. `scale` is the number of distinct
+    local products, by which a trace charges the local GEMMs
+    (`analysis.op_cost.scaled`)."""
+
+    def __init__(self, eq, a, b, given):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        plan = _plan(eq, tuple(a.shape), tuple(b.shape))
+        (ea, eb, _), mid = plan.labels, plan.mid
+        self.eq, self.mesh, self.given = eq, a.device_mesh, given
+        self.shape, self.perm_out = torch.Size(plan.mid_out), plan.perm_out
+        self.out, self.grads, self.scale = [], ([], []), 1
+        for i in range(self.mesh.ndim):
+            ps = (a.placements[i], b.placements[i])
+            lab = [_label_on(t, ls, i) for t, ls in ((a, ea), (b, eb))]
+            j = 0 if lab[0] is not None else 1
+            if any(p.is_partial() for p in ps):
+                self.out.append(Partial())
+                self.scale *= self.mesh.size(i)
+                for k in (0, 1):
+                    self.grads[k].append(Replicate() if ps[k].is_partial()
+                                         else Partial())
+                continue
+            if lab[j] is None:
+                self.out.append(Replicate())
+            elif lab[j] in mid:
+                p = ps[j]
+                self.out.append(type(p)(mid.index(lab[j]),
+                                        split_factor=p.split_factor)
+                                if is_strided(p) else Shard(mid.index(lab[j])))
+            else:
+                self.out.append(Partial())
+            if lab[j] is not None:
+                self.scale *= self.mesh.size(i)
+            for k in (0, 1):
+                self.grads[k].append(Partial() if lab[k] is None and
+                                     lab[j] is not None else ps[k])
+
+    def product(self, a, b, product):
+        from torch.distributed.tensor import DTensor
+
+        from ..analysis.op_cost import scaled
+        al, bl = a.to_local(), b.to_local()
+        plan = _plan(self.eq, tuple(al.shape), tuple(bl.shape))
+        with scaled(self.scale):
+            c = product(*plan.operands(al, bl)).view(plan.mid_out)
+        return DTensor.from_local(c, self.mesh, self.out, run_check=False,
+                                  shape=self.shape, stride=_strides(c))
+
+    def backward(self, g, a, b, needs):
+        """The f32 gradients of `a` and `b` (None where not needed) from the
+        cotangent `g` of `product`'s result (the output before its
+        permutation), as `_Product.backward` computes them: the
+        f32 cotangent times the other operand as f32, cast to the
+        operand's dtype after its Partial sums are reduced in f32."""
+        from torch.distributed.tensor import DTensor, Replicate
+
+        from ..analysis.op_cost import scaled
+        g = redistribute(as_dtensor(g, self.mesh), [
+            Replicate() if p.is_partial() else p for p in self.out])
+        al, bl = a.to_local().float(), b.to_local().float()
+        plan = _plan(self.eq, tuple(al.shape), tuple(bl.shape))
+        a3, b3 = plan.operands(al, bl)
+        g3 = g.to_local().float().reshape(plan.shape_c3)
+        out = []
+        for k, (t, need) in enumerate(zip((a, b), needs)):
+            if not need:
+                out.append(None)
+                continue
+            with scaled(self.scale):
+                local = plan.operand_grad(
+                    k, g3.matmul(b3.mT) if k == 0 else a3.mT.matmul(g3))
+            out.append(_cast_like(DTensor.from_local(
+                local.contiguous(), self.mesh, self.grads[k],
+                run_check=False, shape=t.shape,
+                stride=_strides(t)), (self.given[k], t.dtype)))
+        return out
+
+
+def _placements(*ops):
+    return [getattr(t, "placements", None) for t in ops]
+
+
+def _strides(t):
+    """The strides of a contiguous tensor of `t`'s (global) shape."""
+    return torch.empty(t.shape, device="meta").stride()
+
+
+class _ShardProduct(torch.autograd.Function):
+    """`_ShardSpec.product` with its gradient (`_ShardSpec.backward`), the
+    operands saved ahead of it by `_Operands`, as for `_Product`."""
+
+    @staticmethod
+    def forward(ctx, a, b, link, spec, product):
+        ctx.link, ctx.spec = link, spec
+        return spec.product(a, b, product)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.link[0].saved_tensors
+        ga, gb = ctx.spec.backward(g, a, b, ctx.needs_input_grad[:2])
+        return ga, gb, None, None, None
+
+
 def einsum32(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     """einsum with an f32 result: bf16 operands on a card (or on meta) in
-    bf16 mode, f32 operands otherwise (module docstring)."""
+    bf16 mode, f32 operands otherwise (module docstring). In exec-safe mode
+    a two-operand product whose operand spans devices goes through the
+    same lowering (`f32_product`, counted under "f32_lowered"), so that its
+    flattens are planned on the layout as the bf16 route's are; plain
+    tensors keep `torch.einsum`."""
     if _bf16_route(ops):
         PRODUCTS["bf16"] += 1
         if len(ops) != 2:
             raise ValueError(f"einsum {eq!r}: the bf16 route takes two "
                              f"operands, got {len(ops)}")
-        return lowered_einsum(eq, *_gathered(eq, *ops))
-    PRODUCTS["f32"] += 1
+        return lowered_einsum(eq, *_gathered(eq, *ops),
+                              given=_placements(*ops))
     if len(ops) == 2:
-        ops = _gathered(eq, *ops)
+        given, ops = _placements(*ops), _gathered(eq, *ops)
+        if spans_devices(ops[0]) or spans_devices(ops[1]):
+            PRODUCTS["f32_lowered"] += 1
+            return lowered_einsum(eq, upcast(ops[0]), upcast(ops[1]),
+                                  f32_product, given)
+    PRODUCTS["f32"] += 1
     return torch.einsum(eq, *(upcast(o) for o in ops))
 
 
 def matmul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with an f32 result, as `einsum32`."""
+    eq = "...k,kn->...n"
+    given = _placements(a, b)
     if _bf16_route((a, b)):
         PRODUCTS["bf16"] += 1
-        return lowered_einsum("...k,kn->...n",
-                              *_gathered("...k,kn->...n", a, b))
+        return lowered_einsum(eq, *_gathered(eq, a, b), given=given)
+    a, b = _gathered(eq, a, b)
+    if spans_devices(a) or spans_devices(b):
+        PRODUCTS["f32_lowered"] += 1
+        return lowered_einsum(eq, upcast(a), upcast(b), f32_product, given)
     PRODUCTS["f32"] += 1
-    a, b = _gathered("...k,kn->...n", a, b)
     return torch.matmul(upcast(a), upcast(b))
 
 
@@ -699,8 +1051,8 @@ def split_operands(q, k, mask, split):
     target = []
     for i, p in enumerate(k.placements):
         if i in split:
-            target.append(Shard(2) if type(p).__name__ != "_StridedShard"
-                          else type(p)(2, split_factor=p.split_factor))
+            target.append(type(p)(2, split_factor=p.split_factor)
+                          if is_strided(p) else Shard(2))
         elif sharded_dim(p) == 0:
             target.append(p)
         else:
@@ -739,11 +1091,13 @@ def attention_specs(rules):
 
 class _Held(torch.autograd.Function):
     """The identity, its gradient redistributed onto the forward's
-    placements (`held`)."""
+    placements (`held`; a Partial one's gradient is replicated)."""
 
     @staticmethod
     def forward(ctx, t):
-        ctx.placements = t.placements
+        from torch.distributed.tensor import Replicate
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in t.placements)
         return t.view_as(t)
 
     @staticmethod

@@ -32,7 +32,8 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from ..parallel.sharding import NULL_RULES, replicated, shard
+from ..parallel.sharding import (NULL_RULES, replicated, shard, sharded_dim,
+                                 unshard)
 from .layers import (DTYPE, MLP, _normal_, _param, einsum32, mlp_specs,
                      sigmoid, silu)
 
@@ -135,6 +136,21 @@ def _put_rows(buf, index, rows):
     return buf
 
 
+def _merged(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """`x` with dimensions `dim` and `dim + 1` merged into one. Where the
+    second is sharded and the first is longer than one, the second is
+    gathered first: no flatten keeps it a plain shard (DTensor gives it a
+    `_StridedShard`, or refuses it: torch 2.11, even over one device), and
+    the dispatch gathers the rows anyway (its row reads by index and its
+    `searchsorted` run on whole operands)."""
+    if x.shape[dim] > 1 and any(sharded_dim(p) == dim + 1
+                                for p in getattr(x, "placements", ())):
+        x = unshard(x, (dim + 1,))
+    shape = tuple(x.shape)
+    return x.reshape(shape[:dim] + (shape[dim] * shape[dim + 1],)
+                     + shape[dim + 2:])
+
+
 def _combine(contrib: torch.Tensor) -> torch.Tensor:
     """(T, k, D) bf16 -> (T, D): each token's k contributions added in
     order into a zero bf16 row, rounding at each add (the reference's
@@ -155,7 +171,7 @@ def apply_moe(p: MoE, cfg, x: torch.Tensor, rules=NULL_RULES):
     mo = cfg.moe
     b, s, d = x.shape
     t, k, n_e = b * s, mo.top_k, mo.n_experts
-    xf = x.reshape(t, d)
+    xf = _merged(x, 0)
     w, ids, aux = route(p, cfg, xf.float())
 
     e_flat = ids.reshape(t * k)
@@ -176,7 +192,7 @@ def apply_moe(p: MoE, cfg, x: torch.Tensor, rules=NULL_RULES):
     buf = _put_rows(xf.new_zeros((n_e * cap + 1, d)),
                     (_or_spare(keep, dest, n_e * cap),), xf[tok_sorted])
     buf = shard(buf[:-1].reshape(n_e, cap, d), rules.expert_tokens)
-    y = shard(_experts(p, buf), rules.expert_tokens).reshape(n_e * cap, d)
+    y = _merged(shard(_experts(p, buf), rules.expert_tokens), 0)
 
     y_sorted = y[dest] * (w_sorted * keep.to(DTYPE))[:, None]
     # Back to (token, k) in ascending expert order: a token's k assignments
@@ -194,7 +210,7 @@ def apply_moe_cumsum(p: MoE, cfg, x: torch.Tensor, rules=NULL_RULES,
     mo = cfg.moe
     b, s, d = x.shape
     t, k, n_e = b * s, mo.top_k, mo.n_experts
-    xf = x.reshape(t, d)
+    xf = _merged(x, 0)
     w, ids, aux = route(p, cfg, xf.float())
 
     if t % groups:
@@ -215,8 +231,7 @@ def apply_moe_cumsum(p: MoE, cfg, x: torch.Tensor, rules=NULL_RULES,
     buf = _put_rows(buf, (g_ids, _or_spare(keep, dest, n_e * cap)),
                     xg[:, tok_local])
     buf = shard(buf[:, :-1].reshape(groups, n_e, cap, d), _group_spec(rules))
-    y = shard(_experts(p, buf), _group_spec(rules)).reshape(
-        groups, n_e * cap, d)
+    y = _merged(shard(_experts(p, buf), _group_spec(rules)), 1)
 
     y_tok = torch.gather(y, 1, dest[..., None].expand(groups, g_sz, d))
     y_tok = y_tok * (w.reshape(groups, g_sz).to(y.dtype)

@@ -253,11 +253,15 @@ def shard(x, spec: Optional[Spec]):
     return redistribute(x, placements(spec, x.device_mesh))
 
 
+def is_strided(p) -> bool:
+    """Whether placement `p` is a `_StridedShard`."""
+    return type(p).__name__ == "_StridedShard"
+
+
 def sharded_dim(p):
     """The tensor dimension a placement shards (a strided shard's too), or
     None."""
-    return p.dim if p.is_shard() or type(p).__name__ == "_StridedShard" \
-        else None
+    return p.dim if p.is_shard() or is_strided(p) else None
 
 
 def move_shards(x, src: int, dst: int):
@@ -454,7 +458,7 @@ def _held_of(x, dim: int):
     for p in x.placements:
         if sharded_dim(p) != dim:
             pl.append(Replicate())
-        elif type(p).__name__ == "_StridedShard":
+        elif is_strided(p):
             pl.append(type(p)(0, split_factor=p.split_factor))
         else:
             pl.append(Shard(0))
@@ -587,6 +591,82 @@ class PartialCasts(TorchDispatchMode):
         return func(*args, **kwargs)
 
 
+_VIEW_OPS = ("aten.view.default", "aten._unsafe_view.default",
+             "aten.reshape.default")
+
+
+def flattens_trailing_shard(x, shape) -> bool:
+    """Whether viewing `x` (a DTensor) as `shape` flattens a group of
+    dimensions in which one other than the leading one (dimensions of size
+    one left out) is sharded: the flatten torch 2.13's DTensor gives a
+    `_StridedShard` and torch 2.11's refuses (on a mesh dimension of one
+    device too)."""
+    from torch.distributed.tensor._ops._view_ops import Flatten, view_groups
+    sharded = {sharded_dim(p) for p in x.placements if not is_strided(p)}
+    try:
+        groups = view_groups(tuple(x.shape), tuple(shape))
+    except RuntimeError:    # not a view of x's size: the op itself raises
+        return False
+    return any(isinstance(spec, Flatten)
+               and any(d.input_dim in sharded for d in spec.input_dims[1:])
+               for spec in groups)
+
+
+def model_site() -> str:
+    """The innermost line of the port's model code on the stack
+    (`models/`, else any `repro_torch` file outside `analysis/` and
+    `parallel/`), as "file:line function"."""
+    import traceback
+    frames = traceback.extract_stack()[:-1]
+    port = [f for f in frames if "repro_torch" in f.filename
+            and "/analysis/" not in f.filename
+            and "/parallel/" not in f.filename]
+    models = [f for f in port if "/models/" in f.filename]
+    f = (models or port or frames)[-1]
+    return f"{f.filename.split('repro_torch/')[-1]}:{f.lineno} {f.name}"
+
+
+class StridedViews(TorchDispatchMode):
+    """A dispatch mode that counts (`count`, by model site in `sites`,
+    `model_site`) the views of a DTensor on a mesh of more than one device
+    whose output gains a `_StridedShard` that no input had — a flatten of
+    a sharded dimension that does not lead its group
+    (`flattens_trailing_shard`), which torch 2.13 takes with a strided
+    shard and torch 2.11 refuses (a `GatherFallback` then reruns it on
+    gathered operands, where GSPMD never gathers). Both are counted, on
+    either version, on either side of a `GatherFallback`; a
+    `analysis.collectives.CollectiveCounter` hides DTensor ops from the
+    modes below it, so enter this one after it."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+        self.sites = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        x = args[0] if args else None
+        if str(func) not in _VIEW_OPS or not spans_devices(x) \
+                or any(map(is_strided, x.placements)):
+            return func(*args, **kwargs)
+        flat = flattens_trailing_shard(x, args[1])
+        try:
+            out = func(*args, **kwargs)
+        except _SHARDING_ERRORS:
+            if flat:
+                self._record()
+            raise
+        if flat or (is_dtensor(out)
+                    and any(map(is_strided, out.placements))):
+            self._record()
+        return out
+
+    def _record(self) -> None:
+        self.count += 1
+        key = model_site()
+        self.sites[key] = self.sites.get(key, 0) + 1
+
+
 def product_strategies(batched: bool, a, b, out_dtype=None) -> list:
     """One mesh dimension's sharding strategies of `aten.mm` (`batched`
     False: (M, K) x (K, N)) or `aten.bmm` ((B, M, K) x (B, K, N)) on
@@ -602,7 +682,7 @@ def product_strategies(batched: bool, a, b, out_dtype=None) -> list:
     from torch.distributed.tensor import Partial, Replicate, Shard
     kinds = {}
     for p in (*a.placements, *b.placements):
-        if type(p).__name__ == "_StridedShard":
+        if is_strided(p):
             kinds.setdefault(p.split_factor, functools.partial(
                 type(p), split_factor=p.split_factor))
         elif isinstance(p, Shard):

@@ -150,7 +150,7 @@ def test_product_shards_as_the_default_op(meshes, mesh_name, op, pricing,
 
 def _cell(mesh, kind, safe):
     layers.set_exec_safe(safe)
-    layers.PRODUCTS.update(bf16=0, f32=0)
+    layers.PRODUCTS.update(bf16=0, f32=0, f32_lowered=0)
     cell = D.measure_cell(reduced(get_config("qwen2.5-3b")),
                           ShapeConfig("tiny", 32, 4, kind), mesh)
     return cell, dict(layers.PRODUCTS)
@@ -160,7 +160,9 @@ def _cell(mesh, kind, safe):
 def test_reduced_cell_in_bf16_mode_against_exec_safe(meshes, kind):
     bf16, routes = _cell(meshes["2x2"], kind, False)
     safe, safe_routes = _cell(meshes["2x2"], kind, True)
-    assert routes["f32"] == 0 and routes["bf16"] == safe_routes["f32"] > 0
+    assert routes["f32"] == routes["f32_lowered"] == 0
+    assert routes["bf16"] == safe_routes["f32"] + safe_routes["f32_lowered"] \
+        > 0
     assert not set(bf16["replicated_ops"]) & set(PRODUCT_OPS)
     assert bf16["gemm_flops"] == safe["gemm_flops"]
     assert sum(bf16["replicated_ops"].values()) \
@@ -173,7 +175,7 @@ def test_reduced_cell_in_bf16_mode_against_exec_safe(meshes, kind):
 
 def _product_on_dtensors(eq, a, b, safe):
     layers.set_exec_safe(safe)
-    layers.PRODUCTS.update(bf16=0, f32=0)
+    layers.PRODUCTS.update(bf16=0, f32=0, f32_lowered=0)
     with shd.GatherFallback() as fb, CollectiveCounter() as cc:
         out = layers.einsum32(eq, a, b)
     return (out, dict(layers.PRODUCTS), fb.counts,
@@ -183,7 +185,7 @@ def _product_on_dtensors(eq, a, b, safe):
 def _holds_both_routes(eq, a, b):
     out, routes, gathered, colls = _product_on_dtensors(eq, a, b, False)
     want, _, want_gathered, want_colls = _product_on_dtensors(eq, a, b, True)
-    assert routes == {"bf16": 1, "f32": 0}
+    assert routes == {"bf16": 1, "f32": 0, "f32_lowered": 0}
     assert gathered == {} == want_gathered
     assert out.dtype == torch.float32 and out.shape == want.shape
     assert out.placements == want.placements

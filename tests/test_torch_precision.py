@@ -264,7 +264,8 @@ def test_meta_and_cpu_take_the_plain_version():
         got = layers.einsum32(eq, a, b)
         mm = layers.matmul32(a.reshape(-1, D), b.reshape(D, -1))
         assert layers.PRODUCTS == {"bf16": before["bf16"],
-                                   "f32": before["f32"] + 2}
+                                   "f32": before["f32"] + 2,
+                                   "f32_lowered": before["f32_lowered"]}
         assert torch.equal(got, want)
         assert torch.equal(mm, a.reshape(-1, D).float()
                            @ b.reshape(D, -1).float())

@@ -246,18 +246,27 @@ def test_gspmd_bytes_do_not_grow_with_the_cache(reference, case):
     assert reference[f"{case} {S}"] == reference[f"{case} {2 * S}"]
 
 
-def test_prefill_keeps_the_kv_gather(reference, mesh):
-    """In `repeat_kv` mode on both sides: in grouped mode torch 2.11's
-    DTensor refuses the lowering's flatten of the grouped query's (G, S)
-    with S sharded, which the dry-run's `GatherFallback` reruns (ROADMAP
-    Queue 3); the K/V gather is the same in either mode."""
-    layers.set_gqa_mode("repeat_kv")
+@pytest.mark.parametrize("mode", ["repeat_kv", "grouped"])
+def test_prefill_keeps_the_kv_gather(reference, mesh, mode):
+    """The port in either GQA mode against the reference's `repeat_kv`
+    lowering: the K/V gather is the same in either mode. In grouped mode
+    the lowering puts the sharded query sequence ahead of G in its (G, S)
+    group (`layers._Plan`), so that no flatten gives a `_StridedShard`
+    (torch 2.13) or is refused (torch 2.11, whose refusal the dry-run's
+    `GatherFallback` would rerun gathered)."""
+    layers.set_gqa_mode(mode)
     seq = [Shard(0), Shard(1)]
-    _, port = _counted(layers.gqa_attend,
+    views = shd.StridedViews()
+
+    def attend(*args):
+        with views:     # above the counter, which hides DTensor ops below
+            return layers.gqa_attend(*args)
+    _, port = _counted(attend,
                        _meta(mesh, (PB, PS, HQ, D), seq),
                        _meta(mesh, (PB, PS, HKV, D), seq),
                        _meta(mesh, (PB, PS, HKV, D), seq),
                        _meta(mesh, (PB, PS, PS), seq, torch.bool))
+    assert views.count == 0, views.sites
     ref = reference["prefill"]
     assert ref["all-gather"] > 0
     # K and V gathered whole, bf16 (GSPMD's gather moves them in f32)

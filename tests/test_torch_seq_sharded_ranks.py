@@ -12,8 +12,10 @@ with DTensor parameters and cache, against the plain NULL_RULES run:
 every cache entry bit-equal, the logits within LOGIT_RTOL of their largest
 magnitude (f32 products on the CPU: the split softmax and the sharded
 products differ from the plain run only in the order of summation),
-nothing gathered by `GatherFallback`, and the split path taken (softmaxes
-over split keys, rows written on their shard). `write_row` at every
+nothing gathered by `GatherFallback`, no view that flattens a sharded
+dimension that does not lead its group (`parallel.sharding.StridedViews`),
+and the split path taken (softmaxes over split keys, rows written on their
+shard). `write_row` at every
 position of a cache laid out each way `Rules.kv_cache` and DTensor give
 (plain shards of T over one or both mesh dimensions, a strided shard, a
 sharded batch or heads beside it) equals the plain write.
@@ -81,4 +83,5 @@ def test_sharded_decode_matches_the_plain_run(rows, layout, arch):
     assert r["cache_bit_equal"], r
     assert r["max_abs_diff"] <= LOGIT_RTOL * r["max_abs_logit"], r
     assert r["gathered"] == {}, r
+    assert r["strided_views"] == {}, r
     assert r["split_softmax"] > 0 and r["sharded_writes"] > 0, r

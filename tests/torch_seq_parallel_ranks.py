@@ -4,7 +4,9 @@ with DTensor parameters on a real gloo group, against the plain run
 rank 0 prints one JSON line per (layout, arch): the largest difference of
 the prefill's logits, or of the train step's loss and, leaf by leaf, of
 its gradients over that leaf's largest magnitude; the ops
-`GatherFallback` gathered; and how many f32 DTensors holding a Partial sum
+`GatherFallback` gathered; the views that flattened a sharded dimension
+that does not lead its group by site (`parallel.sharding.StridedViews`);
+and how many f32 DTensors holding a Partial sum
 were cast to bf16 (`parallel.sharding.PartialCasts`). First, one line per
 block (attention, MLP): how many elements of its bf16 output on the mesh
 lie more than one bf16 ulp from the plain block's. Run by
@@ -216,12 +218,14 @@ def models(world, rank):
                 plain[kind, arch] = run(cfg, mesh, shd.NULL_RULES, batch)
             shd.GATHERED.clear()
             t0 = time.perf_counter()
-            with shd.PartialCasts() as casts:
+            with shd.PartialCasts() as casts, \
+                    shd.StridedViews() as views:
                 got = run(cfg, mesh, rules, batch)
             row = {"layout": name, "arch": arch,
                    "seconds": round(time.perf_counter() - t0, 2),
                    **compare(kind, plain[kind, arch], got),
                    "gathered": dict(shd.GATHERED),
+                   "strided_views": views.sites,
                    "partial_casts": casts.count, "cast_sites": casts.ops}
             if rank == 0:
                 print(json.dumps(row), flush=True)

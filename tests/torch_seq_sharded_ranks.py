@@ -3,7 +3,9 @@ sequence-sharded cache on a real gloo group, against the plain run
 (NULL_RULES) of the same model on the same inputs. Every rank runs it;
 rank 0 prints one JSON line per (layout, arch): whether every cache entry
 is bit-equal to the plain run's, the logits' largest difference and
-largest magnitude, the ops `GatherFallback` gathered, and how many
+largest magnitude, the ops `GatherFallback` gathered, the views that
+flattened a sharded dimension that does not lead its group by site
+(`parallel.sharding.StridedViews`), and how many
 softmaxes ran with their keys split and how many cache rows were written
 on their shard. First, one line per cache layout: whether `write_row` at
 every position of a DTensor laid out so (plain shards and a strided one
@@ -167,7 +169,8 @@ def main():
                                              batch, toks)
             shd.GATHERED.clear()
             CALLS.update(dict.fromkeys(CALLS, 0))
-            got_logits, got_cache = decode(cfg, mesh, rules, batch, toks)
+            with shd.StridedViews() as views:
+                got_logits, got_cache = decode(cfg, mesh, rules, batch, toks)
             row = {"layout": name, "arch": arch,
                    "cache_bit_equal": sorted(want_cache) == sorted(got_cache)
                    and all(torch.equal(want_cache[k], got_cache[k])
@@ -175,7 +178,8 @@ def main():
                    "max_abs_diff": float((got_logits - want_logits)
                                          .abs().max()),
                    "max_abs_logit": float(want_logits.abs().max()),
-                   "gathered": dict(shd.GATHERED), **CALLS}
+                   "gathered": dict(shd.GATHERED),
+                   "strided_views": views.sites, **CALLS}
             if rank == 0:
                 print(json.dumps(row), flush=True)
     dist.destroy_process_group()

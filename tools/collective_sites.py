@@ -10,30 +10,20 @@ cuts, not extrapolated) and attributes every collective that
 `analysis.collectives.CollectiveCounter` records, and every op that
 `parallel.sharding.GatherFallback` reruns on gathered inputs, to the
 innermost line of the port's model code on the stack (`models/`, else any
-`repro_torch` file outside `analysis/` and `parallel/`). It prints the
-sites by collective bytes a card (kind, bytes, count), the gathered ops by
-site with the shape and placements of their DTensor arguments, then the
-cell's own totals.
+`repro_torch` file outside `analysis/` and `parallel/`:
+`parallel.sharding.model_site`). It prints the sites by collective bytes a
+card (kind, bytes, count), the gathered ops by site with the shape and
+placements of their DTensor arguments, the views that flatten a sharded
+dimension that does not lead its group by site
+(`parallel.sharding.StridedViews`: a `_StridedShard` on torch 2.13, a
+refusal and a retry on torch 2.11), then the cell's own totals.
 """
 import argparse
 import sys
-import traceback
 from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-
-
-def site() -> str:
-    """The innermost model-code frame of the current stack."""
-    frames = traceback.extract_stack()[:-2]
-    port = [f for f in frames if "repro_torch" in f.filename
-            and "/analysis/" not in f.filename
-            and "/parallel/" not in f.filename]
-    models = [f for f in port if "/models/" in f.filename]
-    f = (models or port or frames)[-1]
-    name = f.filename.split("repro_torch/")[-1]
-    return f"{name}:{f.lineno} {f.name}"
 
 
 def main(argv=None) -> int:
@@ -48,6 +38,7 @@ def main(argv=None) -> int:
     from repro_torch.analysis import collectives
     from repro_torch.launch import dryrun
     from repro_torch.parallel import sharding
+    site = sharding.model_site
 
     by_site = defaultdict(lambda: [0, 0])     # (kind, site) -> bytes, count
     gathered = defaultdict(int)         # (op, site, arguments) -> count
@@ -70,8 +61,16 @@ def main(argv=None) -> int:
         gathered[(str(func), site(), shown)] += 1
         return retry(func, a, kw)
 
+    strided = defaultdict(int)      # site -> count
+    record = sharding.StridedViews._record
+
+    def recorded(self):
+        strided[site()] += 1
+        record(self)
+
     collectives.CollectiveCounter.__torch_dispatch__ = counted
     sharding._gathered_retry = retried
+    sharding.StridedViews._record = recorded
     cell = dryrun.run_cell(args.arch, args.shape, args.mesh == "multi",
                            device_type=args.device_type)
     total = sum(b for b, _ in by_site.values()) or 1
@@ -85,8 +84,12 @@ def main(argv=None) -> int:
     for (op, where, shown), n in sorted(gathered.items(),
                                         key=lambda kv: -kv[1]):
         print(f"  {n:5d} {op} {where} {'; '.join(shown)}")
+    print("strided views by site:")
+    for where, n in sorted(strided.items(), key=lambda kv: -kv[1]):
+        print(f"  {n:5d} {where}")
     print(f"cell: {cell['status']}, collectives {cell.get('collectives')}, "
-          f"gathered {cell.get('replicated_ops')}")
+          f"gathered {cell.get('replicated_ops')}, strided views "
+          f"{sum((cell.get('strided_views') or {}).values())}")
     return 0 if cell["status"] != "error" else 1
 
 

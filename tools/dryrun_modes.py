@@ -10,9 +10,10 @@ default bf16 mode (the reference's: bf16 operands into the f32-result
 product) into DIR/bf16.json, and with `models.layers.set_exec_safe(True)`
 (f32 operands) into DIR/exec_safe.json. Then it prints, for every cell
 traced in both, the trace seconds, the temp bytes (the peak live local
-bytes, a lower bound), the collective bytes per card and the gathered
-ops of each mode, and the sweep's totals, with the cards' names and power
-limits when a card is present; it writes the rows to DIR/compare.json.
+bytes, a lower bound), the collective bytes per card, the gathered ops
+and the strided views (`parallel.sharding.StridedViews`) of each mode,
+and the sweep's totals, with the cards' names and power limits when a
+card is present; it writes the rows to DIR/compare.json.
 It fails if a cell failed in either mode, if a cell's GEMM FLOPs differ
 between the modes, or if a cell's collective bytes or gathered ops are
 higher in bf16 mode. `--device-type cpu` among the dry-run arguments runs
@@ -58,6 +59,9 @@ def key(c):
 def row(b, s):
     def gathered(c):
         return sum(c.get("replicated_ops", {}).values())
+
+    def strided(c):
+        return sum((c.get("strided_views") or {}).values())
     return {"arch": b["arch"], "shape": b["shape"], "mesh": b["mesh"],
             "status": [b["status"], s["status"]],
             **({} if b["status"] != "ok" or s["status"] != "ok" else {
@@ -69,6 +73,7 @@ def row(b, s):
                 "gemm_flops": [b["gemm_flops"], s["gemm_flops"]],
                 "flops": [b["roofline"]["flops"], s["roofline"]["flops"]],
                 "gathered_ops": [gathered(b), gathered(s)],
+                "strided_views": [strided(b), strided(s)],
                 "product_ops_gathered": sorted(
                     k for k in b["replicated_ops"]
                     if k in ("aten.mm.dtype", "aten.bmm.dtype"))})}
@@ -99,7 +104,7 @@ def main(argv=None):
             if k in cells["exec_safe"]]
     (out / "compare.json").write_text(json.dumps(rows, indent=1))
     print("arch shape mesh | trace s bf16 / exec-safe | temp bytes | "
-          "collective bytes/card | gathered ops")
+          "collective bytes/card | gathered ops | strided views")
     for r in rows:
         if "trace_s" not in r:
             print(f"{r['arch']} {r['shape']} {r['mesh']} | {r['status']}")
@@ -108,13 +113,14 @@ def main(argv=None):
               f"{r['trace_s'][0]:.1f} / {r['trace_s'][1]:.1f} | "
               f"{r['temp_bytes'][0]} / {r['temp_bytes'][1]} | "
               f"{r['collective_bytes'][0]} / {r['collective_bytes'][1]} | "
-              f"{r['gathered_ops'][0]} / {r['gathered_ops'][1]}")
+              f"{r['gathered_ops'][0]} / {r['gathered_ops'][1]} | "
+              f"{r['strided_views'][0]} / {r['strided_views'][1]}")
     ok = [r for r in rows if "trace_s" in r]
     count = {m: {s: sum(c["status"] == s for c in cells[m].values())
                  for s in ("ok", "skipped", "error")} for m in cells}
     totals = {k: [sum(r[k][i] for r in ok) for i in (0, 1)]
               for k in ("trace_s", "temp_bytes", "collective_bytes",
-                        "gathered_ops")}
+                        "gathered_ops", "strided_views")}
     fell = sum(r["collective_bytes"][0] < r["collective_bytes"][1]
                for r in ok)
     print(f"cells bf16 {count['bf16']}, exec-safe {count['exec_safe']}; "
@@ -124,7 +130,9 @@ def main(argv=None):
           f"B, collectives/card {totals['collective_bytes'][0]} / "
           f"{totals['collective_bytes'][1]} B (lower in {fell} cells), "
           f"gathered ops {totals['gathered_ops'][0]} / "
-          f"{totals['gathered_ops'][1]}; sweep walls "
+          f"{totals['gathered_ops'][1]}, strided views "
+          f"{totals['strided_views'][0]} / {totals['strided_views'][1]}; "
+          f"sweep walls "
           f"{walls['bf16']:.1f} / {walls['exec_safe']:.1f} s")
     bad = [f"{m} {k}: {c.get('error')}" for m in cells
            for k, c in cells[m].items() if c["status"] == "error"]
